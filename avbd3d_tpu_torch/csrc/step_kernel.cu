@@ -35,62 +35,12 @@
 // Replica symmetry: every slot computes in the canonical A/B frame (A = lower
 // body index) from canonical operands, so both replicas of a pair execute the
 // same arithmetic and their duals stay bit-identical with no synchronisation.
+// (Not on the grid tier: there the two replicas of a pair that spans two
+// logical blocks read different partner poses, and their duals differ by
+// design; see grid_kernels.cu.)
 // Built with --fmad=false and without fast math: each statement rounds as the
 // plain PyTorch version's op does (see avbd_common.cuh).
-#include "avbd_common.cuh"
-
-#define BLOCK 128
-#define NEG_BIG F(-3.0e38)
-
-struct Cache {
-  int* other;       // (DC, N)
-  int* count;       // (DC, N)
-  int* feature;     // (4, DC, N)
-  float* r_a;       // (4, 3, DC, N)
-  float* r_b;       // (4, 3, DC, N)
-  float* normal;    // (3, DC, N)
-  float* stick;     // (4, DC, N) 0/1
-  float* c0_n;      // (4, DC, N)
-  float* c0_t1;
-  float* c0_t2;
-  float* lam;       // (12, DC, N)
-  float* pen;       // (12, DC, N)
-};
-
-struct Bodies {
-  const float* pos;
-  const float* quat;
-  const float* size;
-  const float* radius;
-  const float* lv;
-  const float* av;
-  const float* plv;
-  const float* mass;
-  const float* inv_mass;
-  const float* friction;
-  const float* inertia;
-  const float* inv_inertia;
-};
-
-struct Work {
-  float* pos;       // (3, N) working / output pose
-  float* quat;      // (4, N)
-  float* lv_out;    // (3, N)
-  float* av_out;
-  float* plv_out;
-  float* pav_out;
-  float* ip;        // (3, N) inertial target
-  float* iq;        // (4, N)
-  float* geom;      // (36, DC, N): rw_a(4x3), rw_b(4x3), sep(4), slip1(4), slip2(4)
-  float* mat;       // (24, N) carried 6x6 Hessian blocks + gyro
-  int* nbc;         // (DC, N) culled neighbors
-  int* counters;    // [kept, dropped, sanitized]
-  float* diag;      // (8, 128)
-};
-
-struct Dims {
-  int n, d, dc;
-};
+#include "step_kernel.cuh"
 
 // ---------------------------------------------------------------------------
 // Narrowphase: collide_pairs_cm for one pair (ops/narrowphase_cm.py).
@@ -477,6 +427,7 @@ __global__ void __launch_bounds__(BLOCK) k_filter_cull(Dims dm, const int* nb, c
     bool partner_static = (b.inv_mass[idx] > F(0.0) ? F(1.0) : F(0.0)) < F(0.5);
     bool keep = valid && (kept_me || partner_static);
     kept += keep ? 1 : 0;
+    if (w.keptmask) w.keptmask[d * n + i] = keep ? F(1.0) : F(0.0);
     int filt = keep ? nbv : -1;
     if (!precull) {
       w.nbc[d * n + i] = filt;
@@ -723,8 +674,11 @@ struct SlotGeom {
 
 __device__ __forceinline__ void slot_geometry(const Cache& c, const Work& w, int i, int idx, bool is_a,
                                               int sl, int S, int n, V3 nu, V3 t1, V3 t2, SlotGeom* gm) {
-  V3 own_p = ld3(w.pos, i, n), oth_p = ld3(w.pos, idx, n);
-  Q4 own_q = ld4(w.quat, i, n), oth_q = ld4(w.quat, idx, n);
+  bool same_block = (idx / w.blk) == (i / w.blk);
+  const float* pp = same_block ? w.pos : w.snap_pos;
+  const float* pq = same_block ? w.quat : w.snap_quat;
+  V3 own_p = ld3(w.pos, i, n), oth_p = ld3(pp, idx, n);
+  Q4 own_q = ld4(w.quat, i, n), oth_q = ld4(pq, idx, n);
   V3 pa = is_a ? own_p : oth_p, pb = is_a ? oth_p : own_p;
   Q4 qa = is_a ? own_q : oth_q, qb = is_a ? oth_q : own_q;
   for (int s = 0; s < 4; ++s) {
@@ -1148,8 +1102,6 @@ __global__ void __launch_bounds__(CTRL_THREADS) k_final_reduce(Dims dm, Cache c,
 // Host entry point
 // ---------------------------------------------------------------------------
 
-static inline int blocks_for(int threads) { return (threads + BLOCK - 1) / BLOCK; }
-
 extern "C" {
 
 // ptrs (in order):
@@ -1220,6 +1172,10 @@ int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int n_main
   w.mat = (float*)ptrs[51];
   w.nbc = (int*)ptrs[52];
   w.counters = (int*)ptrs[53];
+  w.keptmask = nullptr;
+  w.snap_pos = w.pos;
+  w.snap_quat = w.quat;
+  w.blk = n;
 
   cudaError_t err = cudaMemsetAsync(w.counters, 0, 3 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;

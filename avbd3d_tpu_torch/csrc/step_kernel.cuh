@@ -1,0 +1,78 @@
+// The contact step's device operands and kernels, shared by the fused step
+// (step_kernel.cu, K1) and the grid tier (grid_kernels.cu, K5 and K6).  The
+// kernels are defined in step_kernel.cu and launched from both files.
+#pragma once
+
+#include "avbd_common.cuh"
+
+#define BLOCK 128
+#define NEG_BIG F(-3.0e38)
+
+struct Cache {
+  int* other;       // (DC, N)
+  int* count;       // (DC, N)
+  int* feature;     // (4, DC, N)
+  float* r_a;       // (4, 3, DC, N)
+  float* r_b;       // (4, 3, DC, N)
+  float* normal;    // (3, DC, N)
+  float* stick;     // (4, DC, N) 0/1
+  float* c0_n;      // (4, DC, N)
+  float* c0_t1;
+  float* c0_t2;
+  float* lam;       // (12, DC, N)
+  float* pen;       // (12, DC, N)
+};
+
+struct Bodies {
+  const float* pos;
+  const float* quat;
+  const float* size;
+  const float* radius;
+  const float* lv;
+  const float* av;
+  const float* plv;
+  const float* mass;
+  const float* inv_mass;
+  const float* friction;
+  const float* inertia;
+  const float* inv_inertia;
+};
+
+struct Work {
+  float* pos;       // (3, N) working / output pose
+  float* quat;      // (4, N)
+  float* lv_out;    // (3, N)
+  float* av_out;
+  float* plv_out;
+  float* pav_out;
+  float* ip;        // (3, N) inertial target
+  float* iq;        // (4, N)
+  float* geom;      // (36, DC, N): rw_a(4x3), rw_b(4x3), sep(4), slip1(4), slip2(4)
+  float* mat;       // (24, N) carried 6x6 Hessian blocks + gyro
+  int* nbc;         // (DC, N) culled neighbors
+  int* counters;    // [kept, dropped, sanitized]
+  float* diag;      // (8, 128)
+  float* keptmask;  // (D, N) symmetric-filter keep mask, or null
+  // Partner poses: a slot whose partner lies in the same logical block of
+  // ``blk`` bodies reads ``pos``/``quat``; any other partner reads the
+  // launch-start poses ``snap_pos``/``snap_quat`` (the grid tier's
+  // cross-block lag).  K1 runs one block: blk = N.
+  const float* snap_pos;   // (3, N)
+  const float* snap_quat;  // (4, N)
+  int blk;
+};
+
+struct Dims {
+  int n, d, dc;
+};
+
+__global__ void __launch_bounds__(BLOCK) k_filter_cull(Dims dm, const int* nb, const int* key, const int* thr,
+                                                       Bodies b, Work w, KParams p);
+__global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, Bodies b, Work w, KParams p);
+__global__ void __launch_bounds__(BLOCK) k_geom(Dims dm, Cache c, Work w);
+__global__ void __launch_bounds__(BLOCK) k_primal(Dims dm, Cache c, Bodies b, Work w, KParams p, int rebuild,
+                                                  float alpha_cur);
+__global__ void __launch_bounds__(BLOCK) k_dual(Dims dm, Cache c, Bodies b, Work w, KParams p, int do_dual,
+                                                int ramp, float alpha_cur);
+
+static inline int blocks_for(int threads) { return (threads + BLOCK - 1) / BLOCK; }

@@ -1,9 +1,10 @@
 """Build, bind and launch the CUDA kernels of ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library lands in
-``_build/`` beside this file (listed in .gitignore), named by a hash of the
-sources and flags, so an edited source is rebuilt.  A failed build raises.
+The sources are compiled at first use with ``nvcc``, one process per source
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``.  The library lands in ``_build/`` beside
+this file (listed in .gitignore), named by a hash of the sources, headers
+and flags, so an edited source is rebuilt.  A failed build raises.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` and no fast math, so every
 float operation rounds as the plain PyTorch versions' ops do (the integer
@@ -29,10 +30,10 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-_SOURCES = ("step_kernel.cu", "control_lanes.cu")
-_HEADERS = ("avbd_common.cuh",)
+_SOURCES = ("step_kernel.cu", "grid_kernels.cu", "control_lanes.cu")
+_HEADERS = ("avbd_common.cuh", "step_kernel.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 # Order of the float parameter block (struct KParams in csrc/avbd_common.cuh).
 _PARAM_NAMES = (
@@ -81,12 +82,27 @@ def build(force: bool = False) -> _Lib:
     t0 = time.perf_counter()
     log = ""
     if force or not os.path.exists(path):
+        nvcc = _nvcc()
+        stem = path[:-len(".so")]
+        objs = [f"{stem}.{os.path.splitext(src)[0]}.{os.getpid()}.o" for src in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, src), "-o", obj],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        failed = []
+        for src, proc in zip(_SOURCES, procs):
+            out, _ = proc.communicate()
+            log += f"== {src}\n{out}"
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        for obj in objs:
+            os.remove(obj)
         os.replace(tmp, path)
     cdll = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -98,6 +114,13 @@ def build(force: bool = False) -> _Lib:
     cdll.avbd_control_lanes.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
                                         ci, ci, vp]
     cdll.avbd_control_lanes.restype = ci
+    cdll.avbd_collide_grid.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
+                                       ci, ci, ci, vp]
+    cdll.avbd_collide_grid.restype = ci
+    cdll.avbd_iterblock_grid.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
+                                         ci, ci, ci, ci, ctypes.POINTER(ci),
+                                         ctypes.POINTER(ctypes.c_float), vp]
+    cdll.avbd_iterblock_grid.restype = ci
     if cdll.avbd_n_params() != len(_PARAM_NAMES):
         raise RuntimeError(
             f"parameter block mismatch: kernel {cdll.avbd_n_params()} floats, "
@@ -190,26 +213,43 @@ def _body_operands(b, n_groups, device, names):
             for k in names]
 
 
+_CACHE_SHAPES = ((), (), (4,), (4, 3), (4, 3), (3,), (4,), (4,), (4,), (4,), (12,), (12,))
+
+
+def _cache_operands(cache_args, dc, g, device):
+    """The 12 cache leaves (stick as float32), checked."""
+    types = [torch.int32] * 3 + [torch.float32] * 9
+    return [_check(t, f"cache[{j}]", s + (dc, g, 128), dt, device)
+            for j, (t, s, dt) in enumerate(zip(cache_args, _CACHE_SHAPES, types))]
+
+
+def _empty_as(tensors):
+    """Uninitialised outputs shaped as ``tensors``; ``torch.empty`` is one
+    dispatcher op where ``empty_like`` is two, once per output per step."""
+    return [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+
+
+def _cuda_device(b):
+    dev = b.pos.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels need CUDA tensors")
+    return dev
+
+
 def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
                 n_main: int, k_rebuild: int):
     """Run the fused step kernel.  ``cache_args``: the 12 old cache leaves
     (stick as float32).  Returns (12 new cache leaves, 6 body leaves,
     diag (8, 128))."""
     lib = build()
-    dev = b.pos.device
-    if dev.type != "cuda":
-        raise ValueError("launch_step needs CUDA tensors")
+    dev = _cuda_device(b)
     d, g, _ = nb.shape
     dc = cache_args[0].shape[0]
     n = g * 128
     if dc > d:
         raise ValueError(f"cache width {dc} must be <= candidate width {d}")
     f32, i32 = torch.float32, torch.int32
-    cache_shapes = [(dc,), (dc,), (4, dc), (4, 3, dc), (4, 3, dc), (3, dc), (4, dc),
-                    (4, dc), (4, dc), (4, dc), (12, dc), (12, dc)]
-    cache_types = [i32, i32, i32] + [f32] * 9
-    old = [_check(t, f"cache[{j}]", s + (g, 128), dt, dev)
-           for j, (t, s, dt) in enumerate(zip(cache_args, cache_shapes, cache_types))]
+    old = _cache_operands(cache_args, dc, g, dev)
     ins = [_check(nb, "nb", (d, g, 128), i32, dev), _check(key, "key", (d, g, 128), i32, dev),
            _check(thr, "thr", (g, 128), i32, dev)]
     ins += _body_operands(b, g, dev, ("pos", "quat", "size", "radius", "linvel", "angvel",
@@ -217,8 +257,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
                                       "inertia", "inv_inertia"))
     ins += [_check(anchor, "anchor", (3, g, 128), f32, dev),
             _check(anchor_quat, "anchor_quat", (4, g, 128), f32, dev)]
-    new = [torch.empty(s + (g, 128), dtype=dt, device=dev)
-           for s, dt in zip(cache_shapes, cache_types)]
+    new = _empty_as(old)
     body_out = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 4, 3, 3, 3, 3)]
     diag = torch.empty((8, 128), dtype=f32, device=dev)
     scratch = [torch.empty(s, dtype=f32, device=dev)
@@ -236,9 +275,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
 def launch_control(nb, b, anchor, anchor_quat, params):
     """Run the control-lanes kernel; returns the (5,) float32 lanes."""
     lib = build()
-    dev = b.pos.device
-    if dev.type != "cuda":
-        raise ValueError("launch_control needs CUDA tensors")
+    dev = _cuda_device(b)
     d, g, _ = nb.shape
     f32 = torch.float32
     ins = [_check(nb, "nb", (d, g, 128), torch.int32, dev)]
@@ -251,3 +288,69 @@ def launch_control(nb, b, anchor, anchor_quat, params):
                                        _stream(dev))
     _raise_on(code, "control-lanes kernel launch")
     return out
+
+
+def launch_collide_grid(cache_args, nb, key, thr, b, params):
+    """Run K5, the grid tier's collide.  ``cache_args``: the 12 old cache
+    leaves (stick as float32).  Returns (12 new cache leaves, kept mask
+    (D, G, 128) f32, once mask (DC, G, 128) bool, dropped manifolds () i32)."""
+    lib = build()
+    dev = _cuda_device(b)
+    d, g, _ = nb.shape
+    dc = cache_args[0].shape[0]
+    if dc > d:
+        raise ValueError(f"cache width {dc} must be <= candidate width {d}")
+    i32 = torch.int32
+    old = _cache_operands(cache_args, dc, g, dev)
+    ins = [_check(nb, "nb", (d, g, 128), i32, dev), _check(key, "key", (d, g, 128), i32, dev),
+           _check(thr, "thr", (g, 128), i32, dev)]
+    ins += _body_operands(b, g, dev, ("pos", "quat", "size", "inv_mass"))
+    new = _empty_as(old)
+    keptmask = torch.empty((d, g, 128), dtype=torch.float32, device=dev)
+    once = torch.empty((dc, g, 128), dtype=torch.bool, device=dev)
+    nbc = torch.empty((dc, g, 128), dtype=i32, device=dev)
+    counters = torch.empty((3,), dtype=i32, device=dev)
+    tensors = old + ins + new + [keptmask, once, nbc, counters]
+    code = lib.cdll.avbd_collide_grid(_ptrs(tensors), _fparams(params), g * 128, d, dc,
+                                      _stream(dev))
+    _raise_on(code, "grid collide kernel launch")
+    return new, keptmask, once, counters[1]
+
+
+def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, params,
+                          blk: int, spec):
+    """Run K6: ``len(spec)`` iterations, (alpha, do_dual, rebuild, ramp)
+    each, from the launch-start poses, partners outside a slot's logical
+    block of ``blk`` bodies read at those poses.  Returns (pos, quat, lam,
+    pen, stick f32, sep (4, DC, G, 128))."""
+    lib = build()
+    dev = _cuda_device(b)
+    dc, g, _ = contacts.other.shape
+    n = g * 128
+    if blk <= 0 or n % blk:
+        raise ValueError(f"logical block of {blk} bodies does not divide N = {n}")
+    f32, i32 = torch.float32, torch.int32
+    slot = (dc, g, 128)
+    ins = [_check(contacts.other, "other", slot, i32, dev),
+           _check(contacts.count, "count", slot, i32, dev),
+           _check(contacts.r_a, "r_a", (4, 3) + slot, f32, dev),
+           _check(contacts.r_b, "r_b", (4, 3) + slot, f32, dev),
+           _check(contacts.normal, "normal", (3,) + slot, f32, dev)]
+    ins += [_check(getattr(contacts, k), k, (4,) + slot, f32, dev)
+            for k in ("c0_n", "c0_t1", "c0_t2")]
+    carry = [_check(pos, "pos", (3, g, 128), f32, dev), _check(quat, "quat", (4, g, 128), f32, dev),
+             _check(lam, "lam", (12,) + slot, f32, dev), _check(pen, "pen", (12,) + slot, f32, dev),
+             _check(stickf, "stick", (4,) + slot, f32, dev)]
+    ins += carry
+    ins += _body_operands(b, g, dev, ("mass", "inv_mass", "friction", "inertia", "inv_inertia"))
+    ins += [_check(ip, "ip", (3, g, 128), f32, dev), _check(iq, "iq", (4, g, 128), f32, dev)]
+    outs = _empty_as(carry)
+    geom = torch.empty((36,) + slot, dtype=f32, device=dev)
+    scratch = [geom, torch.empty((24, n), dtype=f32, device=dev)]
+    flags = (ctypes.c_int * (3 * len(spec)))(
+        *[int(v) for _a, do_dual, rebuild, ramp in spec for v in (do_dual, rebuild, ramp)])
+    alphas = (ctypes.c_float * len(spec))(*[a for a, *_ in spec])
+    code = lib.cdll.avbd_iterblock_grid(_ptrs(ins + outs + scratch), _fparams(params), n, dc,
+                                        int(blk), len(spec), flags, alphas, _stream(dev))
+    _raise_on(code, "grid iteration kernel launch")
+    return tuple(outs) + (geom[24:28],)

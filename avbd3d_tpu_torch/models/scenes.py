@@ -226,24 +226,30 @@ def _hash01(x: int) -> float:
     return (x & 0x00FFFFFF) / 16777215.0
 
 
-def _scene_stress_n(nx, ny, nz, max_degree=24, cache_degree=12):
+def _scene_stress_n(nx, ny, nz, max_degree=24, cache_degree=12, order="yzx"):
     """Hash-jittered falling cube grid (scenes.h:87-132) of nx*ny*nz cubes
-    with the Stress1000 tuning; Stress1000 is the 10x10x10 case."""
+    with the Stress1000 tuning; Stress1000 is the 10x10x10 case.
+
+    ``order``: body index order.  "yzx" is the reference loop nest (y
+    outer); "xzy" numbers the cubes x-major, so the grid tier's body blocks
+    are x-slabs of the spawn grid and most contact pairs stay inside one
+    block.  The jitter depends on the grid cell only."""
     sb = SceneBuilder()
     _ground(sb)
     spacing_xz, spacing_y = 1.15, 2.0
     start_y, jitter_xz, jitter_y = 20.0, 0.04, 0.25
-    for y in range(ny):
-        for z in range(nz):
-            for x in range(nx):
-                seed = (x + nx * (z + nz * y) + 1) & 0xFFFFFFFF
-                jx = (_hash01((seed * 9781) & 0xFFFFFFFF) * 2.0 - 1.0) * jitter_xz
-                jz = (_hash01((seed * 6271) & 0xFFFFFFFF) * 2.0 - 1.0) * jitter_xz
-                jy = _hash01((seed * 3343) & 0xFFFFFFFF) * jitter_y
-                px = (x - (nx - 1) * 0.5) * spacing_xz + jx
-                py = start_y + y * spacing_y + jy
-                pz = (z - (nz - 1) * 0.5) * spacing_xz + jz
-                sb.add_body((1, 1, 1), 1.0, 0.5, (px, py, pz))
+    cells = [(x, y, z) for y in range(ny) for z in range(nz) for x in range(nx)]
+    if order == "xzy":
+        cells.sort(key=lambda c: (c[0], c[2], c[1]))
+    for x, y, z in cells:
+        seed = (x + nx * (z + nz * y) + 1) & 0xFFFFFFFF
+        jx = (_hash01((seed * 9781) & 0xFFFFFFFF) * 2.0 - 1.0) * jitter_xz
+        jz = (_hash01((seed * 6271) & 0xFFFFFFFF) * 2.0 - 1.0) * jitter_xz
+        jy = _hash01((seed * 3343) & 0xFFFFFFFF) * jitter_y
+        px = (x - (nx - 1) * 0.5) * spacing_xz + jx
+        py = start_y + y * spacing_y + jy
+        pz = (z - (nz - 1) * 0.5) * spacing_xz + jz
+        sb.add_body((1, 1, 1), 1.0, 0.5, (px, py, pz))
     # The documented stress tuning (see avbd3d_tpu scene_stress1000): 20
     # sweeps, the landing cascade on the same 4-iteration AL blocks as the
     # calm regime, D=24 candidate slots, cache width 12.
@@ -257,6 +263,22 @@ def scene_stress1000():
     return _scene_stress_n(10, 10, 10)
 
 
+def scene_stress2048():
+    """13x12x13 = 2028 cubes, padded to N = 2048: the largest scene of the
+    fused step path."""
+    return _scene_stress_n(13, 12, 13)
+
+
+def scene_stress4096():
+    """16x16x16 = 4096 cubes, padded to N = 5120 (G = 40): the grid tier
+    (solver_grid).  The reference's validated plan (its scenes.py:558-579):
+    D = 28 candidate slots and DC = 16 cache slots (the broadphase degree
+    peaks at 24 and the near degree at 12 over a 1000-step fall and
+    settle), and x-major body order so the grid tier's cross-block pose lag
+    touches only slab-boundary contacts."""
+    return _scene_stress_n(16, 16, 16, max_degree=28, cache_degree=16, order="xzy")
+
+
 SCENES = {
     "Empty": scene_empty,
     "Ground": scene_ground,
@@ -265,6 +287,8 @@ SCENES = {
     "Wall": scene_wall,
     "TwoBlockDrop": scene_two_block_drop,
     "Stress1000": scene_stress1000,
+    "Stress2048": scene_stress2048,
+    "Stress4096": scene_stress4096,
 }
 
 SCENE_NAMES = list(SCENES.keys())

@@ -24,6 +24,9 @@ from .. import cm
 
 INT32_MIN = -(2**31) + 1
 INT32_MAX = 2**31 - 1
+# Above this many bodies candidate_lists takes its rows in blocks
+# (the reference's block_rows).
+BLOCK_ROWS = 2048
 
 
 def gather(table, idx):
@@ -88,6 +91,42 @@ def refresh_scalar(bp: BroadphaseCache, dv, b, exclusions, degree: int,
     f32 = np.float32
     need = bool((f32(dv[14]) > f32(0.5 * margin))
                 | (f32(dv[15]) > f32(dv[16]) + f32(margin)))
+    return refresh_or_reuse(bp, need, b, exclusions, degree, margin)
+
+
+def anchor_deviation(pos_cg, quat_cg, radius_g, dynamic_g, anchor, anchor_quat):
+    """The cached lists' two reuse bounds (the reference's BroadphaseCache
+    docstring): over moved bodies, the largest surface motion since the
+    anchor poses net of the mean displacement (|disp - t| + chord), and the
+    largest raw one (|disp| + chord).  Returns (dev_mm, dev_raw) () f32."""
+    disp = [pos_cg[k] - anchor[k] for k in range(3)]
+    disp2 = disp[0] * disp[0] + disp[1] * disp[1] + disp[2] * disp[2]
+    moved = dynamic_g | (disp2 > 0.0)
+    chord = _rot_chord(tuple(quat_cg), tuple(anchor_quat), radius_g)
+    mf = moved.to(torch.float32)
+    nm = torch.clamp(torch.sum(mf), min=1.0)
+    t = [torch.sum(d * mf) / nm for d in disp]
+    e = [disp[k] - t[k] for k in range(3)]
+    dev = torch.sqrt(e[0] * e[0] + e[1] * e[1] + e[2] * e[2]) + chord
+    dev_mm = torch.max(torch.where(moved, dev, 0.0))
+    dev_raw = torch.max(torch.where(moved, torch.sqrt(disp2) + chord, 0.0))
+    return dev_mm, dev_raw
+
+
+def refresh_needed(bp: BroadphaseCache, b, margin: float):
+    """The refresh predicate of ``refresh_or_reuse`` (reference
+    broadphase.py:153-188) by device reductions on the current state, as a
+    () bool tensor; the bounds compare in float32."""
+    dev_mm, dev_raw = anchor_deviation(b.pos, b.quat, b.radius, b.dynamic,
+                                       bp.anchor, bp.anchor_quat)
+    half = torch.tensor(0.5 * margin, dtype=torch.float32, device=dev_mm.device)
+    return (dev_mm > half) | (dev_raw > bp.slack + np.float32(margin))
+
+
+def refresh_or_reuse(bp: BroadphaseCache, need: bool, b, exclusions, degree: int,
+                     margin: float):
+    """Rebuild the candidate lists when ``need`` (the predicate, read on the
+    host) says the cached superset no longer holds.  Returns (cache, need)."""
     return (build_bp_cache(b, exclusions, degree, margin) if need else bp), need
 
 
@@ -96,8 +135,12 @@ def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
     """Per-body candidate slots, deepest-gap first, as unique int32 keys.
 
     Returns nb (D, G, 128), key (D, G, 128), thr (G, 128), the directed
-    candidate count () int32 and the mover-static slack () f32 — the
-    reference's whole-matrix path (N <= 2048, one row block)."""
+    candidate count () int32 and the mover-static slack () f32.  Above
+    ``BLOCK_ROWS`` bodies the rows are taken in blocks (the largest
+    multiple of 128 rows <= ``BLOCK_ROWS`` that divides N), so every
+    intermediate is (block, N), never (N, N); the key constants are global,
+    so the blocks give the whole-matrix result (reference
+    broadphase.py:231-387)."""
     g = radius_g.shape[0]
     n = g * 128
     dev = radius_g.device
@@ -106,45 +149,57 @@ def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
     wh = [wh_cg[k].reshape(n) for k in range(3)]
     radius = radius_g.reshape(n)
     dynamic = dynamic_g.reshape(n)
+    excl = [exclusions[e].reshape(n) for e in range(exclusions.shape[0])]
 
     q_max = (2**31 - 1) // n - 1
     max_wh = torch.maximum(torch.maximum(wh[0].max(), wh[1].max()), wh[2].max())
     gap_range = torch.clamp(2.0 * max_wh + margin, min=1e-6)
-
-    rsum = radius[:, None] + radius[None, :] + margin
-    ii = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-    jj = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
-    gap = torch.maximum(
-        torch.maximum(
-            torch.abs(px[:, None] - px[None, :]) - (wh[0][:, None] + wh[0][None, :]),
-            torch.abs(py[:, None] - py[None, :]) - (wh[1][:, None] + wh[1][None, :]),
-        ),
-        torch.abs(pz[:, None] - pz[None, :]) - (wh[2][:, None] + wh[2][None, :]),
-    ) - margin
-    # rsum > margin rejects padding bodies (sentinel negative radius).
-    mask = (gap <= 0.0) & (rsum > margin) & (ii != jj) & dynamic[:, None]
-    for e in range(exclusions.shape[0]):
-        mask &= jj != exclusions[e].reshape(n)[:, None]
-    cand = torch.sum(mask.to(torch.int32)).to(torch.int32)
-
-    # (gap, partner) packed into one strictly increasing int32 key.  The
-    # scale is a float32 division q_max / range (not a reciprocal times
+    # The scale is a float32 division q_max / range (not a reciprocal times
     # q_max), as in the reference.
     scale = torch.full_like(gap_range, float(q_max)) / gap_range
-    qq = torch.clamp((gap + gap_range) * scale, 0.0, float(q_max)).to(torch.int32)
-    key = qq * n + jj
+    jj = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
 
-    score = torch.where(mask, -key, INT32_MIN)
-    vals, nb = torch.topk(score, degree, dim=1)          # deepest first
-    valid = vals > INT32_MIN
-    nb = torch.where(valid, nb.to(torch.int32), -1)
-    key_slot = torch.where(valid, -vals, 0)
-    last = vals[:, degree - 1]
-    thr = torch.where(last > INT32_MIN, -last, INT32_MAX)
+    def row_block(r0: int, rows: int):
+        sl = slice(r0, r0 + rows)
+        rsum = radius[sl, None] + radius[None, :] + margin
+        ii = torch.arange(r0, r0 + rows, dtype=torch.int32, device=dev)[:, None]
+        gap = torch.maximum(
+            torch.maximum(
+                torch.abs(px[sl, None] - px[None, :]) - (wh[0][sl, None] + wh[0][None, :]),
+                torch.abs(py[sl, None] - py[None, :]) - (wh[1][sl, None] + wh[1][None, :]),
+            ),
+            torch.abs(pz[sl, None] - pz[None, :]) - (wh[2][sl, None] + wh[2][None, :]),
+        ) - margin
+        # rsum > margin rejects padding bodies (sentinel negative radius).
+        mask = (gap <= 0.0) & (rsum > margin) & (ii != jj) & dynamic[sl, None]
+        for e in excl:
+            mask &= jj != e[sl, None]
+        cand = torch.sum(mask.to(torch.int32)).to(torch.int32)
 
-    slack_mask = (dynamic[:, None] & ~dynamic[None, :] & (rsum > margin)
-                  & (gap > 0.0) & (ii != jj))
-    slack = torch.min(torch.where(slack_mask, gap, 1.0e9))
+        # (gap, partner) packed into one strictly increasing int32 key.
+        qq = torch.clamp((gap + gap_range) * scale, 0.0, float(q_max)).to(torch.int32)
+        key = qq * n + jj
+        score = torch.where(mask, -key, INT32_MIN)
+        vals, nb = torch.topk(score, degree, dim=1)      # deepest first
+        valid = vals > INT32_MIN
+        nb = torch.where(valid, nb.to(torch.int32), -1)
+        key_slot = torch.where(valid, -vals, 0)
+        last = vals[:, degree - 1]
+        thr = torch.where(last > INT32_MIN, -last, INT32_MAX)
+
+        slack_mask = (dynamic[sl, None] & ~dynamic[None, :] & (rsum > margin)
+                      & (gap > 0.0) & (ii != jj))
+        slack = torch.min(torch.where(slack_mask, gap, 1.0e9))
+        return nb, key_slot, thr, cand, slack
+
+    if n <= BLOCK_ROWS:
+        nb, key_slot, thr, cand, slack = row_block(0, n)
+    else:
+        block = 128 * max(bg for bg in range(1, BLOCK_ROWS // 128 + 1) if g % bg == 0)
+        parts = [row_block(r0, block) for r0 in range(0, n, block)]
+        nb, key_slot, thr = (torch.cat([p[i] for p in parts]) for i in range(3))
+        cand = torch.stack([p[3] for p in parts]).sum().to(torch.int32)
+        slack = torch.stack([p[4] for p in parts]).min()
     return (
         nb.T.contiguous().reshape(degree, g, 128),
         key_slot.T.contiguous().reshape(degree, g, 128),
@@ -208,16 +263,6 @@ def control_lanes(nb, pos_cg, quat_cg, half_cg, radius_g, linvel_cg,
     v2 = torch.where(alive, speed_sq, 0.0)
     gate_speed_sq = torch.max(v2)
     near_speed_sq = torch.max(torch.where(near, v2, 0.0))
-
-    disp = [pos_cg[k] - anchor[k] for k in range(3)]
-    disp2 = disp[0] * disp[0] + disp[1] * disp[1] + disp[2] * disp[2]
-    moved = dynamic_g | (disp2 > 0.0)
-    chord = _rot_chord(tuple(quat_cg), tuple(anchor_quat), radius_g)
-    mf = moved.to(torch.float32)
-    nm = torch.clamp(torch.sum(mf), min=1.0)
-    t = [torch.sum(d * mf) / nm for d in disp]
-    e = [disp[k] - t[k] for k in range(3)]
-    dev = torch.sqrt(e[0] * e[0] + e[1] * e[1] + e[2] * e[2]) + chord
-    dev_mm = torch.max(torch.where(moved, dev, 0.0))
-    dev_raw = torch.max(torch.where(moved, torch.sqrt(disp2) + chord, 0.0))
+    dev_mm, dev_raw = anchor_deviation(pos_cg, quat_cg, radius_g, dynamic_g,
+                                       anchor, anchor_quat)
     return torch.stack([gate_speed_sq, near_speed_sq, min_gap, dev_mm, dev_raw])

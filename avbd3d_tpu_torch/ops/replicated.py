@@ -54,6 +54,17 @@ def pair_frames(cache_other, body):
             "pa": pa, "qa": qa, "pb": pb, "qb": qb}
 
 
+def once_mask(other, dynf):
+    """(D, G, 128) mask counting each pair at one replica: the lower-index
+    side, or the dynamic side when the partner is static (static bodies own
+    no slots).  ``dynf``: (G, 128) float 1 for dynamic bodies."""
+    valid = other >= 0
+    idx = torch.where(valid, other, 0)
+    other_dyn = gather(dynf, idx) > 0.5
+    iota = body_iota(dynf.shape[0], dynf.device)[None]
+    return valid & ((iota < idx) | ~other_dyn)
+
+
 def pair_constants(cache_other, body):
     """Friction mu = sqrt(muA muB) (manifold.cpp:73) and the normal-cap
     mass scale (manifold.cpp:199-204); symmetric in the two bodies."""
@@ -319,17 +330,22 @@ def geometry_static(cache: Contacts, consts):
     }
 
 
-def geometry_pose(cache: Contacts, static, body_pose, consts):
+def geometry_pose(cache: Contacts, static, body_pose, consts, partner=None):
     """Pose-dependent geometry (manifold.cpp:184-196) at ``body_pose``
     ('pos' 3, 'quat' 4 tuples of (G, 128)): world lever arms ``rw_a``/
-    ``rw_b`` (3-tuples) and raw separation/slips, each (4, D, G, 128)."""
+    ``rw_b`` (3-tuples) and raw separation/slips, each (4, D, G, 128).
+    ``partner``: the slots' partner poses ('pos', 'quat' tuples of (D, G,
+    128)); by default gathered from ``body_pose``."""
     idx = consts["idx"]
     is_a = static["is_a"]
     n_unit, t1, t2 = static["basis"]
+    if partner is None:
+        partner = {"pos": gather_comps(body_pose["pos"], idx),
+                   "quat": gather_comps(body_pose["quat"], idx)}
     own_pos = tuple(c[None] for c in body_pose["pos"])
     own_quat = tuple(c[None] for c in body_pose["quat"])
-    pa, pb = canonical_select(is_a, own_pos, gather_comps(body_pose["pos"], idx))
-    qa, qb = canonical_select(is_a, own_quat, gather_comps(body_pose["quat"], idx))
+    pa, pb = canonical_select(is_a, own_pos, partner["pos"])
+    qa, qb = canonical_select(is_a, own_quat, partner["quat"])
     ra = cm.q_rotate(qa, (cache.r_a[:, 0], cache.r_a[:, 1], cache.r_a[:, 2]))
     rb = cm.q_rotate(qb, (cache.r_b[:, 0], cache.r_b[:, 1], cache.r_b[:, 2]))
     delta = cm.sub(cm.add(pa, ra), cm.add(pb, rb))

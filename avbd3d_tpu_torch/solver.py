@@ -2,17 +2,24 @@
 
 Port of ``avbd3d_tpu/solver.py``'s step driver (the reference).  JAX takes
 the step's branches with ``lax.cond`` on device; eager PyTorch needs them on
-the host.  Each step therefore makes ONE small device-to-host copy — the
-16-lane diagnostics vector plus the broadphase cache's ``slack`` and
-``dropped`` — and takes every gate from it: the broadphase refresh, the
-ballistic fast path and the Hessian cadence / impact-boost variant.  All
-comparisons run in float32 on both sides, as JAX compares an f32 lane
-against a weakly typed Python float (a float64 compare would flip a branch
-at the boundary).  ``step.host_reads`` counts those copies.
+the host, so each step makes ONE small device-to-host copy and takes every
+gate from it.  All comparisons run in float32 on both sides, as JAX compares
+an f32 lane against a weakly typed Python float (a float64 compare would
+flip a branch at the boundary).  ``step.host_reads`` counts those copies.
 
-A contact step runs through the fused step kernel (``solver_cuda``); a
-contact-free step runs ``_ballistic_step`` (predict/finalize in torch, then
-the control-lanes kernel).
+``select_path`` is the reference's backend dispatch with ``cap.backend``
+honoured:
+
+- the fused path (N <= 2048): the copy is the 16-lane diagnostics vector
+  plus the broadphase cache's ``slack`` and ``dropped``; it gates the
+  broadphase refresh, the ballistic fast path and the Hessian cadence /
+  impact-boost variant.  A contact step runs the fused step kernel
+  (``solver_cuda``); a contact-free step runs ``_ballistic_step`` (predict
+  and finalize in torch, then the control-lanes kernel).
+- the grid tier (contact-only, 2048 < N <= 16384, G % 8 == 0): the copy is
+  the refresh predicate (``refresh_needed``) and the unrefined speed gates
+  (``stale_lhs_ok``); the step is ``solver_grid.step_grid``.  No ballistic
+  path, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,10 +27,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import cm, solver_cuda
+from . import cm, solver_cuda, solver_grid
 from .config import Capacity, SolverParams
 from .maths import quat_conj, quat_mul, quat_normalize, quat_vec_doubled
-from .ops.broadphase import refresh_scalar
+from .ops.broadphase import refresh_needed, refresh_or_reuse, refresh_scalar
 from .state import World, make_diagnostics
 
 _F32 = np.float32
@@ -67,14 +74,29 @@ def _clamp_angular(w, max_speed):
     return w * scale
 
 
+def stale_lhs_ok(b, params: SolverParams):
+    """True when the stale-Hessian cadence is safe this step, by reduction
+    on the current state: the unrefined form (``refine=False``) of the
+    reference's stale_lhs_ok (solver.py:73-91), the only one the grid tier
+    calls.  A () bool tensor; the bound compares in float32."""
+    lv = b.linvel
+    v2 = torch.where(b.dynamic, lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], 0.0)
+    thresh = torch.tensor(params.lhs_stale_speed_max**2, dtype=torch.float32,
+                          device=v2.device)
+    return torch.max(v2) <= thresh
+
+
 def predict(b, params: SolverParams):
     """Phase 3, inertial prediction (solver.cpp:299-337), on (N, 3) rows.
-    Returns (linvel, angvel, inertial_pos, inertial_quat, sanitized)."""
+    Returns (linvel, angvel, inertial_pos, inertial_quat, pos_start,
+    quat_start, sanitized); ``pos_start`` is the accel-weighted warm start
+    of the iterations (the reference's solver.py:220-231)."""
     dt = params.dt
+    n = b.n
     dev = b.pos.device
     gravity = torch.tensor(params.gravity, dtype=torch.float32, device=dev)
     sanitized = torch.zeros((), dtype=torch.int32, device=dev)
-    dyn = b.dynamic.reshape(b.n)
+    dyn = b.dynamic.reshape(n)
 
     linvel, sanitized = _sanitize(b.linvel_n3, 0.0, sanitized)
     angvel = _clamp_angular(b.angvel_n3, params.max_angular_speed)
@@ -84,18 +106,33 @@ def predict(b, params: SolverParams):
     omega_q = torch.cat([angvel, torch.zeros_like(angvel[:, :1])], dim=-1)
     inertial_quat = quat_normalize(quat0 + quat_mul(omega_q, quat0) * (0.5 * dt))
     inertial_quat = torch.where(dyn[:, None], inertial_quat, quat0)
-    return linvel, angvel, inertial_pos, inertial_quat, sanitized
+
+    g_len = float(sum(x * x for x in params.gravity) ** 0.5)
+    if g_len > 1e-5:
+        accel = cm.div(linvel - b.prev_linvel.reshape(3, n).T, dt)
+        ghat = [x / g_len for x in params.gravity]
+        projected = accel[:, 0] * ghat[0] + accel[:, 1] * ghat[1] + accel[:, 2] * ghat[2]
+        accel_weight = torch.clamp(cm.div(projected, g_len), 0.0, 1.0)
+        accel_weight = torch.where(torch.isfinite(accel_weight), accel_weight, 0.0)
+    else:
+        accel_weight = torch.zeros((n,), dtype=torch.float32, device=dev)
+    dynf = dyn[:, None].to(torch.float32)
+    pos_start = pos0 + (linvel * dt + gravity[None, :] * (accel_weight[:, None] * dt * dt)) * dynf
+    pos_start, sanitized = _sanitize(pos_start, pos0, sanitized)
+    return linvel, angvel, inertial_pos, inertial_quat, pos_start, inertial_quat, sanitized
 
 
-def finalize_ballistic(world: World, pos_f, quat_f, linvel, angvel, sanitized,
-                       params: SolverParams) -> World:
-    """Phases 5+6 (solver.cpp:433-513) for a step with no contact rows:
-    velocities, damping, sanitize, and diagnostics lanes 0-10 (the contact
-    lanes are zero: the caller proved the cache empty)."""
-    b = world.bodies
+def finalize(world: World, b, contacts, pos_f, quat_f, pos0, quat0, linvel, angvel,
+             lam_c, sep_slots, once, overflow, sanitized, params: SolverParams,
+             degree_overflow=0) -> World:
+    """Phases 5+6 (solver.cpp:433-513; the reference's solver.py:234-317)
+    for a contact-only world: velocities, damping, sanitize, and
+    diagnostics lanes 0-10 with the control lanes 11-15 at CONTROL_RESET.
+    ``sep_slots`` (4, D, G, 128): raw separations at the final poses;
+    ``once`` (D, G, 128): one replica per pair, for counting."""
     n, g, dt = b.n, b.g, params.dt
-    dyn_n = b.dynamic.reshape(n)
-    pos0, quat0 = b.pos_n3, b.quat_n4
+    dyn = b.dynamic
+    dyn_n = dyn.reshape(n)
     new_linvel = cm.div(pos_f - pos0, dt) * params.linear_damping
     delta_q = quat_mul(quat_f, quat_conj(quat0))
     new_angvel = cm.div(quat_vec_doubled(delta_q), dt) * params.angular_damping
@@ -109,54 +146,110 @@ def finalize_ballistic(world: World, pos_f, quat_f, linvel, angvel, sanitized,
     def cg(a):
         return a.T.contiguous().reshape(a.shape[1], g, 128)
 
-    dyn = b.dynamic
     bodies = b.replace(
         pos=cg(pos_f), quat=cg(quat_f), linvel=cg(new_linvel),
         angvel=cg(new_angvel),
         prev_linvel=torch.where(dyn[None], cg(linvel), b.prev_linvel),
         prev_angvel=torch.where(dyn[None], cg(angvel), b.prev_angvel),
     )
-    # Separations are zero in a ballistic step; the slot masks still come
-    # from the carried cache, as in the reference's finalize.
-    c = world.contacts
-    valid = c.other >= 0
-    zero = torch.zeros((), dtype=torch.float32, device=b.pos.device)
-    max_violation, max_lam_n = zero, zero
-    for s in range(4):
-        ok = (s < c.count) & valid
-        max_violation = torch.maximum(max_violation, torch.max(
-            torch.where(ok, params.penetration_slop, 0.0)))
-        max_lam_n = torch.maximum(max_lam_n, torch.max(
-            torch.where(ok, torch.abs(c.lam[s * 3]), 0.0)))
+    s4 = torch.arange(4, device=b.pos.device).reshape(4, 1, 1, 1)
+    ok = (s4 < contacts.count[None]) & (contacts.other >= 0)[None]
+    max_pen = torch.max(torch.where(ok, -sep_slots, 0.0))
+    max_violation = torch.max(torch.where(ok, params.penetration_slop - sep_slots, 0.0))
+    max_lam_n = torch.max(torch.where(ok, torch.abs(lam_c[0::3]), 0.0))
     diag = make_diagnostics(
         b.pos.device,
-        max_constraint_violation=max_violation,
-        max_normal_impulse=max_lam_n,
+        max_penetration=torch.clamp(max_pen, min=0.0),
+        max_constraint_violation=torch.clamp(max_violation, min=0.0),
         max_linear_speed=torch.clamp(lin_speed.max(), min=0.0),
         max_angular_speed=torch.clamp(ang_speed.max(), min=0.0),
+        max_normal_impulse=torch.clamp(max_lam_n, min=0.0),
+        active_contacts=torch.sum(torch.where(once, contacts.count, 0)),
+        active_manifolds=torch.sum(once & (contacts.count > 0)),
         dynamic_bodies=torch.sum(dyn_n),
+        pair_overflow=overflow,
+        degree_overflow=degree_overflow,
         sanitized=sanitized,
     )
-    return world.replace(bodies=bodies, step_index=world.step_index + 1,
-                         diagnostics=diag)
+    return world.replace(bodies=bodies, contacts=contacts,
+                         step_index=world.step_index + 1, diagnostics=diag)
 
 
 def _ballistic_step(world: World, params: SolverParams) -> World:
     """Contact-free step: with zero constraint rows the primal fixed point
     is the inertial target, so the iterative solve is skipped.  The caller
     guarantees (control lane 13) that narrowphase yields no contacts."""
-    linvel, angvel, ipos, iquat, sanitized = predict(world.bodies, params)
-    out = finalize_ballistic(world, ipos, iquat, linvel, angvel, sanitized, params)
+    b = world.bodies
+    linvel, angvel, ipos, iquat, _ps, _qs, sanitized = predict(b, params)
+    c = world.contacts
+    sep = torch.zeros((4,) + c.other.shape, dtype=torch.float32, device=b.pos.device)
+    once = torch.zeros(c.other.shape, dtype=torch.bool, device=b.pos.device)
+    out = finalize(world, b, c, ipos, iquat, b.pos_n3, b.quat_n4, linvel, angvel,
+                   c.lam, sep, once, 0, sanitized, params)
     lanes = solver_cuda.control_lanes(out.bp.nb, out.bodies, out.bp.anchor,
                                       out.bp.anchor_quat, params)
     vec = torch.cat([out.diagnostics.vec[:11], lanes])
     return out.replace(diagnostics=out.diagnostics.replace(vec=vec))
 
 
+def select_path(world: World, cap: Capacity) -> str:
+    """Backend dispatch (the reference's solver.py:334-372) with
+    ``cap.backend`` honoured.  "auto": N <= 2048 takes the fused path
+    ("fused"), a contact-only scene with N <= 16384 and G % 8 == 0 the grid
+    tier ("grid"); "pallas" forces the fused path and "grid" the grid tier,
+    each raising the reference's ValueError on a scene it does not cover;
+    "xla" (the portable ``_step_impl``) is not ported."""
+    b = world.bodies
+    supports_fused = b.n <= 2048
+    supports_grid = (b.n <= 16384 and b.g % 8 == 0 and world.joints.dj == 0
+                     and world.springs.ds == 0)
+    if cap.backend == "xla":
+        raise NotImplementedError("backend='xla' (the portable _step_impl) is not ported")
+    if cap.backend == "pallas":
+        if not supports_fused:
+            raise ValueError(
+                "backend='pallas' forced on an unsupported scene "
+                f"(n={b.n}); the Pallas path covers scenes "
+                "with <= 2048 bodies (Mosaic compile ceiling)")
+        return "fused"
+    if cap.backend == "grid":
+        if not supports_grid:
+            raise ValueError(
+                "backend='grid' needs a contact-only scene with <= 16384 bodies "
+                f"and G % 8 == 0 (n={b.n}, G={b.g})")
+        return "grid"
+    if cap.backend != "auto":
+        raise ValueError(f"unknown backend {cap.backend!r}")
+    if supports_fused:
+        return "fused"
+    if supports_grid:
+        return "grid"
+    raise NotImplementedError(
+        f"n={b.n}, G={b.g}: the reference runs this scene on its XLA path, "
+        "which is not ported")
+
+
+def _grid_step(world: World, params: SolverParams, cap: Capacity) -> World:
+    """The grid tier's gates from its one host read, the broadphase refresh
+    or reuse, then ``solver_grid.step_grid``."""
+    b = world.bodies
+    calm_params = params.replace(lhs_stale_speed_max=min(
+        params.impact_speed_min, params.lhs_stale_speed_max))
+    flags = torch.stack([refresh_needed(world.bp, b, params.bp_margin),
+                         stale_lhs_ok(b, params), stale_lhs_ok(b, calm_params)])
+    step.host_reads += 1
+    refreshed, stale_ok, calm = (bool(x) for x in flags.cpu())
+    bp, _ = refresh_or_reuse(world.bp, refreshed, b, world.exclusions,
+                             cap.max_degree, params.bp_margin)
+    step.last_gates = {"refreshed": refreshed, "stale_ok": stale_ok, "calm": calm}
+    return solver_grid.step_grid(world.replace(bp=bp), params, cap, stale_ok, calm)
+
+
 def step(world: World, params: SolverParams, cap: Capacity) -> World:
     """Advance one step (solver.step of the reference, contact-only
-    scenes): fall-freeze, scalar-gated broadphase refresh, then the
-    ballistic fast path or the fused contact step."""
+    scenes): fall-freeze, then the grid tier or, on the fused path, the
+    scalar-gated broadphase refresh and the ballistic fast path or the fused
+    contact step.  ``step.last_path`` names the path taken."""
     if world.joints.dj or world.springs.ds:
         raise NotImplementedError("joints and springs are not ported yet")
     if params.fall_freeze_y > -1.0e8:
@@ -167,6 +260,9 @@ def step(world: World, params: SolverParams, cap: Capacity) -> World:
             angvel=torch.where(frozen[None], 0.0, b.angvel),
             inv_mass=torch.where(frozen, 0.0, b.inv_mass),
         ))
+    step.last_path = select_path(world, cap)
+    if step.last_path == "grid":
+        return _grid_step(world, params, cap)
 
     dv = read_control(world)
     bp, refreshed = refresh_scalar(world.bp, dv, world.bodies, world.exclusions,
@@ -190,6 +286,7 @@ def step(world: World, params: SolverParams, cap: Capacity) -> World:
 
 step.host_reads = 0
 step.last_gates = {}
+step.last_path = None
 
 
 def run_steps(world: World, params: SolverParams, cap: Capacity, n_steps: int) -> World:

@@ -34,7 +34,7 @@ from .config import SolverParams
 from .maths import solve66_cm
 from .ops import replicated as rep
 from .ops.broadphase import control_lanes as control_lanes_math
-from .ops.broadphase import gather, symmetric_filter
+from .ops.broadphase import symmetric_filter
 from .state import Contacts, Diagnostics, World
 
 CACHE_FIELDS = (
@@ -55,7 +55,8 @@ def args_to_cache(args) -> Contacts:
     return Contacts(**kw)
 
 
-def _body_dict(b):
+def body_tables(b):
+    """Body state as (G, 128) component tables for the replicated core."""
     return {
         "pos": tuple(b.pos[k] for k in range(3)),
         "quat": tuple(b.quat[k] for k in range(4)),
@@ -103,10 +104,90 @@ def collide_half(old: Contacts, nb_raw, keys, thr, b, params: SolverParams):
     """Symmetric filter + precull + narrowphase + warmstart init (the first
     half of K1; the reference's ``collide_and_init_math``).
     Returns (contacts, kept directed slots () int32, dropped manifolds)."""
-    body = _body_dict(b)
+    body = body_tables(b)
     neighbors, kept = symmetric_filter(nb_raw, keys, thr, b.inv_mass > 0.0)
     contacts, dropped = rep.collide_and_init(old, neighbors, body, params)
     return contacts, kept, dropped
+
+
+def sweeps(params: SolverParams, cache: Contacts, b, consts, ip, iq, pos, quat,
+           lam, pen, stick, plan, partner=None):
+    """The Jacobi sweeps of phase 4 (solver.cpp:340-431), one per entry
+    (alpha, do_dual, rebuild, ramp) of ``plan``: rows and primal force at
+    the current geometry, the 6x6 Hessian (rebuilt where ``rebuild``, and
+    always on the first sweep: nothing carries in), ``solve66_cm`` and the
+    relaxed pose update, then geometry at the new poses and the dual update
+    (penalty ramped where ``do_dual`` and ``ramp``).  Geometry starts at
+    ``pos``/``quat``.  ``partner(pos, quat)`` returns the slots' partner
+    poses for ``rep.geometry_pose`` (default: the current poses of all
+    bodies).  Returns (pos, quat, lam, pen, stick, geom) with ``geom`` the
+    last dual pass's geometry."""
+    dt = params.dt
+    inv_dt2 = 1.0 / (dt * dt)
+    relax = params.relaxation
+    mass = b.mass
+    inertia = tuple(b.inertia[k] for k in range(3))
+    inv_inertia = tuple(b.inv_inertia[k] for k in range(3))
+    dyn = b.inv_mass > 0.0
+    dynf = dyn.to(torch.float32)
+    static = rep.geometry_static(cache, consts)
+
+    def geom_at(p, q):
+        return rep.geometry_pose(cache, static, {"pos": p, "quat": q}, consts,
+                                 None if partner is None else partner(p, q))
+
+    geom = geom_at(pos, quat)
+    mat = None
+    for alpha, do_dual, rebuild, ramp in plan:
+        alpha_t = torch.tensor(alpha, dtype=torch.float32, device=mass.device)
+        rows = rep.eval_rows(geom, cache, consts, lam, pen, stick, alpha_t, params)
+        f = rep.primal_force(rows, pen)
+        if rebuild or mat is None:
+            iiw = _world_inertia_comps(quat, inv_inertia)
+            m = rep.body_matrix(geom, f, pen, iiw)
+            mat = m["m_ll"] + m["m_la"] + m["m_aa"] + m["gyro"]
+        m_ll, m_la, m_aa, gyro = mat[:6], mat[6:15], mat[15:21], mat[21:24]
+        forces = rep.body_forces(geom, f)
+
+        iw = _world_inertia_comps(quat, inertia)
+        rhs_l = [mass * (pos[k] - ip[k]) * inv_dt2 + forces["F"][k] for k in range(3)]
+        q_err = cm.q_mul(quat, (-iq[0], -iq[1], -iq[2], iq[3]))
+        sgn = torch.where(q_err[3] < 0.0, -2.0, 2.0)
+        rot = (q_err[0] * sgn, q_err[1] * sgn, q_err[2] * sgn)
+        rhs_a = [
+            (iw[0] * rot[0] + iw[1] * rot[1] + iw[2] * rot[2]) * inv_dt2 + forces["T"][0],
+            (iw[1] * rot[0] + iw[3] * rot[1] + iw[4] * rot[2]) * inv_dt2 + forces["T"][1],
+            (iw[2] * rot[0] + iw[4] * rot[1] + iw[5] * rot[2]) * inv_dt2 + forces["T"][2],
+        ]
+        m_dt2 = mass * inv_dt2
+        a_ll = (m_ll[0] + m_dt2, m_ll[1], m_ll[2], m_ll[3] + m_dt2, m_ll[4],
+                m_ll[5] + m_dt2)
+        a_aa = (
+            m_aa[0] + iw[0] * inv_dt2 + gyro[0],
+            m_aa[1] + iw[1] * inv_dt2,
+            m_aa[2] + iw[2] * inv_dt2,
+            m_aa[3] + iw[3] * inv_dt2 + gyro[1],
+            m_aa[4] + iw[4] * inv_dt2,
+            m_aa[5] + iw[5] * inv_dt2 + gyro[2],
+        )
+        dl, da = solve66_cm(a_ll, tuple(m_la), a_aa, tuple(rhs_l), tuple(rhs_a))
+
+        new_pos = tuple(pos[k] - relax * dl[k] * dynf for k in range(3))
+        dq = cm.q_mul((da[0] * relax, da[1] * relax, da[2] * relax,
+                       torch.zeros_like(da[0])), quat)
+        nq = _q_normalize(tuple(quat[k] - 0.5 * dq[k] for k in range(4)))
+        nq = tuple(torch.where(dyn, nq[k], quat[k]) for k in range(4))
+
+        geom = geom_at(new_pos, nq)
+        rows2 = rep.eval_rows(geom, cache, consts, rows["lam"], pen,
+                              rows["stick"], alpha_t, params)
+        lam2, pen2, stick2 = rep.dual_update(rows2, geom, pen, params.beta, params)
+        lam = lam2 if do_dual else rows2["lam"]
+        if do_dual and ramp:
+            pen = pen2
+        stick = stick2 if do_dual else rows2["stick"]
+        pos, quat = new_pos, nq
+    return pos, quat, lam, pen, stick, geom
 
 
 def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
@@ -118,9 +199,7 @@ def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
     (pos, quat, linvel, angvel, prev_linvel, prev_angvel, lam, penalty,
     stick (f32), diag (8, 128) with lanes 0-8 filled)."""
     dt = params.dt
-    inv_dt2 = 1.0 / (dt * dt)
     iters_end = n_main + (1 if params.post_stabilize else 0)
-    relax = params.relaxation
     grav = params.gravity
     g_len = float(sum(x * x for x in grav) ** 0.5)
     ghat = tuple(x / g_len for x in grav) if g_len > 1e-5 else (0.0, 0.0, 0.0)
@@ -129,8 +208,6 @@ def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
     pos0 = tuple(b.pos[k] for k in range(3))
     quat0 = tuple(b.quat[k] for k in range(4))
     mass, inv_mass = b.mass, b.inv_mass
-    inertia = tuple(b.inertia[k] for k in range(3))
-    inv_inertia = tuple(b.inv_inertia[k] for k in range(3))
     dyn = inv_mass > 0.0
     dynf = dyn.to(torch.float32)
     san = torch.zeros((), dtype=torch.float32, device=mass.device)
@@ -173,74 +250,19 @@ def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
     ps = tuple(pos0[k] + (lv[k] * dt + grav[k] * (aw * dt * dt)) * dynf
                for k in range(3))
     ps, san = _san(ps, pos0, san)
-    qs = iq
-
-    static = rep.geometry_static(cache, consts)
-
-    def geom_at(pos, quat):
-        return rep.geometry_pose(cache, static, {"pos": pos, "quat": quat}, consts)
 
     # ---- phase 4: the iterative solve (solver.cpp:340-431) ----
-    pos, quat = ps, qs
-    geom = geom_at(ps, qs)
-    lam, pen, stick = cache.lam, cache.penalty, cache.stick
-    mat = None
+    plan = []
     for it in range(iters_end):
-        rebuild = it % k_re == 0
-        ramp = (it % k_re == k_re - 1) or (it == iters_end - 1)
         if params.post_stabilize:
             alpha_cur = 1.0 if it < n_main else 0.0
         else:
             alpha_cur = params.alpha
-        alpha_t = torch.tensor(alpha_cur, dtype=torch.float32, device=mass.device)
-        rows = rep.eval_rows(geom, cache, consts, lam, pen, stick, alpha_t, params)
-        f = rep.primal_force(rows, pen)
-        if rebuild:
-            iiw = _world_inertia_comps(quat, inv_inertia)
-            m = rep.body_matrix(geom, f, pen, iiw)
-            mat = m["m_ll"] + m["m_la"] + m["m_aa"] + m["gyro"]
-        m_ll, m_la, m_aa, gyro = mat[:6], mat[6:15], mat[15:21], mat[21:24]
-        forces = rep.body_forces(geom, f)
-
-        iw = _world_inertia_comps(quat, inertia)
-        rhs_l = [mass * (pos[k] - ip[k]) * inv_dt2 + forces["F"][k] for k in range(3)]
-        q_err = cm.q_mul(quat, (-iq[0], -iq[1], -iq[2], iq[3]))
-        sgn = torch.where(q_err[3] < 0.0, -2.0, 2.0)
-        rot = (q_err[0] * sgn, q_err[1] * sgn, q_err[2] * sgn)
-        rhs_a = [
-            (iw[0] * rot[0] + iw[1] * rot[1] + iw[2] * rot[2]) * inv_dt2 + forces["T"][0],
-            (iw[1] * rot[0] + iw[3] * rot[1] + iw[4] * rot[2]) * inv_dt2 + forces["T"][1],
-            (iw[2] * rot[0] + iw[4] * rot[1] + iw[5] * rot[2]) * inv_dt2 + forces["T"][2],
-        ]
-        m_dt2 = mass * inv_dt2
-        a_ll = (m_ll[0] + m_dt2, m_ll[1], m_ll[2], m_ll[3] + m_dt2, m_ll[4],
-                m_ll[5] + m_dt2)
-        a_aa = (
-            m_aa[0] + iw[0] * inv_dt2 + gyro[0],
-            m_aa[1] + iw[1] * inv_dt2,
-            m_aa[2] + iw[2] * inv_dt2,
-            m_aa[3] + iw[3] * inv_dt2 + gyro[1],
-            m_aa[4] + iw[4] * inv_dt2,
-            m_aa[5] + iw[5] * inv_dt2 + gyro[2],
-        )
-        dl, da = solve66_cm(a_ll, tuple(m_la), a_aa, tuple(rhs_l), tuple(rhs_a))
-
-        new_pos = tuple(pos[k] - relax * dl[k] * dynf for k in range(3))
-        dq = cm.q_mul((da[0] * relax, da[1] * relax, da[2] * relax,
-                       torch.zeros_like(da[0])), quat)
-        nq = _q_normalize(tuple(quat[k] - 0.5 * dq[k] for k in range(4)))
-        nq = tuple(torch.where(dyn, nq[k], quat[k]) for k in range(4))
-
-        geom = geom_at(new_pos, nq)
-        rows2 = rep.eval_rows(geom, cache, consts, rows["lam"], pen,
-                              rows["stick"], alpha_t, params)
-        lam2, pen2, stick2 = rep.dual_update(rows2, geom, pen, params.beta, params)
-        do_dual = it < n_main
-        lam = lam2 if do_dual else rows2["lam"]
-        if do_dual and ramp:
-            pen = pen2
-        stick = stick2 if do_dual else rows2["stick"]
-        pos, quat = new_pos, nq
+        plan.append((alpha_cur, it < n_main, it % k_re == 0,
+                     (it % k_re == k_re - 1) or (it == iters_end - 1)))
+    pos, quat, lam, pen, stick, geom = sweeps(
+        params, cache, b, consts, ip, iq, ps, iq, cache.lam, cache.penalty,
+        cache.stick, plan)
 
     pos_f, san = _san(pos, pos0, san)
     quat_f, san = _san(quat, quat0, san)
@@ -256,9 +278,7 @@ def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
     nav, san = _san(nav, (0.0, 0.0, 0.0), san)
 
     # ---- phase 6: diagnostics (solver.cpp:471-513) ----
-    other_dyn = gather(dynf, consts["idx"]) > 0.5
-    iota = rep.body_iota(dynf.shape[0], dynf.device)[None]
-    once = consts["valid"] & ((iota < consts["idx"]) | ~other_dyn)
+    once = rep.once_mask(cache.other, dynf)
     ok, sep = geom["slot_ok"], geom["sep"]
     max_pen = torch.clamp(torch.max(torch.where(ok, -sep, 0.0)), min=0.0)
     max_drift = torch.clamp(

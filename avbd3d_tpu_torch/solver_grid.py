@@ -1,0 +1,209 @@
+"""The grid tier (N > 2048): the gridded collide kernel (K5), the resident
+block-Jacobi solve kernel (K6), their plain PyTorch versions, and
+``step_grid``.
+
+Port of the reference's gridded large-N backend (avbd3d_tpu/solver_tpu.py:
+1168-1817).  The reference grids its kernels over blocks of ``gb * 128``
+bodies only because of a TPU compiler ceiling; what it computes is K1's
+physics with one semantic change, kept here: a **bounded cross-block pose
+lag**.  A step's solver iterations run in launches of
+``Capacity.grid_residency``; within a launch, a contact slot whose partner
+lies in the same logical block of ``pick_gb(G) * 128`` bodies reads the
+partner's current pose, and a partner in another block is read at its
+launch-start pose.  Each launch recomputes the geometry and the Hessian
+from its start poses (nothing but poses, duals, penalties and stick latches
+carries between launches).  The logical blocks have nothing to do with
+CUDA's thread blocks.
+
+K5 (``collide_grid``, csrc/grid_kernels.cu ``avbd_collide_grid``) replaces
+``collide_and_init_grid`` (solver_tpu.py:1355): symmetric filter, precull,
+SAT, warmstart match and row init, plus the kept mask, the once-per-pair
+mask and the dropped-manifold count.  K6 (``iterblock_grid``,
+``avbd_iterblock_grid``) replaces ``_iterblock_grid_call``
+(solver_tpu.py:1614): one launch's iterations.  Each wrapper runs its plain
+version for CPU tensors and launches its kernel or raises for CUDA tensors;
+``launches`` on each wrapper counts kernel launches.  Prediction and
+finalize are the torch stages of ``solver`` (predict, finalize), as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import solver_cuda
+from .config import Capacity, SolverParams
+from .ops import replicated as rep
+from .ops.broadphase import gather, symmetric_filter
+from .state import Contacts, World
+
+
+def pick_gb(g: int) -> int:
+    """Groups of 128 bodies per logical block: the largest of 16 and 8 that
+    divides G (solver_tpu.py:1229-1236)."""
+    for gb in (16, 8):
+        if g % gb == 0:
+            return gb
+    raise ValueError(f"grid backend needs G divisible by 8, got G={g}")
+
+
+def grid_specs(params: SolverParams, n_iters: int, k_cad: int, residency: int):
+    """Static launch plan (solver_tpu.py:1654-1680): the step's iterations
+    chunked into launches of ``residency``, each iteration tagged (alpha,
+    do_dual, rebuild, ramp).  Every launch rebuilds the Hessian at its first
+    iteration; the penalty ramps at cadence-block tails, at launch tails and
+    on the final main iteration."""
+    total = n_iters + (1 if params.post_stabilize else 0)
+    r = max(1, residency)
+    launches = []
+    for s in range(0, total, r):
+        spec = []
+        for j in range(min(r, total - s)):
+            it = s + j
+            if params.post_stabilize:
+                alpha = 1.0 if it < n_iters else 0.0
+            else:
+                alpha = float(params.alpha)
+            do_dual = it < n_iters
+            rebuild = (j % k_cad) == 0
+            last_in_launch = j + 1 >= min(r, total - s)
+            nxt_rebuild = last_in_launch or (((j + 1) % k_cad) == 0)
+            ramp = nxt_rebuild or (it == n_iters - 1)
+            spec.append((alpha, do_dual, rebuild, ramp))
+        launches.append(tuple(spec))
+    return tuple(launches)
+
+
+# ---------------------------------------------------------------------------
+# K5: gridded collide
+# ---------------------------------------------------------------------------
+
+def collide_grid_plain(old: Contacts, nb_raw, keys, thr, b, params: SolverParams):
+    """Plain version of K5 (the reference's ``_collide_grid_math``; the
+    block decomposition does not change its values).  Returns (contacts,
+    kept mask (D, G, 128) f32, once mask (DC, G, 128) bool, dropped () i32)."""
+    dyn = b.inv_mass > 0.0
+    neighbors, _ = symmetric_filter(nb_raw, keys, thr, dyn)
+    new, dropped = rep.collide_and_init(old, neighbors, solver_cuda.body_tables(b), params)
+    once = rep.once_mask(new.other, dyn.to(torch.float32))
+    return new, (neighbors >= 0).to(torch.float32), once, dropped
+
+
+def collide_grid(old: Contacts, nb_raw, keys, thr, b, params: SolverParams):
+    """K5; returns what ``collide_grid_plain`` returns."""
+    if b.pos.device.type == "cpu":
+        return collide_grid_plain(old, nb_raw, keys, thr, b, params)
+    from . import kernels
+
+    cache_out, keptmask, once, dropped = kernels.launch_collide_grid(
+        solver_cuda.cache_to_args(old), nb_raw, keys, thr, b, params)
+    collide_grid.launches += 1
+    return solver_cuda.args_to_cache(cache_out), keptmask, once, dropped
+
+
+collide_grid.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: one resident launch of solver iterations
+# ---------------------------------------------------------------------------
+
+def iterblock_grid_plain(params: SolverParams, gb: int, spec, contacts: Contacts, b,
+                         pos, quat, lam, pen, stickf, ip, iq):
+    """Plain version of K6 (the reference's ``_iterblock_grid_call_math``):
+    ``len(spec)`` iterations from the launch-start poses ``pos`` (3, G, 128)
+    / ``quat`` (4, G, 128), with partners outside a slot's logical block of
+    ``gb * 128`` bodies read at their launch-start poses.  Returns (pos,
+    quat, lam, pen, stick f32, sep (4, DC, G, 128) of the last dual pass)."""
+    blk = gb * 128
+    consts = rep.pair_constants(contacts.other,
+                                {"inv_mass": b.inv_mass, "friction": b.friction})
+    idx = consts["idx"]
+    own = rep.body_iota(idx.shape[1], idx.device)[None]
+    same = torch.div(idx, blk, rounding_mode="floor") == torch.div(
+        own, blk, rounding_mode="floor")
+    start_pos = tuple(pos[k] for k in range(3))
+    start_quat = tuple(quat[k] for k in range(4))
+    lag_pos = rep.gather_comps(start_pos, idx)
+    lag_quat = rep.gather_comps(start_quat, idx)
+
+    def partner(p, q):
+        return {"pos": tuple(torch.where(same, gather(p[k], idx), lag_pos[k])
+                             for k in range(3)),
+                "quat": tuple(torch.where(same, gather(q[k], idx), lag_quat[k])
+                              for k in range(4))}
+
+    p, q, lam, pen, stick, geom = solver_cuda.sweeps(
+        params, contacts, b, consts, tuple(ip[k] for k in range(3)),
+        tuple(iq[k] for k in range(4)), start_pos, start_quat, lam, pen,
+        stickf > 0.5, spec, partner)
+    return (torch.stack(p), torch.stack(q), lam, pen, stick.to(torch.float32),
+            geom["sep"])
+
+
+def iterblock_grid(params: SolverParams, gb: int, spec, contacts: Contacts, b,
+                   pos, quat, lam, pen, stickf, ip, iq):
+    """K6; returns what ``iterblock_grid_plain`` returns."""
+    if b.pos.device.type == "cpu":
+        return iterblock_grid_plain(params, gb, spec, contacts, b, pos, quat, lam,
+                                    pen, stickf, ip, iq)
+    from . import kernels
+
+    out = kernels.launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf,
+                                        ip, iq, params, gb * 128, spec)
+    iterblock_grid.launches += 1
+    return out
+
+
+iterblock_grid.launches = 0
+
+
+def reset_launch_counts() -> None:
+    collide_grid.launches = 0
+    iterblock_grid.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The grid step
+# ---------------------------------------------------------------------------
+
+def step_grid(world: World, params: SolverParams, cap: Capacity, stale_ok: bool,
+              calm: bool) -> World:
+    """One step of the grid tier (solver_tpu.step_grid): K5, prediction,
+    the launches of K6 that ``grid_specs`` plans for the cadence ``stale_ok``
+    / ``calm`` select, sanitize and finalize.  ``world.bp`` is the step's
+    (possibly refreshed) broadphase cache; contact-only."""
+    from .solver import _sanitize, finalize, predict
+
+    b = world.bodies
+    g, n = b.g, b.n
+    gb = pick_gb(g)
+    bp = world.bp
+    contacts, keptmask, once, dropped = collide_grid(world.contacts, bp.nb, bp.key,
+                                                     bp.thr, b, params)
+    overflow = bp.cand - torch.sum(keptmask).to(torch.int32)
+
+    linvel, angvel, ipos, iquat, pos_start, quat_start, sanitized = predict(b, params)
+    pos0, quat0 = b.pos_n3, b.quat_n4
+
+    def to_cg(a):  # (N, C) -> (C, G, 128)
+        return a.T.contiguous().reshape(a.shape[1], g, 128)
+
+    ip, iq = to_cg(ipos), to_cg(iquat)
+    pos, quat = to_cg(pos_start), to_cg(quat_start)
+    lam, pen, stickf = contacts.lam, contacts.penalty, contacts.stick.to(torch.float32)
+    sep = torch.zeros((4,) + contacts.other.shape, dtype=torch.float32, device=pos.device)
+    # The grid tier's gates are unrefined (stale_lhs_ok(refine=False)), so
+    # calm implies stale_ok and the fused path's variant rule gives exactly
+    # the reference's branches (solver_tpu.py:1755-1802).
+    n_iters, k = solver_cuda.select_variant(params, stale_ok, calm)
+    for spec in grid_specs(params, n_iters, k, cap.grid_residency):
+        pos, quat, lam, pen, stickf, sep = iterblock_grid(
+            params, gb, spec, contacts, b, pos, quat, lam, pen, stickf, ip, iq)
+
+    pos_f, sanitized = _sanitize(pos.reshape(3, n).T, pos0, sanitized)
+    quat_f, sanitized = _sanitize(quat.reshape(4, n).T, quat0, sanitized)
+    contacts = contacts.replace(lam=lam, penalty=pen, stick=stickf > 0.5)
+    return finalize(world, b, contacts, pos_f, quat_f, pos0, quat0, linvel, angvel,
+                    lam, sep, once, overflow, sanitized, params,
+                    degree_overflow=dropped)

@@ -60,7 +60,8 @@ def test_config_defaults_match_reference(cls):
     assert ours == ref
 
 
-@pytest.mark.parametrize("name", ["Stack", "TwoBlockDrop", "Stress1000"])
+@pytest.mark.parametrize("name", ["Stack", "TwoBlockDrop", "Stress1000", "Stress2048",
+                                  "Stress4096"])
 def test_scene_arrays_match_reference(name):
     """Numpy-only scene builder == the reference's arrays, bit for bit."""
     ref = jscenes.load_scene(name)

@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from avbd3d_tpu_torch import kernels, load_scene, run_steps, solver, solver_cuda
+from avbd3d_tpu_torch import (SceneBuilder, kernels, load_scene, run_steps, solver,
+                              solver_cuda, solver_grid)
 from avbd3d_tpu_torch.config import SolverParams
+from avbd3d_tpu_torch.convert import world_from_arrays
 from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -114,6 +116,39 @@ def test_host_reads_one_per_step():
     assert solver.step.host_reads == 4
 
 
+def touching_pile(nx, ny, nz, min_bodies, device):
+    """Ground + a pile of unit cubes whose layers overlap by 2 mm (contacts
+    from the first step), with the Stress tuning and the 28/16 plan."""
+    sb = SceneBuilder()
+    sb.add_body((100, 1, 100), 0.0, 0.5, (0, -0.5, 0))
+    for y in range(ny):
+        for z in range(nz):
+            for x in range(nx):
+                sb.add_body((1, 1, 1), 1.0, 0.5,
+                            ((x - (nx - 1) / 2) * 1.01, 0.499 + y * 0.998,
+                             (z - (nz - 1) / 2) * 1.01 + 0.003 * y))
+    params = SolverParams(iterations=20, beta=30000.0, gamma=0.995,
+                          lhs_fresh_rebuild_every=4)
+    arrays, params, cap, _ = sb.build(params, max_degree=28, cache_degree=16,
+                                      min_bodies=min_bodies)
+    return world_from_arrays(arrays, device), params, cap
+
+
+def test_grid_step_on_cpu_runs_plain_versions():
+    """A grid-tier step on CPU tensors: the K5/K6 wrappers take their plain
+    versions (no kernel launch), one host read per step, contacts found."""
+    w, p, cap = touching_pile(4, 2, 4, 1024, "cpu")
+    cap = cap.replace(backend="grid")        # N = 1024 takes the fused path on "auto"
+    solver_grid.reset_launch_counts()
+    solver.step.host_reads = 0
+    w = run_steps(w, p, cap, 2)
+    assert solver.step.last_path == "grid" and solver.step.host_reads == 2
+    assert solver_grid.collide_grid.launches == 0 and solver_grid.iterblock_grid.launches == 0
+    d = w.diagnostics.as_dict()
+    assert d["active_manifolds"] >= 32 and d["sanitized"] == 0 and d["pair_overflow"] == 0
+    assert d["gate_speed_sq"] == 1.0e9      # finalize resets the control lanes
+
+
 # ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version (N = 1024 widths).
 # ---------------------------------------------------------------------------
@@ -152,3 +187,56 @@ def test_cuda_control_lanes_match_plain(cuda_stress):
     lk = solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, sc.params)
     lp = solver_cuda.control_lanes_plain(bp.nb, b, bp.anchor, bp.anchor_quat, sc.params)
     torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture
+def cuda_grid():
+    """Stress4096's widths (N = 5120, D = 28, DC = 16) on a touching 16^3
+    pile after 20 grid steps, with the next step's broadphase cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    kernels.build()
+    w, p, cap = touching_pile(16, 16, 16, 0, "cuda")
+    w = run_steps(w, p, cap, 20)
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, cap.max_degree, p.bp_margin))
+    return w, p, cap
+
+
+@pytest.mark.cuda
+def test_cuda_collide_grid_matches_plain(cuda_grid):
+    w, p, cap = cuda_grid
+    args = (w.contacts, w.bp.nb, w.bp.key, w.bp.thr, w.bodies, p)
+    cp, kp, op, dp = solver_grid.collide_grid_plain(*args)
+    ck, kk, ok, dk = solver_grid.collide_grid(*args)
+    torch.cuda.synchronize()
+    for f in solver_cuda.CACHE_FIELDS:
+        a, b = getattr(cp, f), getattr(ck, f)
+        if a.dtype.is_floating_point:
+            assert float(((a - b).abs() / (a.abs() + 1.0)).max()) <= 1e-5, f
+        else:
+            assert torch.equal(a, b), f
+    assert torch.equal(kp, kk) and torch.equal(op, ok) and int(dp) == int(dk)
+    assert int((ck.count > 0).sum()) > 10000
+
+
+@pytest.mark.cuda
+def test_cuda_iterblock_grid_matches_plain(cuda_grid):
+    w, p, cap = cuda_grid
+    c = solver_grid.collide_grid(w.contacts, w.bp.nb, w.bp.key, w.bp.thr, w.bodies, p)[0]
+    b, g = w.bodies, w.bodies.g
+    _lv, _av, ip, iq, ps, qs, _s = solver.predict(b, p)
+
+    def cg(a):
+        return a.T.contiguous().reshape(a.shape[1], g, 128)
+
+    spec = solver_grid.grid_specs(p, p.iterations, p.lhs_rebuild_every, cap.grid_residency)[0]
+    args = (p, solver_grid.pick_gb(g), spec, c, b, cg(ps), cg(qs), c.lam, c.penalty,
+            c.stick.to(torch.float32), cg(ip), cg(iq))
+    outs_p = solver_grid.iterblock_grid_plain(*args)
+    outs_k = solver_grid.iterblock_grid(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(outs_p[4], outs_k[4])                     # stick latches
+    for i in (0, 1, 5):                                          # pos, quat, sep
+        assert float((outs_p[i] - outs_k[i]).abs().max()) <= 1e-5
+    for i in (2, 3):                                             # lam, penalty
+        assert float(((outs_p[i] - outs_k[i]).abs() / (outs_p[i].abs() + 1.0)).max()) <= 1e-5
