@@ -15,22 +15,26 @@ This package never imports JAX.
 
 from .config import Capacity, SolverParams, default_params
 from .models.scenes import SCENE_NAMES, SCENES, Scene, SceneBuilder, load_scene
+from .queries import pick
 from .solver import run_steps, step
-from .state import Bodies, Contacts, Diagnostics, World
+from .state import Bodies, Contacts, Diagnostics, Joints, Springs, World
 
 __all__ = [
     "Bodies",
     "Capacity",
     "Contacts",
     "Diagnostics",
+    "Joints",
     "SCENES",
     "SCENE_NAMES",
     "Scene",
     "SceneBuilder",
     "SolverParams",
+    "Springs",
     "World",
     "default_params",
     "load_scene",
+    "pick",
     "run_steps",
     "step",
 ]

@@ -1,12 +1,24 @@
-"""Headless runner for the PyTorch port (the reference's --nogfx mode).
+"""Headless CLI of the PyTorch port: the reference's --nogfx mode.
 
     python -m avbd3d_tpu_torch.cli --nogfx --scene Stress1000 --steps 600 --bench
     python -m avbd3d_tpu_torch.cli --nogfx --scene "Rod (WIP)" --steps 5 --device cpu
 
-Prints the reference CLI's ``[Physics]`` and ``Diagnostics:`` lines
-(avbd3d_tpu/cli.py) per step, or with ``--bench`` only the final
-diagnostics and the steps/sec of the run.  The per-body trace dump of the
-reference is not ported yet.
+Port of ``avbd3d_tpu/cli.py`` (which mirrors main.cpp:189-248): flag parsing
+(--nogfx/--headless, --scene/-s, --steps/-n), per step the in-solver
+``[Physics]`` line, the dump of every body's position, orientation and
+velocities (newest body first — the C++ body list is LIFO) and the
+``Diagnostics:`` line.  The output after the first line is the reference's,
+byte for byte where the floats agree.
+
+Flags beyond the C++ program's:
+  --quiet          only the diagnostics line per step
+  --bench          no per-step host copy; prints steps/sec at the end
+  --print-every    print every K steps instead of every step
+  --log-frequency  cadence of the [Physics] line (0 disables)
+  --device         cuda (the default; raises without CUDA) or cpu (the
+                   kernels' plain versions)
+
+The first line is the reference's up to ``steps=N``; the device follows it.
 """
 
 from __future__ import annotations
@@ -19,10 +31,22 @@ import torch
 
 from .models.scenes import SCENE_NAMES, load_scene
 from .solver import step
+from .utils.native import format_step
+
+
+def _dump_step(step_idx: int, world, n_real: int, out) -> None:
+    """The per-body dump, from ONE device-to-host copy of the four leaves."""
+    b = world.bodies
+    rows = torch.cat([b.pos, b.quat, b.linvel, b.angvel]).reshape(13, -1)[:, :n_real]
+    host = rows.T.contiguous().cpu().numpy()
+    out.write(format_step(step_idx, host[:, 0:3], host[:, 3:7], host[:, 7:10],
+                          host[:, 10:13], n_real))
 
 
 def _physics_line(step_index: int, d: dict, out) -> None:
-    """The in-solver diagnostics line (solver.cpp:503-513)."""
+    """The in-solver diagnostics line (solver.cpp:503-513): printed every
+    ``logFrequency`` steps; headless mode forces frequency 1
+    (main.cpp:207-208).  ``step_index`` is the solver's 1-based counter."""
     out.write(
         "[Physics] step %d | manifolds: %d | contacts: %d | dyn bodies: %d "
         "| maxPen: %.6f | maxDrift: %.6f | maxLin: %.3f | maxAng: %.3f "
@@ -58,11 +82,19 @@ def main(argv=None) -> int:
     parser.add_argument("--nogfx", "--headless", action="store_true", dest="headless")
     parser.add_argument("--scene", "-s", default="TwoBlockDrop", choices=SCENE_NAMES)
     parser.add_argument("--steps", "-n", type=int, default=300)
+    parser.add_argument("--quiet", action="store_true", help="diagnostics only")
     parser.add_argument("--bench", action="store_true", help="time steps/sec")
+    parser.add_argument("--print-every", type=int, default=1)
+    parser.add_argument(
+        "--log-frequency", type=int, default=1,
+        help="[Physics] line cadence (solver.logFrequency; headless forces "
+        "diagnostics on with frequency 1, main.cpp:207-208); 0 disables")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on: cuda (the default; raises "
                              "without CUDA) or cpu (the kernels' plain versions)")
     args = parser.parse_args(argv)
+    if args.print_every < 1:
+        parser.error("--print-every must be >= 1")
 
     scene = load_scene(args.scene, device=args.device)
     world, params, cap = scene.world, scene.params, scene.cap
@@ -87,9 +119,21 @@ def main(argv=None) -> int:
 
     for i in range(args.steps):
         world = step(world, params, cap)
+        # The solver's [Physics] line first (printed from inside
+        # Solver::step in the C++ program), then main's per-body dump.
+        log = args.log_frequency > 0 and (i + 1) % args.log_frequency == 0
+        quiet_step = bool((i + 1) % args.print_every) and i != args.steps - 1
+        if not log and quiet_step:
+            continue
         d = world.diagnostics.as_dict()
-        _physics_line(i + 1, d, out)
-        out.write(f"Step {i}:\n")
+        if log:
+            _physics_line(i + 1, d, out)
+        if quiet_step:
+            continue
+        if not args.quiet:
+            _dump_step(i, world, scene.n_real, out)
+        else:
+            out.write(f"Step {i}:\n")
         _dump_diag(d, out)
     return 0
 

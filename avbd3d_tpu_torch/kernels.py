@@ -30,7 +30,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-_SOURCES = ("step_kernel.cu", "grid_kernels.cu", "control_lanes.cu")
+_SOURCES = ("step_kernel.cu", "grid_kernels.cu", "control_lanes.cu", "bp_probe.cu")
 _HEADERS = ("avbd_common.cuh", "step_kernel.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -121,6 +121,9 @@ def build(force: bool = False) -> _Lib:
     cdll.avbd_control_lanes.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
                                         ci, ci, vp]
     cdll.avbd_control_lanes.restype = ci
+    cdll.avbd_bp_probe.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
+                                   ci, ci, vp]
+    cdll.avbd_bp_probe.restype = ci
     cdll.avbd_collide_grid.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
                                        ci, ci, ci, vp]
     cdll.avbd_collide_grid.restype = ci
@@ -387,6 +390,33 @@ def launch_control(nb, b, anchor, anchor_quat, params):
                                        _stream(dev))
     _raise_on(code, "control-lanes kernel launch")
     return out
+
+
+def launch_bp_probe(nb, b, params):
+    """Run K7, the broadphase probe; returns (min_sep () f32, n_slots ()
+    int32, near (G, 128) bool)."""
+    lib = build()
+    dev = _cuda_device(b)
+    d, g, _ = nb.shape
+    ins = [_check(nb, "nb", (d, g, 128), torch.int32, dev)]
+    ins += _body_operands(b, g, dev, ("pos", "quat", "size", "radius", "linvel", "angvel"))
+    min_sep = torch.empty((), dtype=torch.float32, device=dev)
+    n_slots = torch.empty((), dtype=torch.int32, device=dev)
+    near = torch.empty((g, 128), dtype=torch.bool, device=dev)
+    scratch = [torch.empty((g,), dtype=torch.float32, device=dev),
+               torch.empty((g,), dtype=torch.int32, device=dev)]
+    # The probe's reach constant is written 4 * dt * dt * |g| in its plain
+    # version (the control lanes' is 4 * dt**2 * |g|, KParams.reach_const);
+    # the two can differ in the last bit before rounding to float32, so the
+    # kernel is handed the probe's own.
+    vals = param_block(params)
+    g_len = float(sum(x * x for x in params.gravity) ** 0.5)
+    vals[_PARAM_NAMES.index("reach_const")] = 4.0 * params.dt * params.dt * g_len
+    fparams = (ctypes.c_float * len(vals))(*vals)
+    code = lib.cdll.avbd_bp_probe(_ptrs(ins + [min_sep, n_slots, near] + scratch), fparams,
+                                  g * 128, d, _stream(dev))
+    _raise_on(code, "broadphase probe kernel launch")
+    return min_sep, n_slots, near
 
 
 def launch_collide_grid(cache_args, nb, key, thr, b, params):

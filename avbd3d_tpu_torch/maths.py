@@ -35,6 +35,13 @@ def quat_conj(q):
     return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
 
 
+def quat_rotate(q, v):
+    """Rotate vector by quaternion: v + 2 w (qv x v) + 2 qv x (qv x v)."""
+    qv = q[..., :3]
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + q[..., 3:4] * t + torch.linalg.cross(qv, t)
+
+
 def quat_normalize(q):
     """Identity for degenerate quats (maths.h:65)."""
     msq = torch.sum(q * q, dim=-1)

@@ -225,6 +225,58 @@ def symmetric_filter(nb, key, thr, dynamic_g):
     return torch.where(keep, nb, -1), torch.sum(keep.to(torch.int32)).to(torch.int32)
 
 
+def bp_probe(nb, pos_cg, quat_cg, half_cg, radius_g, linvel_cg, angvel_cg,
+             dt: float, collision_margin: float, grav_len: float):
+    """Probe the cached candidate slots at the current poses; plain version
+    of the broadphase probe kernel (the reference's bp_probe,
+    broadphase.py:716-782, with its statement order).  Returns
+
+      min_sep  () f32   min over valid slots of the pair's best face-axis
+                        SAT separation (1e9 when there is no slot):
+                        ``min_sep > collision_margin`` proves narrowphase
+                        finds no contact at these poses;
+      n_slots  () int32 number of valid slots (== cache.cand iff the refresh
+                        dropped none: dropped slots are unprobed);
+      near     (G, 128) bool  the body could gain a contact row this step:
+                        some slot's best separation minus one step of
+                        worst-case mutual surface travel is within
+                        ``collision_margin``."""
+    valid = nb >= 0
+    idx = torch.where(valid, nb, 0)
+    pp = [gather(pos_cg[k], idx) for k in range(3)]
+    pq = [gather(quat_cg[k], idx) for k in range(4)]
+    ph = [gather(half_cg[k], idx) for k in range(3)]
+    delta = [pp[k] - pos_cg[k][None] for k in range(3)]
+    own_ax = [[c[None] for c in ax] for ax in cm.q_axes(tuple(quat_cg))]
+    own_half = [h[None] for h in half_cg]
+    par_ax = [list(ax) for ax in cm.q_axes(tuple(pq))]
+
+    def proj(axes, half, n_vec):
+        """Projection radius of a box (3 axes, 3 half extents) onto n_vec."""
+        t = [half[k] * torch.abs(axes[k][0] * n_vec[0] + axes[k][1] * n_vec[1]
+                                 + axes[k][2] * n_vec[2]) for k in range(3)]
+        return t[0] + t[1] + t[2]
+
+    best = torch.full(nb.shape, -1.0e9, dtype=torch.float32, device=nb.device)
+    for n_vec in own_ax + par_ax:
+        sep = (torch.abs(delta[0] * n_vec[0] + delta[1] * n_vec[1] + delta[2] * n_vec[2])
+               - proj(own_ax, own_half, n_vec) - proj(par_ax, ph, n_vec))
+        best = torch.maximum(best, sep)
+    min_sep = torch.min(torch.where(valid, best, 1.0e9))
+    n_slots = torch.sum(valid.to(torch.int32)).to(torch.int32)
+
+    lv, av = linvel_cg, angvel_cg
+    speed = torch.sqrt(lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2])
+    wspin = torch.sqrt(av[0] * av[0] + av[1] * av[1] + av[2] * av[2]) \
+        * torch.clamp(radius_g, min=0.0)
+    travel = (speed + wspin) * dt
+    # The reference writes this constant 4 * dt * dt * |g| (control_lanes
+    # writes 4 * dt**2 * |g|, which can round differently in the last bit).
+    reach = travel[None] + gather(travel, idx) + 4.0 * dt * dt * grav_len
+    near = torch.any(valid & (best - reach <= collision_margin), dim=0)
+    return min_sep, n_slots, near
+
+
 def control_lanes(nb, pos_cg, quat_cg, half_cg, radius_g, linvel_cg,
                   angvel_cg, dynamic_g, anchor, anchor_quat, params):
     """The five step-control scalars (diagnostics lanes 11-15) on

@@ -76,16 +76,30 @@ def _clamp_angular(w, max_speed):
     return w * scale
 
 
-def stale_lhs_ok(b, params: SolverParams):
+def stale_lhs_ok(b, bp, params: SolverParams, refine: bool = True):
     """True when the stale-Hessian cadence is safe this step, by reduction
-    on the current state: the unrefined form (``refine=False``) of the
-    reference's stale_lhs_ok (solver.py:73-91), the only one the grid tier
-    calls.  A () bool tensor; the bound compares in float32."""
+    on the current state (the reference's stale_lhs_ok, solver.py:73-112):
+    no dynamic body is faster than ``lhs_stale_speed_max`` or, with
+    ``refine``, none of those the broadphase probe (K7,
+    ``solver_cuda.bp_probe`` on the cached slots ``bp.nb``) marks as able to
+    gain a contact row this step.  The grid tier calls it with
+    ``refine=False``; the fused path reads the same predicates from the
+    previous step's control lanes.
+
+    A () bool tensor with no host read; the bound compares in float32.  The
+    reference runs the probe under ``lax.cond`` only when the global speed
+    test fails; eager PyTorch cannot branch on the device, and ``ok_global
+    | refined`` has the same value, so the probe launches on every refined
+    call."""
     lv = b.linvel
     v2 = torch.where(b.dynamic, lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], 0.0)
     thresh = torch.tensor(params.lhs_stale_speed_max**2, dtype=torch.float32,
                           device=v2.device)
-    return torch.max(v2) <= thresh
+    ok_global = torch.max(v2) <= thresh
+    if not refine:
+        return ok_global
+    _min_sep, _n_slots, near = solver_cuda.bp_probe(bp.nb, b, params)
+    return ok_global | (torch.max(torch.where(near, v2, 0.0)) <= thresh)
 
 
 def predict(b, params: SolverParams):
@@ -239,7 +253,8 @@ def _grid_step(world: World, params: SolverParams, cap: Capacity) -> World:
     calm_params = params.replace(lhs_stale_speed_max=min(
         params.impact_speed_min, params.lhs_stale_speed_max))
     flags = torch.stack([refresh_needed(world.bp, b, params.bp_margin),
-                         stale_lhs_ok(b, params), stale_lhs_ok(b, calm_params)])
+                         stale_lhs_ok(b, world.bp, params, refine=False),
+                         stale_lhs_ok(b, world.bp, calm_params, refine=False)])
     step.host_reads += 1
     refreshed, stale_ok, calm = (bool(x) for x in flags.cpu())
     bp, _ = refresh_or_reuse(world.bp, refreshed, b, world.exclusions,

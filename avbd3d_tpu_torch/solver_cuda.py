@@ -27,6 +27,10 @@ K2 (csrc/control_lanes.cu) replaces ``control_lanes_tpu``
 (solver_tpu.py:261-273); its plain version is ``control_lanes_plain``
 (``ops.broadphase.control_lanes`` on a Bodies container).
 
+K7 (csrc/bp_probe.cu) replaces ``bp_probe_tpu`` (solver_tpu.py:206-225),
+the probe behind the refined stale-Hessian gate (``solver.stale_lhs_ok``);
+its plain version is ``bp_probe_plain`` (``ops.broadphase.bp_probe``).
+
 Each wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``launches`` on each wrapper
 counts kernel launches.
@@ -48,6 +52,7 @@ from . import cm
 from .config import Capacity, SolverParams
 from .maths import solve66_cm
 from .ops import replicated as rep
+from .ops.broadphase import bp_probe as bp_probe_math
 from .ops.broadphase import control_lanes as control_lanes_math
 from .ops.broadphase import symmetric_filter
 from .ops.joints import (joint_accumulate, joint_decay, joint_dual, joint_dual_ema,
@@ -550,9 +555,36 @@ def control_lanes(nb, b, anchor, anchor_quat, params: SolverParams):
 control_lanes.launches = 0
 
 
+def bp_probe_plain(nb, b, params: SolverParams):
+    """Plain version of K7 on the Bodies ``b``."""
+    g_len = float(sum(x * x for x in params.gravity) ** 0.5)
+    return bp_probe_math(
+        nb, tuple(b.pos[k] for k in range(3)), tuple(b.quat[k] for k in range(4)),
+        tuple(b.size[k] * 0.5 for k in range(3)), b.radius,
+        tuple(b.linvel[k] for k in range(3)), tuple(b.angvel[k] for k in range(3)),
+        params.dt, params.collision_margin, g_len)
+
+
+def bp_probe(nb, b, params: SolverParams):
+    """K7 (the reference's bp_probe_tpu): the candidate slots ``nb`` probed
+    at the poses of ``b``.  Returns (min_sep () f32, n_slots () int32, near
+    (G, 128) bool); semantics in ``ops.broadphase.bp_probe``."""
+    if b.pos.device.type == "cpu":
+        return bp_probe_plain(nb, b, params)
+    from . import kernels
+
+    out = kernels.launch_bp_probe(nb, b, params)
+    bp_probe.launches += 1
+    return out
+
+
+bp_probe.launches = 0
+
+
 def reset_launch_counts() -> None:
     step_kernel.launches = 0
     control_lanes.launches = 0
+    bp_probe.launches = 0
     collide_and_init.launches = 0
     solve_loop.launches = 0
 

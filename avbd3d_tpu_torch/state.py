@@ -279,6 +279,15 @@ def make_diagnostics(device, max_penetration=0.0, max_constraint_violation=0.0,
     return Diagnostics(vec=torch.stack(vals))
 
 
+def reset_control(diag: Diagnostics) -> Diagnostics:
+    """Invalidate the step-control block (lanes 11-15) after any change of
+    the world made outside ``step`` (a live spawn, a manual state edit):
+    forces a broadphase refresh and the fresh-Hessian cadence on the next
+    step.  Returns a new Diagnostics; ``diag`` is untouched."""
+    control = torch.tensor(CONTROL_RESET, dtype=torch.float32, device=diag.vec.device)
+    return Diagnostics(vec=torch.cat([diag.vec[:11], control]))
+
+
 @dataclasses.dataclass(frozen=True)
 class World:
     """The whole simulation state, advanced by ``solver.step``."""

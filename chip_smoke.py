@@ -44,6 +44,22 @@
 9. The profiler path: K3 and K4 against their plain versions at the
    settled Stress1000 state, utils/profile_cuda's per-phase table, and
    their times.
+10. K7 and the refined stale-Hessian gate: a second Stress1000 run of 300
+   steps (counters reset before, read after) that calls
+   ``solver.stale_lhs_ok`` refined and unrefined on every pre-step state
+   (one K7 launch per refined call, no host read) and probes the slots each
+   step used.  Checks: refined is True wherever unrefined is; wherever
+   ``min_sep > collision_margin`` with every candidate probed the step
+   finds zero contacts.  Then K7 against its plain version at the landing
+   and settled Stress1000 states, the settled Stress2048 state and the
+   settled Stress4096 state (``n_slots`` and ``near`` identical,
+   ``min_sep`` bit for bit), and its time.
+11. The application layer on the card: the headless CLI as a subprocess
+   (20 traced Stress1000 steps; ``--bench``), a checkpoint saved at the
+   landing state and resumed for 50 steps bitwise equal to the
+   uninterrupted run, ``pick`` straight down onto the settled pile, the
+   viewer's ``Sim`` (state, spawn into a padding slot, the refresh after
+   it), and utils/profile_phases' table for 50 settled steps.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -56,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -214,7 +231,7 @@ def compare_k2(world, params, label: str) -> float:
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count to 0 (K1-K6)."""
+    """Every kernel wrapper's launch count to 0 (K1-K7)."""
     from avbd3d_tpu_torch import solver_cuda, solver_grid
 
     solver_cuda.reset_launch_counts()
@@ -228,6 +245,7 @@ def read_counts() -> dict:
             "control_lanes": solver_cuda.control_lanes.launches,
             "collide_and_init": solver_cuda.collide_and_init.launches,
             "solve_loop": solver_cuda.solve_loop.launches,
+            "bp_probe": solver_cuda.bp_probe.launches,
             "collide_grid": solver_grid.collide_grid.launches,
             "iterblock_grid": solver_grid.iterblock_grid.launches}
 
@@ -270,7 +288,7 @@ def grid_phase(card: str) -> dict:
     if paths != {"grid"}:
         fail(f"Stress4096 did not take the grid tier at every step: {paths}")
     want = {"step_kernel": 0, "control_lanes": 0, "collide_and_init": 0, "solve_loop": 0,
-            "collide_grid": n_steps, "iterblock_grid": 5 * n_steps}
+            "bp_probe": 0, "collide_grid": n_steps, "iterblock_grid": 5 * n_steps}
     if launches != want:
         fail(f"Stress4096 launch counts {launches}, expected {want}")
     if host_reads != n_steps:
@@ -314,7 +332,8 @@ def grid_phase(card: str) -> dict:
         nbytes(a6[3], [getattr(a6[4], f) for f in ("mass", "inv_mass", "friction", "inertia",
                                                     "inv_inertia")], a6[5:], out6),
         len(a6[2]) * (slots * OPS_CONTACT_SLOT_SWEEP + wi.bodies.n * OPS_BODY_SWEEP))
-    return {"launches": launches, "k5_err": k5_err, "k6_err": k6_err, "k5_ms": k5_ms,
+    return {"settled": w, "params": p,
+            "launches": launches, "k5_err": k5_err, "k6_err": k6_err, "k5_ms": k5_ms,
             "k5_plain_ms": k5_plain_ms, "k6_ms": k6_ms, "k6_plain_ms": k6_plain_ms,
             "k5_bound": k5_bound, "k6_bound": k6_bound}
 
@@ -350,7 +369,8 @@ def low_drop_gate():
 
 def stress2048_phase(card: str):
     """Stress2048 on the fused path: 600 steps, the envelope after the
-    landing, steps/s of the last 200 steps."""
+    landing, steps/s of the last 200 steps.  Returns (settled world,
+    params)."""
     from avbd3d_tpu_torch import load_scene, solver
 
     scene = load_scene("Stress2048", device="cuda")
@@ -380,6 +400,7 @@ def stress2048_phase(card: str):
     print(f"[{card}] Stress2048 steps {t_from + 1}-{n_steps}: {sps:.1f} steps/s "
           f"(step {n_steps}: manifolds {int(d['active_manifolds'])}, "
           f"max_pen {d['max_penetration']:.6f})")
+    return w, p
 
 
 def low_drop_stress(nx, ny, nz, max_degree, cache_degree):
@@ -779,6 +800,226 @@ def profiler_phase(w, scene, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K7 (the broadphase probe) with the refined gate, and the application layer
+# ---------------------------------------------------------------------------
+
+def compare_k7(world, params, label: str):
+    """K7 kernel vs plain on the cached slots and poses of ``world``: min,
+    or and an integer sum do not depend on order and every float statement
+    repeats the plain version's, so all three outputs must be equal, bit
+    for bit.  Returns |min_sep difference| (0.0 or the run has failed)."""
+    import torch
+
+    from avbd3d_tpu_torch import solver_cuda
+
+    nb, b = world.bp.nb, world.bodies
+    sp, np_, nearp = solver_cuda.bp_probe_plain(nb, b, params)
+    sk, nk, neark = solver_cuda.bp_probe(nb, b, params)
+    sync()
+    if int(np_) != int(nk):
+        fail(f"K7 {label}: n_slots {int(np_)} vs {int(nk)}")
+    if not torch.equal(nearp, neark):
+        fail(f"K7 {label}: near differs at {int((nearp != neark).sum())} bodies")
+    if not torch.equal(sp, sk):
+        fail(f"K7 {label}: min_sep {float(sp)!r} vs {float(sk)!r}")
+    print(f"K7 vs plain ({label}, N = {b.n}, D = {nb.shape[0]}): n_slots {int(nk)}, near "
+          f"{int(neark.sum())} bodies, min_sep {float(sk):.6f}: all identical")
+    return float((sp - sk).abs())
+
+
+def probe_phase(card, scene, states) -> dict:
+    """Phase 10.  ``states``: {label: (world, params)} for the comparisons."""
+    import torch
+
+    from avbd3d_tpu_torch import load_scene, solver, solver_cuda
+    from avbd3d_tpu_torch.utils import profile_phases
+
+    p, cap = scene.params, scene.cap
+    w = load_scene("Stress1000", device="cuda").world
+    n_steps = 300
+    rows = []
+    reset_counts()
+    solver.step.host_reads = 0
+    for _ in range(n_steps):
+        before = solver_cuda.bp_probe.launches
+        refined = solver.stale_lhs_ok(w.bodies, w.bp, p)
+        if solver_cuda.bp_probe.launches != before + 1:
+            fail("the refined gate did not launch K7 exactly once")
+        unrefined = solver.stale_lhs_ok(w.bodies, w.bp, p, refine=False)
+        nxt = solver.step(w, p, cap)
+        # The slots this step used (its refreshed cache) at the pre-step poses.
+        min_sep, n_slots, _near = solver_cuda.bp_probe(nxt.bp.nb, w.bodies, p)
+        rows.append(torch.stack([refined.float(), unrefined.float(), min_sep, n_slots.float(),
+                                 nxt.bp.cand.float(), nxt.diagnostics.vec[5]]))
+        w = nxt
+    sync()
+    launches = read_counts()
+    if solver.step.host_reads != n_steps:
+        fail(f"the gates added host reads: {solver.step.host_reads} in {n_steps} steps")
+    if launches["bp_probe"] != 2 * n_steps:
+        fail(f"K7 launches {launches['bp_probe']}, expected {n_steps} through the gate and "
+             f"{n_steps} direct")
+    t = torch.stack(rows).cpu()
+    refined, unrefined = t[:, 0] > 0.5, t[:, 1] > 0.5
+    if bool((unrefined & ~refined).any()):
+        fail("the refined gate is False at a step where the unrefined gate is True")
+    proven = (t[:, 2] > p.collision_margin) & (t[:, 3] == t[:, 4])
+    if bool((proven & (t[:, 5] != 0)).any()):
+        fail("K7 proved a step contact-free that found contacts")
+    print(f"refined gate, Stress1000 steps 1-{n_steps}: K7 launches {launches['bp_probe']} "
+          f"({n_steps} through stale_lhs_ok, {n_steps} direct), host reads {n_steps} (the "
+          f"step's own); unrefined True at {int(unrefined.sum())} steps, refined at "
+          f"{int(refined.sum())}: they differ at {int((refined != unrefined).sum())} steps; "
+          f"K7 proved {int(proven.sum())} steps contact-free, all with 0 contacts "
+          f"({int((t[:, 5] > 0).sum())} steps had contacts)")
+
+    err = max(compare_k7(wd, pr, label) for label, (wd, pr) in states.items())
+    times = {}
+    for label in ("Stress1000 settled", "Stress4096 settled"):
+        wd, pr = states[label]
+        nb, b = wd.bp.nb, wd.bodies
+        ms = event_ms(lambda: solver_cuda.bp_probe(nb, b, pr), 100)
+        plain_ms = event_ms(lambda: solver_cuda.bp_probe_plain(nb, b, pr), 20)
+        outs = solver_cuda.bp_probe(nb, b, pr)
+        bnd = bound(nbytes(nb, [getattr(b, f) for f in ("pos", "quat", "size", "radius", "linvel",
+                                                        "angvel")], outs),
+                    int(outs[1]) * OPS_PROBE_SLOT)
+        times[label] = (ms, plain_ms, bnd)
+        # The wrapper's calls back to back are paced by the host (five
+        # allocations, the parameter block, ctypes); a trace of the same
+        # calls gives the two kernels' own time on the card.
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(100):
+                solver_cuda.bp_probe(nb, b, pr)
+            sync()
+        dev_us = {e.key.split("(")[0]: profile_phases.device_time_us(e) / e.count
+                  for e in prof.key_averages() if e.key.startswith("k_probe")}
+        print(f"[{card}] broadphase probe kernel (K7, {label}, N = {b.n}, D = {nb.shape[0]}): "
+              f"{ms:.4f} ms per call back to back, plain {plain_ms:.4f} ms, bound {bnd[0]:.7f} "
+              f"ms ({bnd[1]}); on the card alone (trace of 100 calls): "
+              + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(dev_us.items())))
+    ms, plain_ms, bnd = times["Stress1000 settled"]
+    return {"launches": launches["bp_probe"], "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound": bnd, "grid": times["Stress4096 settled"]}
+
+
+def leaves(world):
+    """Every body and contact-cache leaf of ``world``, by name."""
+    out = {}
+    for group in ("bodies", "contacts"):
+        obj = getattr(world, group)
+        for f in obj.__dataclass_fields__:
+            out[f"{group}.{f}"] = getattr(obj, f)
+    return out
+
+
+def app_phase(card, scene, landing, settled):
+    """Phase 11: the CLI, checkpoint/resume, pick, the viewer's Sim and
+    profile_phases on the card.  ``landing`` / ``settled``: Stress1000 at
+    steps 150 / 700."""
+    import torch
+
+    from avbd3d_tpu_torch import pick, solver
+    from avbd3d_tpu_torch.maths import quat_rotate
+    from avbd3d_tpu_torch.utils import profile_phases
+    from avbd3d_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from avbd3d_tpu_torch.viewer import Sim
+
+    p, cap, n_real = scene.params, scene.cap, scene.n_real
+    here = os.path.dirname(os.path.abspath(__file__))
+    kind = torch.cuda.get_device_name(0)
+
+    # The headless CLI, as a user starts it (no --device: the card).
+    cli = [sys.executable, "-m", "avbd3d_tpu_torch.cli", "--nogfx", "--scene", "Stress1000"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cli + ["--steps", "20"], cwd=here, capture_output=True, text=True,
+                         timeout=300)
+    t_cli = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"the CLI exited {run.returncode}: {run.stderr[-2000:]}")
+    lines = run.stdout.splitlines()
+    if not lines[0].startswith("Running in headless mode: scene 'Stress1000', steps=20"):
+        fail(f"CLI first line: {lines[0]!r}")
+    counts = {k: sum(ln.startswith(k) for ln in lines)
+              for k in ("[Physics] step", "Step ", "  Body ", "  Diagnostics:")}
+    want = {"[Physics] step": 20, "Step ": 20, "  Body ": 20 * n_real, "  Diagnostics:": 20}
+    if counts != want or len(lines) != 1 + sum(want.values()):
+        fail(f"CLI trace has {counts} in {len(lines)} lines, expected {want}")
+    if not (lines[1].startswith("[Physics] step 1 |") and lines[2] == "Step 0:"
+            and lines[3].startswith(f"  Body {n_real}: Pos(")):
+        fail(f"CLI trace does not open with [Physics], Step 0 and body {n_real}: {lines[1:4]}")
+    run = subprocess.run(cli + ["--steps", "50", "--bench"], cwd=here, capture_output=True,
+                         text=True, timeout=300)
+    if run.returncode != 0 or kind not in run.stdout.splitlines()[-1]:
+        fail(f"the CLI's --bench run: exit {run.returncode}, {run.stdout[-300:]!r}")
+    print(f"CLI on the card: 20 traced Stress1000 steps, {len(lines)} lines, body {n_real} "
+          f"first, {t_cli:.1f} s with start-up; --bench: {run.stdout.splitlines()[-1]}")
+
+    # Checkpoint at the landing state, resumed on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "landing.npz")
+        save_checkpoint(path, landing, p, cap)
+        size_kb = os.path.getsize(path) / 1024
+        loaded, lp, lcap = load_checkpoint(path, "cuda")
+    if (lp, lcap, loaded.step_index) != (p, cap, 150):
+        fail("the checkpoint did not restore params, cap and the step index")
+    straight = solver.run_steps(landing, p, cap, 50)
+    resumed = solver.run_steps(loaded, lp, lcap, 50)
+    sync()
+    a, b = leaves(straight), leaves(resumed)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ or not torch.equal(straight.diagnostics.vec, resumed.diagnostics.vec):
+        fail(f"the resumed run differs from the uninterrupted one in {differ}")
+    print(f"checkpoint: landing state (step 150, {size_kb:.0f} KiB) loaded onto the card; 50 "
+          f"steps from it and from the live state: {len(a)} body and cache leaves bitwise equal")
+
+    # pick straight down onto the settled pile.
+    origin = torch.tensor([0.0, 100.0, 0.0], device="cuda")
+    idx, t_hit, local = pick(settled.bodies, origin, (0.0, -1.0, 0.0))
+    i = int(idx)
+    b = settled.bodies
+    if i < 1 or not bool(b.dynamic.reshape(-1)[i]):
+        fail(f"pick returned body {i}, not a dynamic one")
+    half = b.size.reshape(3, -1)[:, i] * 0.5
+    on_face = float((local.abs() / half).max())
+    hit = origin + t_hit * torch.tensor([0.0, -1.0, 0.0], device="cuda")
+    off = float((b.pos_n3[i] + quat_rotate(b.quat_n4[i], local) - hit).abs().max())
+    if abs(on_face - 1.0) > 1e-3 or off > 1e-3 or not 0.0 < float(hit[1]) < 100.0:
+        fail(f"pick: max |local| / half = {on_face}, body point off the ray by {off}")
+    print(f"pick straight down at the pile's centre: body {i + 1}, t {float(t_hit):.4f} (hit at "
+          f"y = {float(hit[1]):.4f}), the local point lies on a face of that body (max |local| / "
+          f"half = {on_face:.6f}) and maps back onto the ray within {off:.1e}")
+
+    # The viewer's simulation object.
+    sim = Sim("Stress1000", device="cuda")
+    with sim.lock:
+        st = sim.state(5)
+        if (st["step"], len(st["bodies"]["pos"]), len(st["bodies"]["quat"][0])) != (5, n_real, 4):
+            fail("Sim.state(5) is not well formed")
+        if not sim.spawn([0.0, 60.0, 0.0]) or sim.n_real != n_real + 1:
+            fail("Sim.spawn did not fill a padding slot")
+        st = sim.state(1)
+        gates = dict(solver.step.last_gates)
+        st = sim.state(4)
+    y = st["bodies"]["pos"][n_real][1]
+    if not gates["refreshed"] or gates["ballistic"]:
+        fail(f"the step after a spawn did not refresh: {gates}")
+    if st["diag"]["sanitized"] != 0 or not y < 60.0 or len(st["bodies"]["pos"]) != n_real + 1:
+        fail(f"after the spawn: sanitized {st['diag']['sanitized']}, y {y}")
+    print(f"viewer Sim on the card: state(5) well formed ({n_real} bodies), spawn filled slot "
+          f"{n_real}, next step's gates {gates}, body at y = {y:.4f} after 5 steps, sanitized 0")
+
+    r = profile_phases.profile("Stress1000", 700, 50, "cuda")
+    if not (r["device_us"] > 0.0 and r["launches"] >= 46 * 50 and 0.0 < r["busy"] <= 1.0):
+        fail(f"profile_phases traced no device work: device_us {r['device_us']}, launches "
+             f"{r['launches']}, busy {r['busy']}")
+    step_kernels = sum(c for name, _us, c in r["kernels"] if name.startswith("k_"))
+    print(f"[{card}] profile_phases, 50 settled Stress1000 steps: busy share "
+          f"{100 * r['busy']:.1f}%, {r['launches'] / 50:.1f} launches/step "
+          f"({step_kernels / 50:.1f} of them the port's own kernels)")
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for a call's work (the larger
 # of its bytes over 3.35 TB/s and its float operations over 67 TFLOP/s, the
 # H100 SXM's published fp32 rate outside the tensor cores).  Operation counts
@@ -797,6 +1038,7 @@ OPS_JOINT_SLOT_PASS = 180    # joint geometry, force, accumulate
 OPS_JOINT_SLOT_DUAL = 150
 OPS_SPRING_SLOT_PASS = 150
 OPS_CTRL_SLOT = 40           # K2: world halves, gap, reach per candidate slot
+OPS_PROBE_SLOT = 300         # K7: partner axes, six SAT axes, travel, reach
 
 
 def nbytes(*ts) -> int:
@@ -1016,9 +1258,14 @@ def main() -> int:
 
     grid = grid_phase(card)
     low_drop_gate()
-    stress2048_phase(card)
+    w2048, p2048 = stress2048_phase(card)
     jointed = jointed_phases(card)
     prof = profiler_phase(w, scene, card)
+    probe = probe_phase(card, scene, {
+        "Stress1000 landing": (saved["landing"], p), "Stress1000 settled": (w, p),
+        "Stress2048 settled": (w2048, p2048),
+        "Stress4096 settled": (grid["settled"], grid["params"])})
+    app_phase(card, scene, saved["landing"], w)
 
     k1_bnd = k1_bound(a1, solver_cuda.step_kernel(*a1))
     jb_bnd = k1_bound(jointed["args"], solver_cuda.step_kernel(*jointed["args"]))
@@ -1065,6 +1312,12 @@ def main() -> int:
         kernel_entry("iterblock_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1614",
                      grid["launches"]["iterblock_grid"], grid["k6_err"], grid["k6_ms"],
                      grid["k6_plain_ms"], grid["k6_bound"]),
+        kernel_entry("bp_probe", csrc + "bp_probe.cu", "avbd3d_tpu/solver_tpu.py:207",
+                     probe["launches"], probe["err"], probe["ms"], probe["plain_ms"],
+                     probe["bound"], stress4096={
+                         "note": "the settled Stress4096 state, N = 5120, D = 28",
+                         "ms": probe["grid"][0], "plain_ms": probe["grid"][1],
+                         "bound_ms": probe["grid"][2][0], "bound_by": probe["grid"][2][1]}),
     ]}
     print(card)
     print(json.dumps(report))

@@ -332,7 +332,7 @@ def test_refresh_and_stale_gates_match_reference(grid_one_block):
         for th in (0.1, 1.0, top, np.nextafter(top, 0.0), np.nextafter(top, 10.0)):
             p = params.replace(lhs_stale_speed_max=float(th))
             j = bool(jsolver.stale_lhs_ok(jw.bodies, jw.bp, p, refine=False))
-            t = bool(tsolver.stale_lhs_ok(tw.bodies, tparams_of(p)))
+            t = bool(tsolver.stale_lhs_ok(tw.bodies, tw.bp, tparams_of(p), refine=False))
             assert t == j, (th, v2)
             seen.add(("stale", j))
     assert {True, False, ("stale", True), ("stale", False)} <= seen, seen

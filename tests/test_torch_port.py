@@ -28,6 +28,10 @@ torch.set_num_threads(1)
 
 def test_port_imports_no_jax():
     code = ("import avbd3d_tpu_torch, avbd3d_tpu_torch.cli, avbd3d_tpu_torch.kernels, "
+            "avbd3d_tpu_torch.viewer, avbd3d_tpu_torch.queries, "
+            "avbd3d_tpu_torch.utils.checkpoint, avbd3d_tpu_torch.utils.export, "
+            "avbd3d_tpu_torch.utils.overlay, avbd3d_tpu_torch.utils.native, "
+            "avbd3d_tpu_torch.utils.profile_phases, avbd3d_tpu_torch.utils.profile_cuda, "
             "chip_smoke, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'avbd3d_tpu.'))"
             " or m == 'avbd3d_tpu']; assert not bad, bad")
@@ -73,8 +77,10 @@ def test_wrappers_run_plain_versions_on_cpu():
     lanes = solver_cuda.control_lanes(bp.nb, w.bodies, bp.anchor, bp.anchor_quat, sc.params)
     k3 = solver_cuda.collide_and_init(w.contacts, bp.nb, bp.key, bp.thr, w.bodies, sc.params)
     k4 = solver_cuda.solve_loop(k3[0], w.bodies, sc.params)
+    probe = solver_cuda.bp_probe(bp.nb, w.bodies, sc.params)
     assert all(getattr(solver_cuda, k).launches == 0 for k in
-               ("step_kernel", "control_lanes", "collide_and_init", "solve_loop"))
+               ("step_kernel", "control_lanes", "collide_and_init", "solve_loop", "bp_probe"))
+    assert probe[2].shape == (1, 128) and probe[2].dtype == torch.bool
     for x, y in zip(b1, b2):
         assert torch.equal(x, y)
     assert torch.equal(d1, d2) and torch.equal(c1.count, c2.count)
@@ -196,6 +202,31 @@ def test_cuda_control_lanes_match_plain(cuda_stress):
     lk = solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, sc.params)
     lp = solver_cuda.control_lanes_plain(bp.nb, b, bp.anchor, bp.anchor_quat, sc.params)
     torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_bp_probe_matches_plain(cuda_stress):
+    """K7 against bp_probe_plain at a landing Stress1000 state and on a
+    world without slots: n_slots and near identical, min_sep bit for bit;
+    the refined gate launches it once and reads nothing back."""
+    sc, w = cuda_stress
+    p = sc.params
+    solver_cuda.reset_launch_counts()
+    for world in (w, load_scene("Ground", device="cuda").world):
+        sp, np_, nearp = solver_cuda.bp_probe_plain(world.bp.nb, world.bodies, p)
+        sk, nk, neark = solver_cuda.bp_probe(world.bp.nb, world.bodies, p)
+        torch.cuda.synchronize()
+        assert torch.equal(sp, sk) and int(np_) == int(nk) and torch.equal(nearp, neark)
+        assert neark.dtype == torch.bool and nk.dtype == torch.int32
+    assert int(nk) == 0 and float(sk) == 1.0e9
+    assert solver_cuda.bp_probe.launches == 2
+    reads = solver.step.host_reads
+    ok = solver.stale_lhs_ok(w.bodies, w.bp, p)
+    assert solver_cuda.bp_probe.launches == 3 and solver.step.host_reads == reads
+    assert ok.device.type == "cuda" and ok.shape == ()
+    assert bool(ok) or not bool(solver.stale_lhs_ok(w.bodies, w.bp, p, refine=False))
+    with pytest.raises(TypeError, match="nb"):
+        solver_cuda.bp_probe(w.bp.nb.float(), w.bodies, p)
 
 
 @pytest.fixture
