@@ -22,10 +22,17 @@
 //
 // What bounds them on the H100: as K1, latency and dependent arithmetic; the
 // Stress4096 contact state (16 cache slots x 5120 bodies, ~15 MB) sits in
-// the 50 MB L2.  Design: K1's barrier scheme, one launch per phase and per
-// half-sweep queued from one host call (k_geom, then k_primal + k_dual per
-// iteration: 9 launches for 4 iterations).  Built with --fmad=false and
-// without fast math, as K1, so each kernel equals its plain PyTorch version.
+// the 50 MB L2.  Design of K6: the logical blocks of a launch are independent
+// by construction (partners outside read the snapshot), so where a logical
+// block fits one thread-block cluster (blk = 1024 bodies: 16 blocks of 64
+// bodies x 16 slots) the launch is ONE kernel, K1's k_sweeps: each cluster
+// copies its block's launch-start state into the working buffers, computes
+// the geometry and runs the launch's iterations with the slot-parallel primal
+// pass, a cluster barrier between the half-sweeps.  Where it does not
+// (blk = 2048), the launch queues k_geom, then k_primal + k_dual per
+// iteration.  solver_cuda.sweep_plan decides which, before the launch.
+// Built with --fmad=false and without fast math, as K1, so each kernel equals
+// its plain PyTorch version.
 #include "step_kernel.cuh"
 
 // Once-per-pair counting mask (ops/replicated.once_mask), one thread per
@@ -88,20 +95,16 @@ int avbd_collide_grid(void** ptrs, const float* params, int n, int d, int dc, vo
 //   20-24 outputs pos, quat, lam, penalty, stick
 //   25-26 scratch geom (36 DC N), mat (24 N)
 // ``flags``: (do_dual, rebuild, ramp) per iteration; ``alphas``: alpha per
-// iteration.  ``blk``: bodies per logical block.
+// iteration.  ``blk``: bodies per logical block.  ``plan``: the shape's
+// sweep plan, 5 ints in SweepPlan order.
 // Returns the first non-zero CUDA error code, or 0.
 int avbd_iterblock_grid(void** ptrs, const float* params, int n, int dc, int blk, int n_iters,
-                        const int* flags, const float* alphas, void* stream) {
+                        const int* flags, const float* alphas, const int* plan, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n % 128 != 0 || blk <= 0 || n % blk != 0) return (int)cudaErrorInvalidValue;
+  if (n % 128 != 0 || blk <= 0 || n % blk != 0 || n_iters < 0) return (int)cudaErrorInvalidValue;
   KParams p = *(const KParams*)params;
+  const SweepPlan pl = plan_from(plan);
   Dims dm{n, dc, dc};
-  const size_t f4 = sizeof(float), slots = (size_t)dc * n;
-  const size_t sizes[5] = {3 * n * f4, 4 * n * f4, 12 * slots * f4, 12 * slots * f4, 4 * slots * f4};
-  for (int q = 0; q < 5; ++q) {
-    cudaError_t err = cudaMemcpyAsync(ptrs[20 + q], ptrs[8 + q], sizes[q], cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
-  }
   Cache c = {};
   c.other = (int*)ptrs[0];
   c.count = (int*)ptrs[1];
@@ -130,11 +133,37 @@ int avbd_iterblock_grid(void** ptrs, const float* params, int n, int dc, int blk
   w.snap_pos = (const float*)ptrs[8];
   w.snap_quat = (const float*)ptrs[9];
   w.blk = blk;
-  const int nb_body = blocks_for(n), nb_slot = blocks_for(dc * n);
+  if (pl.cluster > 0) {
+    // One launch: the copies, the geometry and every iteration.
+    if (n_iters > MAX_RESIDENT_ITERS) return (int)cudaErrorInvalidValue;
+    IterPlan ip = {};
+    ip.n = n_iters;
+    for (int j = 0; j < n_iters; ++j) {
+      ip.alpha[j] = alphas[j];
+      ip.do_dual[j] = flags[3 * j] != 0;
+      ip.rebuild[j] = flags[3 * j + 1] != 0 || j == 0;
+      ip.ramp[j] = flags[3 * j + 2] != 0;
+    }
+    Carry carry;
+    carry.pos = (const float*)ptrs[8];
+    carry.quat = (const float*)ptrs[9];
+    carry.lam = (const float*)ptrs[10];
+    carry.pen = (const float*)ptrs[11];
+    carry.stick = (const float*)ptrs[12];
+    return (int)launch_sweeps(pl, dm, c, b, w, p, ip, 1, carry, st);
+  }
+  const size_t f4 = sizeof(float), slots = (size_t)dc * n;
+  const size_t sizes[5] = {3 * n * f4, 4 * n * f4, 12 * slots * f4, 12 * slots * f4, 4 * slots * f4};
+  for (int q = 0; q < 5; ++q) {
+    cudaError_t err = cudaMemcpyAsync(ptrs[20 + q], ptrs[8 + q], sizes[q], cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nb_slot = blocks_for(dc * n);
   k_geom<<<nb_slot, BLOCK, 0, st>>>(dm, c, w);
   for (int j = 0; j < n_iters; ++j) {
     const int* f = flags + 3 * j;
-    k_primal<<<nb_body, BLOCK, 0, st>>>(dm, c, b, w, p, f[1] || j == 0, alphas[j]);
+    cudaError_t err = launch_primal(pl, dm, c, b, w, p, f[1] || j == 0, alphas[j], st);
+    if (err != cudaSuccess) return (int)err;
     k_dual<<<nb_slot, BLOCK, 0, st>>>(dm, c, b, w, p, f[0], f[2], alphas[j]);
   }
   return (int)cudaGetLastError();

@@ -10,27 +10,48 @@
 // What bounds it on the H100: latency and dependent arithmetic, not bytes or
 // flops.  The whole (., 12, 8, 128) contact state is ~5 MB, which does not fit
 // in 227 KB of shared memory but sits in the 50 MB L2, so it lives in global
-// memory and every sweep re-reads it from L2.  A Jacobi sweep needs every
-// body's new pose before any dual update (solver_tpu.py:543-548), i.e. a
-// grid-wide barrier between the primal and the dual half.  A single
-// 1024-thread block would cap registers at 64 per thread and spill the
-// 6x6 solve and the SAT; a cooperative grid.sync() kernel would carry the
-// register pressure of its largest phase through all of them.  This design
-// takes the simplest barrier: one launch per phase, queued back to back from
-// the host entry point on one stream, 2 launches per sweep (~47 per step).
+// memory and every sweep re-reads it from L2.  What the design does about
+// the latency:
+//  - The primal pass is slot-parallel.  A thread block owns a tile of 32 or
+//    64 bodies and runs one thread per (slot, body): each thread computes its
+//    slot's rows, force and (on a rebuild) Hessian terms and leaves 6 or 30
+//    partial sums in shared memory; after __syncthreads() thread (component,
+//    body) folds the partials over the slots, left to right from slot 0 (the
+//    order cm.dsum folds in, so the sums keep their bits); then one thread
+//    per body runs the 6x6 solve and the pose update.  The dependent chain of
+//    a sweep is 12 rows + DC adds + one solve instead of DC x 12 rows, on
+//    N / tile blocks of tile x DC threads.
+//  - A Jacobi sweep needs every body's new pose before any dual update
+//    (solver_tpu.py:543-548).  Where a logical block of bodies (the whole
+//    world here, blk bodies on the grid tier) fits one thread-block cluster
+//    (at most 16 blocks of 64 bodies), the whole sweep loop is ONE launch,
+//    k_sweeps, with the cluster's hardware barrier as that barrier; only the
+//    poses cross threads, through L2.  Larger worlds, and worlds with joint or spring
+//    rows (colour sub-passes ping-pong two pose buffers), take one launch per
+//    half-sweep.  Which of the two a shape takes is decided before the
+//    launch by solver_cuda.sweep_plan, whose numbers the entry points
+//    receive; a cluster launch that cannot be scheduled is an error.
 //   k_filter_cull   1 thread / body         symmetric filter + ordered precull
 //   k_collide       1 thread / (slot, body) SAT, warmstart match, row init
 //   k_predict       1 thread / body         prediction
-//   k_geom          1 thread / (slot, body) geometry at the predicted poses
-//   per sweep:
-//     k_primal      1 thread / body         rows, force, 6x6 (rebuilt at block
-//                                           heads), solve66, relaxed update
-//     k_dual        1 thread / (slot, body) geometry at the new poses, dual
+//   cluster route:
+//     k_sweeps      tile x lanes threads    geometry at the predicted poses,
+//                                           then every sweep (primal pass,
+//                                           cluster barrier, dual pass,
+//                                           cluster barrier)
+//   launch route:
+//     k_geom        1 thread / (slot, body) geometry at the predicted poses
+//     per sweep:
+//       k_primal    tile x lanes threads    slot partials, ordered fold, 6x6
+//                                           (rebuilt at block heads), solve66,
+//                                           relaxed update
+//       k_dual      1 thread / (slot, body) geometry at the new poses, dual
 //                                           update, ramp at block tails
 //   k_final_body    1 thread / body         sanitize, velocities
 //   k_final_reduce  1 block                 diagnostics lanes + control lanes
-// The iteration count and the Hessian cadence are runtime arguments, so the
-// calm, fresh and boosted variants share this code.
+// 6 launches per contact step on the cluster route, 6 + 2 per sweep on the
+// launch route.  The iteration count and the Hessian cadence are runtime
+// arguments, so the calm, fresh and boosted variants share this code.
 //
 // Replica symmetry: every slot computes in the canonical A/B frame (A = lower
 // body index) from canonical operands, so both replicas of a pair execute the
@@ -41,6 +62,10 @@
 // Built with --fmad=false and without fast math: each statement rounds as the
 // plain PyTorch version's op does (see avbd_common.cuh).
 #include "step_kernel.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
 // Narrowphase: collide_pairs_cm for one pair (ops/narrowphase_cm.py).
@@ -663,76 +688,117 @@ __global__ void __launch_bounds__(BLOCK) k_predict(Dims dm, Bodies b, Work w, KP
 }
 
 // ---------------------------------------------------------------------------
-// Geometry at the current working poses (geometry_pose), one thread per slot.
-// Writes rw_a, rw_b, sep, slip1, slip2 of the slot's four contacts.
+// Geometry at the current working poses (geometry_pose), per contact of a
+// slot: rw_a, rw_b, sep, slip1, slip2.
 // ---------------------------------------------------------------------------
 
-struct SlotGeom {
-  V3 rw_a[4], rw_b[4];
-  float sep[4], slip1[4], slip2[4];
+// Working poses are rewritten by other thread blocks between the phases of
+// a sweep, so they are read through L2 (ld.global.cg), never through a
+// block's L1 or the read-only path.
+__device__ __forceinline__ V3 ld3cg(const float* p, int i, int n) {
+  return v3(__ldcg(p + i), __ldcg(p + n + i), __ldcg(p + 2 * n + i));
+}
+__device__ __forceinline__ Q4 ld4cg(const float* p, int i, int n) {
+  return Q4{__ldcg(p + i), __ldcg(p + n + i), __ldcg(p + 2 * n + i), __ldcg(p + 3 * n + i)};
+}
+
+// The poses of a slot's pair in its canonical A/B frame.  A partner in the
+// slot's own logical block of w.blk bodies is read at its working pose, any
+// other at the launch-start snapshot.
+struct PairPose {
+  V3 pa, pb;
+  Q4 qa, qb;
 };
 
-__device__ __forceinline__ void slot_geometry(const Cache& c, const Work& w, int i, int idx, bool is_a,
-                                              int sl, int S, int n, V3 nu, V3 t1, V3 t2, SlotGeom* gm) {
+__device__ __forceinline__ PairPose pair_pose(const Work& w, int i, int idx, bool is_a, int n) {
   bool same_block = (idx / w.blk) == (i / w.blk);
   const float* pp = same_block ? w.pos : w.snap_pos;
   const float* pq = same_block ? w.quat : w.snap_quat;
-  V3 own_p = ld3(w.pos, i, n), oth_p = ld3(pp, idx, n);
-  Q4 own_q = ld4(w.quat, i, n), oth_q = ld4(pq, idx, n);
-  V3 pa = is_a ? own_p : oth_p, pb = is_a ? oth_p : own_p;
-  Q4 qa = is_a ? own_q : oth_q, qb = is_a ? oth_q : own_q;
-  for (int s = 0; s < 4; ++s) {
-    V3 ra = qrotate(qa, v3(c.r_a[(s * 3) * S + sl], c.r_a[(s * 3 + 1) * S + sl], c.r_a[(s * 3 + 2) * S + sl]));
-    V3 rb = qrotate(qb, v3(c.r_b[(s * 3) * S + sl], c.r_b[(s * 3 + 1) * S + sl], c.r_b[(s * 3 + 2) * S + sl]));
-    V3 delta = vsub(vadd(pa, ra), vadd(pb, rb));
-    gm->rw_a[s] = ra;
-    gm->rw_b[s] = rb;
-    gm->sep[s] = vdot(delta, nu);
-    gm->slip1[s] = vdot(delta, t1);
-    gm->slip2[s] = vdot(delta, t2);
-  }
+  V3 own_p = ld3cg(w.pos, i, n), oth_p = ld3cg(pp, idx, n);
+  Q4 own_q = ld4cg(w.quat, i, n), oth_q = ld4cg(pq, idx, n);
+  PairPose pr;
+  pr.pa = is_a ? own_p : oth_p;
+  pr.pb = is_a ? oth_p : own_p;
+  pr.qa = is_a ? own_q : oth_q;
+  pr.qb = is_a ? oth_q : own_q;
+  return pr;
 }
 
-__device__ __forceinline__ void store_geom(float* g, int sl, int S, const SlotGeom& gm) {
-  for (int s = 0; s < 4; ++s) {
-    g[(s * 3 + 0) * S + sl] = gm.rw_a[s].x;
-    g[(s * 3 + 1) * S + sl] = gm.rw_a[s].y;
-    g[(s * 3 + 2) * S + sl] = gm.rw_a[s].z;
-    g[(12 + s * 3 + 0) * S + sl] = gm.rw_b[s].x;
-    g[(12 + s * 3 + 1) * S + sl] = gm.rw_b[s].y;
-    g[(12 + s * 3 + 2) * S + sl] = gm.rw_b[s].z;
-    g[(24 + s) * S + sl] = gm.sep[s];
-    g[(28 + s) * S + sl] = gm.slip1[s];
-    g[(32 + s) * S + sl] = gm.slip2[s];
-  }
+struct ContactGeom {
+  V3 rw_a, rw_b;
+  float sep, slip1, slip2;
+};
+
+// Geometry of contact s of slot sl, stored to w.geom as it is computed.
+__device__ __forceinline__ ContactGeom contact_geometry(const Cache& c, float* g, const PairPose& pr, int s,
+                                                        int sl, int S, V3 nu, V3 t1, V3 t2) {
+  ContactGeom gm;
+  gm.rw_a = qrotate(pr.qa, v3(c.r_a[(s * 3) * S + sl], c.r_a[(s * 3 + 1) * S + sl], c.r_a[(s * 3 + 2) * S + sl]));
+  gm.rw_b = qrotate(pr.qb, v3(c.r_b[(s * 3) * S + sl], c.r_b[(s * 3 + 1) * S + sl], c.r_b[(s * 3 + 2) * S + sl]));
+  V3 delta = vsub(vadd(pr.pa, gm.rw_a), vadd(pr.pb, gm.rw_b));
+  gm.sep = vdot(delta, nu);
+  gm.slip1 = vdot(delta, t1);
+  gm.slip2 = vdot(delta, t2);
+  g[(s * 3 + 0) * S + sl] = gm.rw_a.x;
+  g[(s * 3 + 1) * S + sl] = gm.rw_a.y;
+  g[(s * 3 + 2) * S + sl] = gm.rw_a.z;
+  g[(12 + s * 3 + 0) * S + sl] = gm.rw_b.x;
+  g[(12 + s * 3 + 1) * S + sl] = gm.rw_b.y;
+  g[(12 + s * 3 + 2) * S + sl] = gm.rw_b.z;
+  g[(24 + s) * S + sl] = gm.sep;
+  g[(28 + s) * S + sl] = gm.slip1;
+  g[(32 + s) * S + sl] = gm.slip2;
+  return gm;
 }
 
-__device__ __forceinline__ void load_geom(const float* g, int sl, int S, SlotGeom* gm) {
-  for (int s = 0; s < 4; ++s) {
-    gm->rw_a[s] = v3(g[(s * 3) * S + sl], g[(s * 3 + 1) * S + sl], g[(s * 3 + 2) * S + sl]);
-    gm->rw_b[s] = v3(g[(12 + s * 3) * S + sl], g[(12 + s * 3 + 1) * S + sl], g[(12 + s * 3 + 2) * S + sl]);
-    gm->sep[s] = g[(24 + s) * S + sl];
-    gm->slip1[s] = g[(28 + s) * S + sl];
-    gm->slip2[s] = g[(32 + s) * S + sl];
-  }
+// What the passes over slot (t, i) share and no sweep changes: the partner,
+// the contact count, the pair constants and the contact basis.
+struct SlotCtx {
+  int sl, idx, count;
+  bool valid, is_a;
+  float mu, cap;
+  V3 basis[3];
+};
+
+__device__ __forceinline__ SlotCtx slot_ctx(const Dims& dm, const Cache& c, const Bodies& b, const KParams& p,
+                                            int i, int t) {
+  const int n = dm.n, S = dm.dc * dm.n;
+  SlotCtx x;
+  x.sl = t * n + i;
+  int other = c.other[x.sl];
+  x.valid = other >= 0;
+  x.idx = x.valid ? other : 0;
+  x.is_a = i < x.idx;
+  x.count = c.count[x.sl];
+  float mass_scale;
+  pair_consts(b, i, x.idx, &x.mu, &mass_scale);
+  x.cap = p.normal_force_cap * mass_scale;
+  contact_basis(v3(c.normal[x.sl], c.normal[S + x.sl], c.normal[2 * S + x.sl]), &x.basis[0], &x.basis[1],
+                &x.basis[2]);
+  return x;
+}
+
+// Geometry of slot (t, i) at the working poses, to w.geom.
+__device__ __forceinline__ void geom_slot(const Dims& dm, const Cache& c, const Work& w, int i, int t) {
+  const int n = dm.n, S = dm.dc * dm.n, sl = t * n + i;
+  int other = c.other[sl];
+  int idx = other >= 0 ? other : 0;
+  V3 nu, t1, t2;
+  contact_basis(v3(c.normal[sl], c.normal[S + sl], c.normal[2 * S + sl]), &nu, &t1, &t2);
+  PairPose pr = pair_pose(w, i, idx, i < idx, n);
+  for (int s = 0; s < 4; ++s) contact_geometry(c, w.geom, pr, s, sl, S, nu, t1, t2);
 }
 
 __global__ void __launch_bounds__(BLOCK) k_geom(Dims dm, Cache c, Work w) {
   int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = dm.n, S = dm.dc * dm.n;
-  if (gid >= S) return;
-  int i = gid % n;
-  int other = c.other[gid];
-  int idx = other >= 0 ? other : 0;
-  V3 nu, t1, t2;
-  contact_basis(v3(c.normal[gid], c.normal[S + gid], c.normal[2 * S + gid]), &nu, &t1, &t2);
-  SlotGeom gm;
-  slot_geometry(c, w, i, idx, i < idx, gid, S, n, nu, t1, t2, &gm);
-  store_geom(w.geom, gid, S, gm);
+  if (gid >= dm.dc * dm.n) return;
+  geom_slot(dm, c, w, gid % dm.n, gid / dm.n);
 }
 
 // ---------------------------------------------------------------------------
-// Phase 4a: primal pass, one thread per body.
+// Phase 4a: primal pass.  A thread block owns a tile of bodies: one thread
+// per (slot, body) writes the slot's partial sums to shared memory, the
+// block folds them in slot order, then one thread per body solves.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void world_inertia(Q4 q, V3 d, float out[6]) {
@@ -803,109 +869,144 @@ static __device__ void solve66(const float a_ll[6], const float a_la[9], const f
   for (int k = 0; k < 3; ++k) dl[k] = x0[k] - (cols[0][k] * da[0] + cols[1][k] * da[1] + cols[2][k] * da[2]);
 }
 
-// Contact terms of body i for one sweep, at the sweep-start geometry: every
-// slot's rows and primal force, their force/torque sums F3/T3 and, on a
-// rebuild, the 24 Hessian terms M, stored to w.mat (on other sweeps the
-// caller reads the carried ones).  The projected lambdas and the new stick
-// latches go back to the cache for the dual pass.
-__device__ __forceinline__ void contact_terms(const Dims& dm, const Cache& c, const Bodies& b, const Work& w,
-                                              const KParams& p, int rebuild, float alpha_cur, int i, Q4 quat,
-                                              float F3[3], float T3[3], float M[24]) {
-  const int n = dm.n, S = dm.dc * dm.n;
-  const float bias = clipf(F(1.0) - alpha_cur, F(0.0), F(1.0));
+// Number of partial sums of a slot: F (3), T (3) and the 24 Hessian terms.
+#define N_PART 30
+
+// Contact terms of slot (t, i) for one sweep, at the sweep-start geometry in
+// w.geom: the rows and primal force of its four contacts, their force and
+// torque sums (components 0-5 of the slot's partials) and, on a rebuild, its
+// 24 Hessian terms summed over the 12 rows (components 6-29).  ``x``: the
+// slot's constants (slot_ctx).  ``part``
+// points at the slot's cell of the block's partials; component q lies at
+// part[q * pstride].  The projected lambdas and the new stick latches go
+// back to the cache for the dual pass.  Sums run over contacts, then rows, in
+// order, starting from the first term (the plain version's order).
+__device__ __forceinline__ void primal_slot(const Dims& dm, const Cache& c, const Bodies& b, const Work& w,
+                                            const KParams& p, const SlotCtx& x, int rebuild, float bias, int i,
+                                            float* part, int pstride) {
+  const int n = dm.n, S = dm.dc * dm.n, sl = x.sl, count = x.count;
+  const bool valid = x.valid, is_a = x.is_a;
+  const float sign = is_a ? F(1.0) : F(-1.0), mu = x.mu, cap = x.cap;
+  const V3* basis = x.basis;
   float iiw[6];
-  world_inertia(quat, ld3(b.inv_inertia, i, n), iiw);
-  for (int k = 0; k < 3; ++k) F3[k] = T3[k] = F(0.0);
-  for (int k = 0; k < 24; ++k) M[k] = F(0.0);
+  if (rebuild) world_inertia(ld4(w.quat, i, n), ld3(b.inv_inertia, i, n), iiw);
+  const float* g = w.geom;
+  float* md = part + 6 * pstride;
 
-  for (int t = 0; t < dm.dc; ++t) {
-    int sl = t * n + i;
-    int other = c.other[sl];
-    bool valid = other >= 0;
-    int idx = valid ? other : 0;
-    bool is_a = i < idx;
-    float sign = is_a ? F(1.0) : F(-1.0);
-    float mu, mass_scale;
-    pair_consts(b, i, idx, &mu, &mass_scale);
-    float cap = p.normal_force_cap * mass_scale;
-    V3 basis[3];
-    contact_basis(v3(c.normal[sl], c.normal[S + sl], c.normal[2 * S + sl]), &basis[0], &basis[1], &basis[2]);
-    int count = c.count[sl];
-    SlotGeom gm;
-    load_geom(w.geom, sl, S, &gm);
-
-    float Fd[6];     // F (3) and T (3) of this slot, summed over its contacts
-    float Md[24];    // Hessian terms of this slot, summed over its 12 rows
-    for (int s = 0; s < 4; ++s) {
-      bool slot_ok = (s < count) && valid;
-      float lam[3], pen[3];
-      for (int k = 0; k < 3; ++k) {
-        lam[k] = c.lam[(s * 3 + k) * S + sl];
-        pen[k] = c.pen[(s * 3 + k) * S + sl];
-      }
-      bool stick = c.stick[s * S + sl] > F(0.5);
-      Rows3 r = eval_rows3(gm.sep[s], gm.slip1[s], gm.slip2[s], c.c0_n[s * S + sl], c.c0_t1[s * S + sl],
-                           c.c0_t2[s * S + sl], lam, pen, stick, slot_ok, mu, cap, bias, p);
-      float f[3];
-      for (int k = 0; k < 3; ++k) {
-        f[k] = slot_ok ? clipf(pen[k] * r.C[k] + r.lam[k], r.fmin[k], r.fmax[k]) : F(0.0);
-        // The dual pass reads the projected lambda and the new latch.
-        c.lam[(s * 3 + k) * S + sl] = r.lam[k];
-      }
-      c.stick[s * S + sl] = r.stick ? F(1.0) : F(0.0);
-
-      V3 rw = is_a ? gm.rw_a[s] : gm.rw_b[s];
-      V3 fv = v3(basis[0].x * f[0] + basis[1].x * f[1] + basis[2].x * f[2],
-                 basis[0].y * f[0] + basis[1].y * f[1] + basis[2].y * f[2],
-                 basis[0].z * f[0] + basis[1].z * f[1] + basis[2].z * f[2]);
-      V3 tv = vcross(rw, fv);
-      float contrib[6] = {sign * fv.x, sign * fv.y, sign * fv.z, sign * tv.x, sign * tv.y, sign * tv.z};
-      for (int k = 0; k < 6; ++k) Fd[k] = s == 0 ? contrib[k] : Fd[k] + contrib[k];
-
-      if (rebuild) {
-        float okf = slot_ok ? F(1.0) : F(0.0);
-        for (int k = 0; k < 3; ++k) {
-          V3 bb = basis[k];
-          float pe = pen[k] * okf;
-          V3 cr = vcross(rw, bb);
-          float bv[3] = {bb.x, bb.y, bb.z}, cv[3] = {cr.x, cr.y, cr.z};
-          float term[24];
-          term[0] = pe * bv[0] * bv[0];
-          term[1] = pe * bv[0] * bv[1];
-          term[2] = pe * bv[0] * bv[2];
-          term[3] = pe * bv[1] * bv[1];
-          term[4] = pe * bv[1] * bv[2];
-          term[5] = pe * bv[2] * bv[2];
-          for (int ii = 0; ii < 3; ++ii)
-            for (int jj = 0; jj < 3; ++jj) term[6 + ii * 3 + jj] = pe * bv[ii] * cv[jj];
-          term[15] = pe * cv[0] * cv[0];
-          term[16] = pe * cv[0] * cv[1];
-          term[17] = pe * cv[0] * cv[2];
-          term[18] = pe * cv[1] * cv[1];
-          term[19] = pe * cv[1] * cv[2];
-          term[20] = pe * cv[2] * cv[2];
-          V3 ic = v3(iiw[0] * cv[0] + iiw[1] * cv[1] + iiw[2] * cv[2],
-                     iiw[1] * cv[0] + iiw[3] * cv[1] + iiw[4] * cv[2],
-                     iiw[2] * cv[0] + iiw[4] * cv[1] + iiw[5] * cv[2]);
-          V3 gcr = vcross(cr, ic);
-          float af = fabsf(f[k]);
-          term[21] = fabsf(gcr.x) * af;
-          term[22] = fabsf(gcr.y) * af;
-          term[23] = fabsf(gcr.z) * af;
-          bool first = (s == 0) && (k == 0);
-          for (int q = 0; q < 24; ++q) Md[q] = first ? term[q] : Md[q] + term[q];
-        }
-      }
-    }
+  float Fd[6];     // F (3) and T (3) of this slot, summed over its contacts
+  for (int s = 0; s < 4; ++s) {
+    bool slot_ok = (s < count) && valid;
+    float lam[3], pen[3];
     for (int k = 0; k < 3; ++k) {
-      F3[k] = t == 0 ? Fd[k] : F3[k] + Fd[k];
-      T3[k] = t == 0 ? Fd[3 + k] : T3[k] + Fd[3 + k];
+      lam[k] = c.lam[(s * 3 + k) * S + sl];
+      pen[k] = c.pen[(s * 3 + k) * S + sl];
     }
-    if (rebuild)
-      for (int q = 0; q < 24; ++q) M[q] = t == 0 ? Md[q] : M[q] + Md[q];
+    bool stick = c.stick[s * S + sl] > F(0.5);
+    Rows3 r = eval_rows3(g[(24 + s) * S + sl], g[(28 + s) * S + sl], g[(32 + s) * S + sl], c.c0_n[s * S + sl],
+                         c.c0_t1[s * S + sl], c.c0_t2[s * S + sl], lam, pen, stick, slot_ok, mu, cap, bias, p);
+    float f[3];
+    for (int k = 0; k < 3; ++k) {
+      f[k] = slot_ok ? clipf(pen[k] * r.C[k] + r.lam[k], r.fmin[k], r.fmax[k]) : F(0.0);
+      // The dual pass reads the projected lambda and the new latch.
+      c.lam[(s * 3 + k) * S + sl] = r.lam[k];
+    }
+    c.stick[s * S + sl] = r.stick ? F(1.0) : F(0.0);
+
+    const int ro = is_a ? 0 : 12;
+    V3 rw = v3(g[(ro + s * 3) * S + sl], g[(ro + s * 3 + 1) * S + sl], g[(ro + s * 3 + 2) * S + sl]);
+    V3 fv = v3(basis[0].x * f[0] + basis[1].x * f[1] + basis[2].x * f[2],
+               basis[0].y * f[0] + basis[1].y * f[1] + basis[2].y * f[2],
+               basis[0].z * f[0] + basis[1].z * f[1] + basis[2].z * f[2]);
+    V3 tv = vcross(rw, fv);
+    float contrib[6] = {sign * fv.x, sign * fv.y, sign * fv.z, sign * tv.x, sign * tv.y, sign * tv.z};
+    for (int k = 0; k < 6; ++k) Fd[k] = s == 0 ? contrib[k] : Fd[k] + contrib[k];
+
+    if (rebuild) {
+      float okf = slot_ok ? F(1.0) : F(0.0);
+      for (int k = 0; k < 3; ++k) {
+        V3 bb = basis[k];
+        float pe = pen[k] * okf;
+        V3 cr = vcross(rw, bb);
+        float bv[3] = {bb.x, bb.y, bb.z}, cv[3] = {cr.x, cr.y, cr.z};
+        float term[24];
+        term[0] = pe * bv[0] * bv[0];
+        term[1] = pe * bv[0] * bv[1];
+        term[2] = pe * bv[0] * bv[2];
+        term[3] = pe * bv[1] * bv[1];
+        term[4] = pe * bv[1] * bv[2];
+        term[5] = pe * bv[2] * bv[2];
+        for (int ii = 0; ii < 3; ++ii)
+          for (int jj = 0; jj < 3; ++jj) term[6 + ii * 3 + jj] = pe * bv[ii] * cv[jj];
+        term[15] = pe * cv[0] * cv[0];
+        term[16] = pe * cv[0] * cv[1];
+        term[17] = pe * cv[0] * cv[2];
+        term[18] = pe * cv[1] * cv[1];
+        term[19] = pe * cv[1] * cv[2];
+        term[20] = pe * cv[2] * cv[2];
+        V3 ic = v3(iiw[0] * cv[0] + iiw[1] * cv[1] + iiw[2] * cv[2],
+                   iiw[1] * cv[0] + iiw[3] * cv[1] + iiw[4] * cv[2],
+                   iiw[2] * cv[0] + iiw[4] * cv[1] + iiw[5] * cv[2]);
+        V3 gcr = vcross(cr, ic);
+        float af = fabsf(f[k]);
+        term[21] = fabsf(gcr.x) * af;
+        term[22] = fabsf(gcr.y) * af;
+        term[23] = fabsf(gcr.z) * af;
+        // The running sums of the 24 terms live in the slot's shared-memory
+        // cell, not in registers.
+        bool first = (s == 0) && (k == 0);
+        for (int q = 0; q < 24; ++q) md[q * pstride] = first ? term[q] : md[q * pstride] + term[q];
+      }
+    }
   }
-  if (rebuild)
-    for (int q = 0; q < 24; ++q) w.mat[q * n + i] = M[q];
+  for (int k = 0; k < 6; ++k) part[k * pstride] = Fd[k];
+}
+
+// How a thread block of the tiled kernels divides its work.
+struct TileIdx {
+  int tile, lanes, bl, lane, base;   // base: first body of the block's tile
+};
+
+__device__ __forceinline__ TileIdx tile_index(int tile) {
+  TileIdx ti;
+  ti.tile = tile;
+  ti.lanes = blockDim.x / tile;
+  ti.bl = threadIdx.x % tile;
+  ti.lane = threadIdx.x / tile;
+  ti.base = blockIdx.x * tile;
+  return ti;
+}
+
+// The primal pass's slot half for the block's tile: every (slot, body)
+// partial to shared memory (``sh``: N_PART x DC x tile floats, body fastest),
+// then the fold over slots, left to right from slot 0 as cm.dsum folds: F
+// and T to ``fold`` (6 x tile floats after the partials) and, on a rebuild,
+// the Hessian terms to w.mat.  ``own``: the constants of the thread's one
+// slot where it has exactly one, else null.  Ends with the block
+// synchronised.
+__device__ __forceinline__ void primal_tile(const Dims& dm, const Cache& c, const Bodies& b, const Work& w,
+                                            const KParams& p, int rebuild, float alpha_cur, const TileIdx& ti,
+                                            float* sh, const SlotCtx* own) {
+  const int dc = dm.dc, tile = ti.tile, pstride = dc * tile, i = ti.base + ti.bl;
+  const float bias = clipf(F(1.0) - alpha_cur, F(0.0), F(1.0));
+  if (own) {
+    // One slot per thread, its constants kept by the caller.
+    primal_slot(dm, c, b, w, p, *own, rebuild, bias, i, sh + ti.lane * tile + ti.bl, pstride);
+  } else {
+    for (int t = ti.lane; t < dc; t += ti.lanes)
+      primal_slot(dm, c, b, w, p, slot_ctx(dm, c, b, p, i, t), rebuild, bias, i, sh + t * tile + ti.bl, pstride);
+  }
+  __syncthreads();
+  float* fold = sh + N_PART * pstride;
+  const int n_comp = rebuild ? N_PART : 6;
+  for (int k = threadIdx.x; k < n_comp * tile; k += blockDim.x) {
+    int q = k / tile, bl = k - q * tile;
+    const float* src = sh + q * pstride + bl;
+    float acc = src[0];
+    for (int t = 1; t < dc; ++t) acc = acc + src[t * tile];
+    if (q < 6) fold[q * tile + bl] = acc;
+    else w.mat[(q - 6) * dm.n + ti.base + bl] = acc;
+  }
+  __syncthreads();
 }
 
 // One family of joint or spring rows summed over a body's slots.
@@ -972,20 +1073,22 @@ __device__ __forceinline__ void pose_update(V3 pos, Q4 quat, const float dl[3], 
   *out_q = applyb ? nq : quat;
 }
 
-// Contact-only sweep: contact terms and the solve fused, one thread per body.
-__global__ void __launch_bounds__(BLOCK) k_primal(Dims dm, Cache c, Bodies b, Work w, KParams p, int rebuild,
-                                                  float alpha_cur) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= dm.n) return;
-  const int n = dm.n;
+// The primal pass's body half: the solve and the relaxed pose update of
+// the tile's bodies, one thread each, from the folded F / T and w.mat.
+__device__ __forceinline__ void primal_bodies(const Dims& dm, const Bodies& b, const Work& w, const KParams& p,
+                                              const TileIdx& ti, const float* fold) {
+  if (threadIdx.x >= ti.tile) return;
+  const int n = dm.n, i = ti.base + threadIdx.x;
   bool dyn = b.inv_mass[i] > F(0.0);
   float dynf = dyn ? F(1.0) : F(0.0);
   V3 pos = ld3(w.pos, i, n);
   Q4 quat = ld4(w.quat, i, n);
   float F3[3], T3[3], M[24];
-  contact_terms(dm, c, b, w, p, rebuild, alpha_cur, i, quat, F3, T3, M);
-  if (!rebuild)
-    for (int q = 0; q < 24; ++q) M[q] = w.mat[q * n + i];
+  for (int k = 0; k < 3; ++k) {
+    F3[k] = fold[k * ti.tile + threadIdx.x];
+    T3[k] = fold[(3 + k) * ti.tile + threadIdx.x];
+  }
+  for (int q = 0; q < 24; ++q) M[q] = w.mat[q * n + i];
   float dl[3], da[3];
   body_solve(b, w, p, i, n, pos, quat, F3, T3, M, nullptr, 0, dl, da);
   V3 new_pos;
@@ -995,32 +1098,51 @@ __global__ void __launch_bounds__(BLOCK) k_primal(Dims dm, Cache c, Bodies b, Wo
   st4(w.quat, i, n, nq);
 }
 
+// Contact-only sweep, primal half, one launch: N / tile blocks.  The tiled
+// kernels are compiled for several block-size ceilings (MAXT), so a shape
+// whose blocks are smaller gets more registers per thread; the launchers
+// pick the smallest ceiling that holds the plan's threads.
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) k_primal(Dims dm, Cache c, Bodies b, Work w, KParams p, int tile,
+                                                 int rebuild, float alpha_cur) {
+  extern __shared__ float sh[];
+  TileIdx ti = tile_index(tile);
+  primal_tile(dm, c, b, w, p, rebuild, alpha_cur, ti, sh, nullptr);
+  primal_bodies(dm, b, w, p, ti, sh + N_PART * dm.dc * tile);
+}
+
 // ---------------------------------------------------------------------------
 // Phase 4b: geometry at the new poses + dual update, one thread per slot.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(BLOCK) k_dual(Dims dm, Cache c, Bodies b, Work w, KParams p, int do_dual,
-                                                int ramp, float alpha_cur) {
-  int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = dm.n, S = dm.dc * dm.n;
-  if (gid >= S) return;
-  int i = gid % n;
-  int sl = gid;
+// The cluster barrier in two halves, so that work between them hides the
+// wait: every thread of the cluster arrives once and waits once per phase.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+#define BAR_WAIT_POSES 1    // wait for the logical block's new poses before reading them
+#define BAR_POSES_READ 2    // signal that this thread has read the poses it needs
+
+// Slot x: geometry at the new poses (to w.geom), then the dual update of its
+// rows, contact by contact.  ``bar`` (the cluster-resident loop): the
+// barrier halves around the pose reads, 0 elsewhere.
+__device__ __forceinline__ void dual_slot(const Dims& dm, const Cache& c, const Work& w, const KParams& p,
+                                          const SlotCtx& x, int do_dual, int ramp, float alpha_cur, int i,
+                                          int bar) {
+  const int n = dm.n, S = dm.dc * dm.n, sl = x.sl, count = x.count;
   const float bias = clipf(F(1.0) - alpha_cur, F(0.0), F(1.0));
-  int other = c.other[sl];
-  bool valid = other >= 0;
-  int idx = valid ? other : 0;
-  bool is_a = i < idx;
-  float mu, mass_scale;
-  pair_consts(b, i, idx, &mu, &mass_scale);
-  float cap = p.normal_force_cap * mass_scale;
-  V3 basis[3];
-  contact_basis(v3(c.normal[sl], c.normal[S + sl], c.normal[2 * S + sl]), &basis[0], &basis[1], &basis[2]);
-  SlotGeom gm;
-  slot_geometry(c, w, i, idx, is_a, sl, S, n, basis[0], basis[1], basis[2], &gm);
-  store_geom(w.geom, sl, S, gm);
-  int count = c.count[sl];
+  const bool valid = x.valid;
+  const float mu = x.mu, cap = x.cap;
+  const V3* basis = x.basis;
+  if (bar & BAR_WAIT_POSES) cluster_wait();
+  PairPose pr = pair_pose(w, i, x.idx, x.is_a, n);
+  if (bar & BAR_POSES_READ) cluster_arrive();
   for (int s = 0; s < 4; ++s) {
+    ContactGeom gm = contact_geometry(c, w.geom, pr, s, sl, S, basis[0], basis[1], basis[2]);
     bool slot_ok = (s < count) && valid;
     float lam[3], pen[3];
     for (int k = 0; k < 3; ++k) {
@@ -1028,13 +1150,13 @@ __global__ void __launch_bounds__(BLOCK) k_dual(Dims dm, Cache c, Bodies b, Work
       pen[k] = c.pen[(s * 3 + k) * S + sl];
     }
     bool stick = c.stick[s * S + sl] > F(0.5);
-    Rows3 r = eval_rows3(gm.sep[s], gm.slip1[s], gm.slip2[s], c.c0_n[s * S + sl], c.c0_t1[s * S + sl],
+    Rows3 r = eval_rows3(gm.sep, gm.slip1, gm.slip2, c.c0_n[s * S + sl], c.c0_t1[s * S + sl],
                          c.c0_t2[s * S + sl], lam, pen, stick, slot_ok, mu, cap, bias, p);
     for (int k = 0; k < 3; ++k) {
       float out_lam, out_pen = pen[k];
       if (do_dual) {
-        V3 ja_a = vcross(gm.rw_a[s], basis[k]);
-        V3 ja_b = vcross(gm.rw_b[s], basis[k]);
+        V3 ja_a = vcross(gm.rw_a, basis[k]);
+        V3 ja_b = vcross(gm.rw_b, basis[k]);
         float ang_w = vdot(ja_a, ja_a) + vdot(ja_b, ja_b);
         float gain = (p.beta2 + p.beta_ang * ang_w) / (F(2.0) + ang_w + F(1.0e-8));
         float lam_r = clipf(pen[k] * r.C[k] + r.lam[k], r.fmin[k], r.fmax[k]);
@@ -1049,6 +1171,87 @@ __global__ void __launch_bounds__(BLOCK) k_dual(Dims dm, Cache c, Bodies b, Work
       c.pen[(s * 3 + k) * S + sl] = out_pen;
     }
     c.stick[s * S + sl] = r.stick ? F(1.0) : F(0.0);
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK) k_dual(Dims dm, Cache c, Bodies b, Work w, KParams p, int do_dual,
+                                                int ramp, float alpha_cur) {
+  int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= dm.dc * dm.n) return;
+  int i = gid % dm.n;
+  dual_slot(dm, c, w, p, slot_ctx(dm, c, b, p, i, gid / dm.n), do_dual, ramp, alpha_cur, i, 0);
+}
+
+// ---------------------------------------------------------------------------
+// The cluster-resident sweep loop: one launch for all sweeps of ``ip``.
+//
+// One thread-block cluster per logical block of w.blk bodies (tile * cluster
+// size); each block of the cluster keeps its tile of bodies through the
+// loop.  Per sweep: the primal pass as in k_primal, a cluster barrier (every
+// new pose of the logical block written), the dual pass of the tile's slots,
+// a cluster barrier (every partner pose read before the next primal pass
+// overwrites it).  Each barrier is split into its arrive and wait halves:
+// a thread arrives as soon as its part is done (its pose written, its
+// partner poses read) and waits only where it needs the others (before it
+// reads partner poses, before it writes a pose), so the rest of the dual
+// pass and the next primal pass's slot half run inside the second barrier.  A slot's geometry, lambdas, penalties and latches are
+// written and read by the one thread that owns the slot, so only the poses
+// cross threads: they stay in global memory (L2) and are read with
+// ld.global.cg.  Partners outside the logical block are read at the
+// launch-start snapshot, which no launch writes, so clusters never wait for
+// each other.
+// ---------------------------------------------------------------------------
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) k_sweeps(Dims dm, Cache c, Bodies b, Work w, KParams p, int tile,
+                                                 IterPlan ip, int with_geom, Carry carry) {
+  extern __shared__ float sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  TileIdx ti = tile_index(tile);
+  const int n = dm.n, dc = dm.dc, S = dc * n, i = ti.base + ti.bl;
+  if (carry.pos) {
+    // The grid tier's launch-start state into the working buffers.
+    if (threadIdx.x < tile) {
+      st3(w.pos, i, n, ld3(carry.pos, i, n));
+      st4(w.quat, i, n, ld4(carry.quat, i, n));
+    }
+    for (int t = ti.lane; t < dc; t += ti.lanes) {
+      int sl = t * n + i;
+      for (int r = 0; r < 12; ++r) {
+        c.lam[r * S + sl] = carry.lam[r * S + sl];
+        c.pen[r * S + sl] = carry.pen[r * S + sl];
+      }
+      for (int s = 0; s < 4; ++s) c.stick[s * S + sl] = carry.stick[s * S + sl];
+    }
+    cluster.sync();
+  }
+  if (with_geom)
+    for (int t = ti.lane; t < dc; t += ti.lanes) geom_slot(dm, c, w, i, t);
+  // A thread with exactly one slot keeps the slot's constants through the
+  // loop where the block size leaves it the registers (above 768 threads a
+  // thread has 64, and keeping them spills more than it saves); otherwise it
+  // recomputes them per pass.
+  const bool one = MAXT <= 768 && ti.lanes >= dc;
+  SlotCtx own;
+  if (one) own = slot_ctx(dm, c, b, p, i, ti.lane);
+  // The start geometry has read its partner poses.
+  cluster_arrive();
+  if (ip.n == 0) cluster_wait();
+  for (int it = 0; it < ip.n; ++it) {
+    primal_tile(dm, c, b, w, p, ip.rebuild[it], ip.alpha[it], ti, sh, one ? &own : nullptr);
+    // Every partner has read this body's old pose (for the start geometry
+    // or in the previous sweep's dual pass) before the new one is written.
+    cluster_wait();
+    primal_bodies(dm, b, w, p, ti, sh + N_PART * dc * tile);
+    cluster_arrive();
+    const bool more = it + 1 < ip.n;
+    for (int t = ti.lane; t < dc; t += ti.lanes) {
+      // The barrier halves go around the pose reads of the thread's first
+      // and last slot.
+      int bar = (t == ti.lane ? BAR_WAIT_POSES : 0) | (more && t + ti.lanes >= dc ? BAR_POSES_READ : 0);
+      if (one) dual_slot(dm, c, w, p, own, ip.do_dual[it], ip.ramp[it], ip.alpha[it], i, bar);
+      else dual_slot(dm, c, w, p, slot_ctx(dm, c, b, p, i, t), ip.do_dual[it], ip.ramp[it], ip.alpha[it], i, bar);
+    }
   }
 }
 
@@ -1267,18 +1470,18 @@ __global__ void __launch_bounds__(BLOCK) k_row_decay(Dims dm, JointRows jr, KPar
   }
 }
 
-// Sweep with rows, part 1: the contact terms of every body, F/T to jr.ft
-// and (on a rebuild) the Hessian to w.mat; one thread per body.
-__global__ void __launch_bounds__(BLOCK) k_contact_acc(Dims dm, Cache c, Bodies b, Work w, JointRows jr,
-                                                       KParams p, int rebuild, float alpha_cur) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= dm.n) return;
-  const int n = dm.n;
-  float F3[3], T3[3], M[24];
-  contact_terms(dm, c, b, w, p, rebuild, alpha_cur, i, ld4(w.quat, i, n), F3, T3, M);
-  for (int k = 0; k < 3; ++k) {
-    jr.ft[k * n + i] = F3[k];
-    jr.ft[(3 + k) * n + i] = T3[k];
+// Sweep with rows, part 1: the contact terms of every body, tiled as
+// k_primal: F/T to jr.ft and (on a rebuild) the Hessian to w.mat.
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) k_contact_acc(Dims dm, Cache c, Bodies b, Work w, JointRows jr,
+                                                      KParams p, int tile, int rebuild, float alpha_cur) {
+  extern __shared__ float sh[];
+  TileIdx ti = tile_index(tile);
+  primal_tile(dm, c, b, w, p, rebuild, alpha_cur, ti, sh, nullptr);
+  const float* fold = sh + N_PART * dm.dc * tile;
+  for (int k = threadIdx.x; k < 6 * tile; k += blockDim.x) {
+    int q = k / tile, bl = k - q * tile;
+    jr.ft[q * dm.n + ti.base + bl] = fold[k];
   }
 }
 
@@ -1483,6 +1686,117 @@ __global__ void __launch_bounds__(CTRL_THREADS) k_final_reduce(Dims dm, Cache c,
 // Host entry point
 // ---------------------------------------------------------------------------
 
+// Dynamic shared memory above 48 KB and cluster sizes above 8 are opt-in,
+// once per kernel.
+template <typename K>
+static cudaError_t opt_in(K kernel, bool clusters) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (err == cudaSuccess && clusters)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+static bool plan_ok(const SweepPlan& pl, const Dims& dm) {
+  return pl.tile > 0 && pl.threads > 0 && pl.threads <= 1024 && pl.threads % pl.tile == 0 &&
+         dm.n % pl.tile == 0 && pl.smem >= (int)sizeof(float) * (N_PART * dm.dc + 6) * pl.tile &&
+         pl.cluster >= 0 && pl.cluster <= 16;
+}
+
+template <int MAXT>
+static cudaError_t launch_primal_t(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, KParams p, int rebuild,
+                                   float alpha_cur, cudaStream_t st) {
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = opt_in(k_primal<MAXT>, false);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  k_primal<MAXT><<<dm.n / pl.tile, pl.threads, pl.smem, st>>>(dm, c, b, w, p, pl.tile, rebuild, alpha_cur);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_primal(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, KParams p, int rebuild,
+                          float alpha_cur, cudaStream_t st) {
+  if (!plan_ok(pl, dm)) return cudaErrorInvalidValue;
+  if (pl.threads <= 512) return launch_primal_t<512>(pl, dm, c, b, w, p, rebuild, alpha_cur, st);
+  return launch_primal_t<1024>(pl, dm, c, b, w, p, rebuild, alpha_cur, st);
+}
+
+template <int MAXT>
+static cudaError_t launch_contact_acc_t(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, JointRows jr,
+                                        KParams p, int rebuild, float alpha_cur, cudaStream_t st) {
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = opt_in(k_contact_acc<MAXT>, false);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  k_contact_acc<MAXT><<<dm.n / pl.tile, pl.threads, pl.smem, st>>>(dm, c, b, w, jr, p, pl.tile, rebuild,
+                                                                   alpha_cur);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_contact_acc(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, JointRows jr,
+                                      KParams p, int rebuild, float alpha_cur, cudaStream_t st) {
+  if (!plan_ok(pl, dm)) return cudaErrorInvalidValue;
+  if (pl.threads <= 512) return launch_contact_acc_t<512>(pl, dm, c, b, w, jr, p, rebuild, alpha_cur, st);
+  return launch_contact_acc_t<1024>(pl, dm, c, b, w, jr, p, rebuild, alpha_cur, st);
+}
+
+template <int MAXT>
+static cudaError_t launch_sweeps_t(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, KParams p,
+                                   const IterPlan& ip, int with_geom, Carry carry, cudaStream_t st) {
+  static bool ready = false;
+  static int ok_threads = 0, ok_smem = 0, ok_cluster = 0;
+  if (!ready) {
+    cudaError_t err = opt_in(k_sweeps<MAXT>, true);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(dm.n / pl.tile, 1, 1);
+  cfg.blockDim = dim3(pl.threads, 1, 1);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (pl.threads != ok_threads || pl.smem != ok_smem || pl.cluster != ok_cluster) {
+    // Schedulability of this shape, checked once: a cluster that fits no GPC
+    // would never start.
+    int max_clusters = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&max_clusters, k_sweeps<MAXT>, &cfg);
+    if (err != cudaSuccess) return err;
+    if (max_clusters < 1) return cudaErrorLaunchOutOfResources;
+    ok_threads = pl.threads;
+    ok_smem = pl.smem;
+    ok_cluster = pl.cluster;
+  }
+  return cudaLaunchKernelEx(&cfg, k_sweeps<MAXT>, dm, c, b, w, p, pl.tile, ip, with_geom, carry);
+}
+
+cudaError_t launch_sweeps(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, KParams p, const IterPlan& ip,
+                          int with_geom, Carry carry, cudaStream_t st) {
+  if (!plan_ok(pl, dm) || pl.cluster < 1 || pl.tile * pl.cluster != w.blk || dm.n % w.blk != 0)
+    return cudaErrorInvalidValue;
+  if (pl.threads <= 512) return launch_sweeps_t<512>(pl, dm, c, b, w, p, ip, with_geom, carry, st);
+  if (pl.threads <= 768) return launch_sweeps_t<768>(pl, dm, c, b, w, p, ip, with_geom, carry, st);
+  return launch_sweeps_t<1024>(pl, dm, c, b, w, p, ip, with_geom, carry, st);
+}
+
+// Sweep it of a step's loop (solve_half's plan): alpha and the three flags.
+static void step_iter(const KParams& p, int it, int n_main, int iters_end, int k, float* alpha, int* do_dual,
+                      int* rebuild, int* ramp) {
+  *rebuild = (it % k) == 0;
+  *ramp = ((it % k) == k - 1) || (it == iters_end - 1);
+  *alpha = p.post_stabilize != F(0.0) ? (it < n_main ? F(1.0) : F(0.0)) : p.alpha;
+  *do_dual = it < n_main;
+}
+
 extern "C" {
 
 // Rows of a jointed world from ptrs 54-79 (see avbd_step).
@@ -1522,49 +1836,69 @@ static JointRows rows_from(void** ptrs, int dj, int ds, int n_colors) {
 
 // The solve of a step after its collide, shared by avbd_step (K1) and
 // avbd_solve_loop (K4): prediction, slot geometry, the sweeps and the final
-// velocities.  Each sweep is one fused k_primal for a contact-only world;
-// with joint or spring rows (jr.dj or jr.ds > 0) it is k_contact_acc plus
-// one k_subpass per colour, ping-ponging between w's pose buffers and
-// pos_b/quat_b, then k_joint_dual; k_joint_ema follows k_final_body.  On
-// return w's poses are its output buffers again.
-static cudaError_t solve_phases(Dims dm, Cache c, Bodies b, Work* wp, KParams p, const JointRows& jr,
-                                float* pos_b, float* quat_b, int n_main, int iters_end, int k_rebuild,
-                                cudaStream_t st) {
+// velocities.  Contact-only with pl.cluster > 0: the geometry and all sweeps
+// in cluster-resident launches of at most MAX_RESIDENT_ITERS sweeps (one
+// launch for any scene of the repository).  Contact-only otherwise: k_geom,
+// then k_primal + k_dual per sweep.  With joint or spring rows (jr.dj or
+// jr.ds > 0) a sweep is k_contact_acc plus one k_subpass per colour,
+// ping-ponging between w's pose buffers and pos_b/quat_b, then k_dual and
+// k_joint_dual; k_joint_ema follows k_final_body.  On return w's poses are
+// its output buffers again.
+static cudaError_t solve_phases(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work* wp, KParams p,
+                                const JointRows& jr, float* pos_b, float* quat_b, int n_main, int iters_end,
+                                int k_rebuild, cudaStream_t st) {
   Work& w = *wp;
   const int n = dm.n, dj = jr.dj;
   const int nb_body = blocks_for(n), nb_slot = blocks_for(dm.dc * n);
   const bool rows = jr.dj > 0 || jr.ds > 0;
-  k_predict<<<nb_body, BLOCK, 0, st>>>(dm, b, w, p);
-  k_geom<<<nb_slot, BLOCK, 0, st>>>(dm, c, w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   const int k = k_rebuild < 1 ? 1 : k_rebuild;
+  cudaError_t err;
+  if (rows && pl.cluster > 0) return cudaErrorInvalidValue;
+  k_predict<<<nb_body, BLOCK, 0, st>>>(dm, b, w, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   float* const out_pos = w.pos;
   float* const out_quat = w.quat;
-  for (int it = 0; it < iters_end; ++it) {
-    int rebuild = (it % k) == 0;
-    int ramp = ((it % k) == k - 1) || (it == iters_end - 1);
-    float alpha_cur = p.post_stabilize != F(0.0) ? (it < n_main ? F(1.0) : F(0.0)) : p.alpha;
-    if (!rows) {
-      k_primal<<<nb_body, BLOCK, 0, st>>>(dm, c, b, w, p, rebuild, alpha_cur);
-    } else {
-      // Contact terms once at the sweep-start poses, then one launch per
-      // colour sub-pass, ping-ponging between the two pose buffers.
-      k_contact_acc<<<nb_body, BLOCK, 0, st>>>(dm, c, b, w, jr, p, rebuild, alpha_cur);
-      for (int ci = 0; ci < jr.n_colors; ++ci) {
-        float* dst_p = w.pos == out_pos ? pos_b : out_pos;
-        float* dst_q = w.quat == out_quat ? quat_b : out_quat;
-        k_subpass<<<nb_body, BLOCK, 0, st>>>(dm, b, w, jr, p, ci, w.pos, w.quat, dst_p, dst_q);
-        w.pos = dst_p;
-        w.quat = dst_q;
-        w.snap_pos = w.pos;
-        w.snap_quat = w.quat;
+  if (pl.cluster > 0) {
+    const Carry none = {};
+    for (int s = 0; s < iters_end || s == 0; s += MAX_RESIDENT_ITERS) {
+      IterPlan ip = {};
+      ip.n = iters_end - s < MAX_RESIDENT_ITERS ? iters_end - s : MAX_RESIDENT_ITERS;
+      for (int j = 0; j < ip.n; ++j) {
+        int do_dual, rebuild, ramp;
+        step_iter(p, s + j, n_main, iters_end, k, &ip.alpha[j], &do_dual, &rebuild, &ramp);
+        ip.do_dual[j] = do_dual;
+        ip.rebuild[j] = rebuild;
+        ip.ramp[j] = ramp;
       }
+      if ((err = launch_sweeps(pl, dm, c, b, w, p, ip, s == 0, none, st)) != cudaSuccess) return err;
     }
-    k_dual<<<nb_slot, BLOCK, 0, st>>>(dm, c, b, w, p, it < n_main, ramp, alpha_cur);
-    if (dj > 0 && it < n_main) k_joint_dual<<<blocks_for(dj * n), BLOCK, 0, st>>>(dm, jr, w, p);
+  } else {
+    k_geom<<<nb_slot, BLOCK, 0, st>>>(dm, c, w);
+    for (int it = 0; it < iters_end; ++it) {
+      float alpha_cur;
+      int do_dual, rebuild, ramp;
+      step_iter(p, it, n_main, iters_end, k, &alpha_cur, &do_dual, &rebuild, &ramp);
+      if (!rows) {
+        if ((err = launch_primal(pl, dm, c, b, w, p, rebuild, alpha_cur, st)) != cudaSuccess) return err;
+      } else {
+        // Contact terms once at the sweep-start poses, then one launch per
+        // colour sub-pass, ping-ponging between the two pose buffers.
+        if ((err = launch_contact_acc(pl, dm, c, b, w, jr, p, rebuild, alpha_cur, st)) != cudaSuccess) return err;
+        for (int ci = 0; ci < jr.n_colors; ++ci) {
+          float* dst_p = w.pos == out_pos ? pos_b : out_pos;
+          float* dst_q = w.quat == out_quat ? quat_b : out_quat;
+          k_subpass<<<nb_body, BLOCK, 0, st>>>(dm, b, w, jr, p, ci, w.pos, w.quat, dst_p, dst_q);
+          w.pos = dst_p;
+          w.quat = dst_q;
+          w.snap_pos = w.pos;
+          w.snap_quat = w.quat;
+        }
+      }
+      k_dual<<<nb_slot, BLOCK, 0, st>>>(dm, c, b, w, p, do_dual, ramp, alpha_cur);
+      if (dj > 0 && do_dual) k_joint_dual<<<blocks_for(dj * n), BLOCK, 0, st>>>(dm, jr, w, p);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (w.pos != out_pos) {
     err = cudaMemcpyAsync(out_pos, w.pos, 3 * (size_t)n * sizeof(float), cudaMemcpyDeviceToDevice, st);
     if (err == cudaSuccess)
@@ -1599,10 +1933,12 @@ static cudaError_t solve_phases(Dims dm, Cache c, Bodies b, Work* wp, KParams p,
 //         penalty
 //   74-76 outputs j_lam, j_pen (6 DJ N), s_pen (DS N)
 //   77-79 scratch: ft (6N), second pose buffer pos (3N), quat (4N)
+// ``plan``: the shape's sweep plan, 5 ints in SweepPlan order.
 // Returns the first non-zero CUDA error code, or 0.
 int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, int ds, int n_colors,
-              int n_main, int iters_end, int k_rebuild, void* stream) {
+              int n_main, int iters_end, int k_rebuild, const int* plan, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const SweepPlan pl = plan_from(plan);
   if (dc > d || n % 128 != 0 || dj < 0 || ds < 0 || n_colors < 1) return (int)cudaErrorInvalidValue;
   KParams p = *(const KParams*)params;
   Dims dm{n, d, dc};
@@ -1656,7 +1992,7 @@ int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, in
   }
   k_filter_cull<<<blocks_for(n), BLOCK, 0, st>>>(dm, nb, key, thr, b, w, p);
   k_collide<<<blocks_for(dc * n), BLOCK, 0, st>>>(dm, old, c, b, w, p);
-  err = solve_phases(dm, c, b, &w, p, jr, rows ? (float*)ptrs[78] : nullptr,
+  err = solve_phases(pl, dm, c, b, &w, p, jr, rows ? (float*)ptrs[78] : nullptr,
                      rows ? (float*)ptrs[79] : nullptr, n_main, iters_end, k_rebuild, st);
   if (err != cudaSuccess) return (int)err;
   CtrlIn ctrl;
@@ -1715,10 +2051,12 @@ int avbd_collide(void** ptrs, const float* params, int n, int d, int dc, void* s
 //   31    diag (8, 128)
 //   32-35 scratch ip (3N), iq (4N), geom (36 DC N), mat (24 N)
 //   36    counters (3 ints)
+// ``plan``: the shape's sweep plan, 5 ints in SweepPlan order.
 // Returns the first non-zero CUDA error code, or 0.
 int avbd_solve_loop(void** ptrs, const float* params, int n, int dc, int n_main, int iters_end, int k_rebuild,
-                    void* stream) {
+                    const int* plan, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const SweepPlan pl = plan_from(plan);
   if (n % 128 != 0) return (int)cudaErrorInvalidValue;
   KParams p = *(const KParams*)params;
   Dims dm{n, dc, dc};
@@ -1764,7 +2102,7 @@ int avbd_solve_loop(void** ptrs, const float* params, int n, int dc, int n_main,
   cudaError_t err = cudaMemsetAsync(w.counters, 0, 3 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   const JointRows jr = {};
-  err = solve_phases(dm, c, b, &w, p, jr, nullptr, nullptr, n_main, iters_end, k_rebuild, st);
+  err = solve_phases(pl, dm, c, b, &w, p, jr, nullptr, nullptr, n_main, iters_end, k_rebuild, st);
   if (err != cudaSuccess) return (int)err;
   CtrlIn ctrl = {};
   k_final_reduce<<<1, CTRL_THREADS, 0, st>>>(dm, c, b, w, p, ctrl, 0);

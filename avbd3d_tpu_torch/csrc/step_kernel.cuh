@@ -66,14 +66,53 @@ struct Dims {
   int n, d, dc;
 };
 
+// The sweep plan of a shape (solver_cuda.sweep_plan computes it; the C side
+// takes its numbers as they are).  A thread block owns ``tile`` bodies and
+// runs ``threads`` = tile * lanes threads; thread (lane, body) takes the
+// cache slots lane, lane + lanes, ... (``spt`` of them at most).  ``smem``:
+// dynamic shared memory of the block in bytes.  ``cluster`` > 0: the sweeps
+// of a logical block run in one launch of thread-block clusters of that
+// many blocks (tile * cluster bodies = one logical block); 0: one launch per
+// half-sweep.
+struct SweepPlan {
+  int tile, threads, spt, smem, cluster;
+};
+
+static inline SweepPlan plan_from(const int* v) { return SweepPlan{v[0], v[1], v[2], v[3], v[4]}; }
+
+// The iterations of one cluster-resident launch.
+#define MAX_RESIDENT_ITERS 64
+struct IterPlan {
+  int n;
+  float alpha[MAX_RESIDENT_ITERS];
+  unsigned char do_dual[MAX_RESIDENT_ITERS], rebuild[MAX_RESIDENT_ITERS], ramp[MAX_RESIDENT_ITERS];
+};
+
+// Launch-start state a cluster-resident launch copies into its working
+// buffers before its first sweep (the grid tier); all null: nothing to copy.
+struct Carry {
+  const float* pos;    // (3, N)
+  const float* quat;   // (4, N)
+  const float* lam;    // (12, DC, N)
+  const float* pen;    // (12, DC, N)
+  const float* stick;  // (4, DC, N)
+};
+
 __global__ void __launch_bounds__(BLOCK) k_filter_cull(Dims dm, const int* nb, const int* key, const int* thr,
                                                        Bodies b, Work w, KParams p);
 __global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, Bodies b, Work w, KParams p);
 __global__ void __launch_bounds__(BLOCK) k_geom(Dims dm, Cache c, Work w);
-__global__ void __launch_bounds__(BLOCK) k_primal(Dims dm, Cache c, Bodies b, Work w, KParams p, int rebuild,
-                                                  float alpha_cur);
 __global__ void __launch_bounds__(BLOCK) k_dual(Dims dm, Cache c, Bodies b, Work w, KParams p, int do_dual,
                                                 int ramp, float alpha_cur);
+
+// Host launchers of the tiled sweep kernels (defined in step_kernel.cu): the
+// primal pass of one sweep, and the whole sweep loop of ``ip`` in one
+// cluster launch (with the geometry at the start poses first when
+// ``with_geom``).  Both return the launch's CUDA error.
+cudaError_t launch_primal(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, KParams p, int rebuild,
+                          float alpha_cur, cudaStream_t st);
+cudaError_t launch_sweeps(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, KParams p, const IterPlan& ip,
+                          int with_geom, Carry carry, cudaStream_t st);
 
 static inline int blocks_for(int threads) { return (threads + BLOCK - 1) / BLOCK; }
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -110,13 +111,13 @@ def build(force: bool = False) -> _Lib:
     cdll.avbd_n_params.argtypes = []
     cdll.avbd_n_params.restype = ci
     cdll.avbd_step.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
-                               ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+                               ci, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.POINTER(ci), vp]
     cdll.avbd_step.restype = ci
     cdll.avbd_collide.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
                                   ci, ci, ci, vp]
     cdll.avbd_collide.restype = ci
     cdll.avbd_solve_loop.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
-                                     ci, ci, ci, ci, ci, vp]
+                                     ci, ci, ci, ci, ci, ctypes.POINTER(ci), vp]
     cdll.avbd_solve_loop.restype = ci
     cdll.avbd_control_lanes.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
                                         ci, ci, vp]
@@ -129,7 +130,7 @@ def build(force: bool = False) -> _Lib:
     cdll.avbd_collide_grid.restype = ci
     cdll.avbd_iterblock_grid.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
                                          ci, ci, ci, ci, ctypes.POINTER(ci),
-                                         ctypes.POINTER(ctypes.c_float), vp]
+                                         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ci), vp]
     cdll.avbd_iterblock_grid.restype = ci
     if cdll.avbd_n_params() != len(_PARAM_NAMES):
         raise RuntimeError(
@@ -137,6 +138,41 @@ def build(force: bool = False) -> _Lib:
             f"binding {len(_PARAM_NAMES)}")
     _LIB = _Lib(cdll, path, time.perf_counter() - t0, log)
     return _LIB
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes of every kernel in a ``ptxas -v`` log:
+    {kernel name: {"registers": r, "spill_bytes": stores + loads}}, the name
+    demangled as far as its identifier and one integer template argument
+    (``_Z8k_sweepsILi768EEv4Dims...`` -> ``k_sweeps<768>``)."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym = m.group(1)
+            mm = re.match(r"_Z(\d+)", sym)
+            name = sym
+            if mm:
+                end = mm.end() + int(mm.group(1))
+                targ = re.match(r"ILi(\d+)E", sym[end:])
+                name = sym[mm.end():end] + (f"<{targ.group(1)}>" if targ else "")
+            usage[name] = {"registers": None, "spill_bytes": None}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def _plan_arg(plan):
+    """A ``solver_cuda.SweepPlan`` as the 5 ints the entry points take."""
+    return (ctypes.c_int * 5)(plan.tile, plan.threads, plan.slots_per_thread,
+                              plan.smem_bytes, plan.cluster)
 
 
 def param_block(params) -> list:
@@ -274,8 +310,10 @@ def _row_operands(rows, fields, width, g, device, what):
 
 
 def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
-                n_main: int, k_rebuild: int, joints=None, springs=None, n_colors: int = 1):
-    """Run the fused step kernel.  ``cache_args``: the 12 old cache leaves
+                n_main: int, k_rebuild: int, joints=None, springs=None, n_colors: int = 1,
+                *, plan):
+    """Run the fused step kernel with the sweep plan ``plan``
+    (``solver_cuda.sweep_plan``).  ``cache_args``: the 12 old cache leaves
     (stick as float32); ``joints`` / ``springs``: the containers of a
     jointed world (None or empty otherwise), whose slot leaves follow the
     contact operands.  Returns (12 new cache leaves, 6 body leaves, diag
@@ -321,7 +359,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
     iters_end = n_main + (1 if params.post_stabilize else 0)
     code = lib.cdll.avbd_step(_ptrs(tensors), _fparams(params), n, d, dc, dj, ds,
                               int(n_colors), int(n_main), int(iters_end), int(k_rebuild),
-                              _stream(dev))
+                              _plan_arg(plan), _stream(dev))
     _raise_on(code, "step kernel launch")
     return new, tuple(body_out), diag, row_out
 
@@ -348,8 +386,9 @@ def launch_collide(cache_args, nb, key, thr, b, params):
     return new, counters[0], counters[1]
 
 
-def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int):
-    """Run K4, the solve half of the step kernel for a contact-only world.
+def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int, *, plan):
+    """Run K4, the solve half of the step kernel for a contact-only world,
+    with the sweep plan ``plan``.
     Returns (6 body leaves, lam, penalty, stick (0/1 float32), diag (8, 128)
     with lanes 0-8 filled)."""
     lib = build()
@@ -369,7 +408,8 @@ def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int):
     tensors = cache + ins + body_out + rows + [diag] + scratch
     iters_end = n_main + (1 if params.post_stabilize else 0)
     code = lib.cdll.avbd_solve_loop(_ptrs(tensors), _fparams(params), n, dc, int(n_main),
-                                    int(iters_end), int(k_rebuild), _stream(dev))
+                                    int(iters_end), int(k_rebuild), _plan_arg(plan),
+                                    _stream(dev))
     _raise_on(code, "solve-loop kernel launch")
     return tuple(body_out), rows[0], rows[1], rows[2], diag
 
@@ -447,10 +487,10 @@ def launch_collide_grid(cache_args, nb, key, thr, b, params):
 
 
 def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, params,
-                          blk: int, spec):
-    """Run K6: ``len(spec)`` iterations, (alpha, do_dual, rebuild, ramp)
-    each, from the launch-start poses, partners outside a slot's logical
-    block of ``blk`` bodies read at those poses.  Returns (pos, quat, lam,
+                          blk: int, spec, *, plan):
+    """Run K6 with the sweep plan ``plan``: ``len(spec)`` iterations, (alpha,
+    do_dual, rebuild, ramp) each, from the launch-start poses, partners
+    outside a slot's logical block of ``blk`` bodies read at those poses.  Returns (pos, quat, lam,
     pen, stick f32, sep (4, DC, G, 128))."""
     lib = build()
     dev = _cuda_device(b)
@@ -480,6 +520,7 @@ def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, para
         *[int(v) for _a, do_dual, rebuild, ramp in spec for v in (do_dual, rebuild, ramp)])
     alphas = (ctypes.c_float * len(spec))(*[a for a, *_ in spec])
     code = lib.cdll.avbd_iterblock_grid(_ptrs(ins + outs + scratch), _fparams(params), n, dc,
-                                        int(blk), len(spec), flags, alphas, _stream(dev))
+                                        int(blk), len(spec), flags, alphas, _plan_arg(plan),
+                                        _stream(dev))
     _raise_on(code, "grid iteration kernel launch")
     return tuple(outs) + (geom[24:28],)

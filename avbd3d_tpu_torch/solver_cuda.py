@@ -66,6 +66,96 @@ CACHE_FIELDS = (
 )
 
 
+# ---------------------------------------------------------------------------
+# The sweep plan: how the sweep kernels of K1, K4 and K6 divide a shape
+# ---------------------------------------------------------------------------
+
+MAX_THREADS = 1024          # threads of a thread block
+MAX_SMEM_BYTES = 232448     # dynamic shared memory a block may opt into (227 KB)
+MAX_CLUSTER = 16            # blocks of a thread-block cluster on the H100
+N_PARTIALS = 30             # a slot's partial sums: F (3), T (3), 24 Hessian terms
+MAX_RESIDENT_ITERS = 64     # sweeps of one cluster-resident launch
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """How the tiled sweep kernels run a shape (csrc/step_kernel.cuh).  A
+    thread block owns ``tile`` bodies with ``threads`` = tile x lanes
+    threads; thread (lane, body) takes the cache slots lane, lane + lanes,
+    ... (``slots_per_thread`` at most); ``smem_bytes``: the block's partial
+    sums (N_PARTIALS x DC x tile floats) and folded force / torque (6 x tile).
+    ``cluster`` > 0: the sweeps of a logical block of tile x cluster bodies
+    run in one launch of thread-block clusters of that size; 0: one launch
+    per half-sweep."""
+
+    tile: int
+    threads: int
+    slots_per_thread: int
+    smem_bytes: int
+    cluster: int
+
+    @property
+    def route(self) -> str:
+        return "cluster" if self.cluster > 0 else "launches"
+
+
+def _tile_shape(tile: int, dc: int):
+    spt = -(-dc * tile // MAX_THREADS)
+    lanes = -(-dc // spt)
+    return lanes * tile, spt, 4 * (N_PARTIALS * dc + 6) * tile
+
+
+def sweep_plan(n: int, dc: int, blk: int = None, dj: int = 0, ds: int = 0) -> SweepPlan:
+    """The route of the sweep kernels for ``n`` bodies (a multiple of 128),
+    ``dc`` cache slots, logical blocks of ``blk`` bodies (the whole world by
+    default: K1 and K4) and ``dj`` / ``ds`` joint and spring slots.
+
+    Cluster-resident sweeps where the world is contact-only and a logical
+    block fits one cluster: the smallest tile of 32 and 64 bodies with
+    blk / tile <= MAX_CLUSTER whose block fits the thread and shared-memory
+    limits.  Tiles of 64 bodies only where several logical blocks run side by
+    side (the grid tier): a lone cluster of 16 such blocks holds a whole
+    1024-body world on 16 of the card's 132 SMs, and measured slower on the
+    card than launches of 32-body tiles (PERF.md section 6).  Otherwise one
+    launch per half-sweep with tiles of 32 bodies (the most blocks).
+    Decided by shape alone, before any launch."""
+    blk = n if blk is None else blk
+    if n <= 0 or n % 128 or dc < 1:
+        raise ValueError(f"need N a positive multiple of 128 and DC >= 1, got N={n}, DC={dc}")
+    if blk <= 0 or n % blk or blk % 128:
+        raise ValueError(f"logical block of {blk} bodies does not divide N={n} in groups of 128")
+    if dj == 0 and ds == 0:
+        for tile in (32, 64):
+            threads, spt, smem = _tile_shape(tile, dc)
+            fills_card = tile == 32 or n // blk > 1
+            if blk // tile <= MAX_CLUSTER and smem <= MAX_SMEM_BYTES and fills_card:
+                return SweepPlan(tile, threads, spt, smem, blk // tile)
+    threads, spt, smem = _tile_shape(32, dc)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"cache width DC={dc} does not fit a block's shared memory")
+    return SweepPlan(32, threads, spt, smem, 0)
+
+
+def step_kernel_count(plan: SweepPlan, n_main: int, iters_end: int, dj: int = 0, ds: int = 0,
+                      n_colors: int = 1) -> int:
+    """Kernels one K1 call queues under ``plan`` (copies and memsets not
+    counted): filter, collide, predict, final body and final reduce, plus
+    the sweeps by route."""
+    if dj or ds:
+        n_colors = n_colors if dj else 1
+        ema = 1 if dj else 0    # with joint_ema_rate > 0
+        return 1 + 6 + (2 + n_colors) * iters_end + (n_main if dj else 0) + ema
+    if plan.cluster > 0:
+        return 5 + max(1, -(-iters_end // MAX_RESIDENT_ITERS))
+    return 6 + 2 * iters_end
+
+
+def iterblock_kernel_count(plan: SweepPlan, n_iters: int) -> int:
+    """Kernels one K6 call queues under ``plan`` (copies not counted): one
+    resident launch, or the geometry and two launches per iteration."""
+    return 1 if plan.cluster > 0 else 1 + 2 * n_iters
+
+
 def cache_to_args(c: Contacts):
     """Cache leaves as kernel operands (the bool stick latch as float32)."""
     return [getattr(c, f).to(torch.float32) if f == "stick" else getattr(c, f)
@@ -471,9 +561,11 @@ def step_kernel(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
                                  params, n_main, k_rebuild, joints, springs, n_colors)
     from . import kernels
 
+    plan = sweep_plan(b.n, old.other.shape[0], None, joints.dj if joints is not None else 0,
+                      springs.ds if springs is not None else 0)
     out = kernels.launch_step(cache_to_args(old), nb_raw, keys, thr, b, anchor,
                               anchor_quat, params, n_main, k_rebuild, joints, springs,
-                              n_colors)
+                              n_colors, plan=plan)
     step_kernel.launches += 1
     cache_out, body_out, diag, row_out = out
     return args_to_cache(cache_out), body_out, diag, row_out
@@ -524,7 +616,8 @@ def solve_loop(contacts: Contacts, b, params: SolverParams):
     from . import kernels
 
     body_out, lam, pen, stickf, diag = kernels.launch_solve_loop(
-        cache_to_args(contacts), b, params, params.iterations, params.lhs_rebuild_every)
+        cache_to_args(contacts), b, params, params.iterations, params.lhs_rebuild_every,
+        plan=sweep_plan(b.n, contacts.other.shape[0]))
     solve_loop.launches += 1
     return _solve_loop_result(b, body_out, lam, pen, stickf, diag)
 

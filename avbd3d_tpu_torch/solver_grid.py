@@ -150,7 +150,9 @@ def iterblock_grid(params: SolverParams, gb: int, spec, contacts: Contacts, b,
     from . import kernels
 
     out = kernels.launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf,
-                                        ip, iq, params, gb * 128, spec)
+                                        ip, iq, params, gb * 128, spec,
+                                        plan=solver_cuda.sweep_plan(
+                                            b.n, contacts.other.shape[0], gb * 128))
     iterblock_grid.launches += 1
     return out
 

@@ -1,0 +1,161 @@
+"""Times of the sweep kernels (K1, K4, K6) of one source tree, on the card.
+
+    python avbd3d_tpu_torch/utils/time_sweeps.py [--root DIR] [--routes]
+
+Run by path, not with ``-m``: the package and ``chip_smoke.py`` (for its
+operand helpers) are imported from ``--root`` (default: the tree this file
+lies in), so one call can time two trees in turns, e.g. an archive of an
+earlier commit unpacked beside the working tree.  CUDA-event means over 20
+launches, the card's name and power limit beside them, one JSON line last:
+
+  k1_settled_ms   K1, Stress1000 after 700 steps, 20 sweeps
+  k1_2048_ms      K1, Stress2048 after 600 steps
+  k1_sheets_ms    K1's joint branch, 20 SoftGrid sheets after 300 steps
+  k4_ms           K4 at the settled Stress1000 state, iterations 20 / 5 / 1
+  k6_ms           K6, one launch of 4 iterations, Stress4096 after 1000 steps
+
+``--routes`` (a tree whose launch functions take a sweep plan) also times
+K1 at Stress1000 and at Stack (N = 128) and K6 at Stress4096 with the plan
+forced to each route at tiles of 32 and 64 bodies (K1 also as the summed
+device time of its kernels in a trace of the same calls), beside the route
+``sweep_plan`` chooses, and the settled steps/s of Stress1000 (150 steps)
+and Stress4096 (50 steps) with every step on each route, six times in
+turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import types
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    here = os.path.dirname(os.path.abspath(__file__))
+    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    parser.add_argument("--routes", action="store_true")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+
+    import chip_smoke as cs
+    from avbd3d_tpu_torch import kernels, load_scene, solver, solver_cuda, solver_grid
+    from avbd3d_tpu_torch.utils import profile_phases
+
+    if not torch.cuda.is_available():
+        print("time_sweeps: CUDA is not available", file=sys.stderr)
+        return 2
+    kernels.build()
+    out = {"root": os.path.abspath(args.root), "card": cs.card_line()}
+
+    sc = load_scene("Stress1000", device="cuda")
+    p = sc.params
+    w = solver.run_steps(sc.world, p, sc.cap, 700)
+    a1 = cs.k1_inputs(w, sc)
+    out["k1_settled_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a1), 20)
+    contacts = solver_cuda.collide_and_init(w.contacts, w.bp.nb, w.bp.key, w.bp.thr, w.bodies, p)[0]
+    out["k4_ms"] = {}
+    for its in (20, 5, 1):
+        pi = p.replace(iterations=its)
+        out["k4_ms"][str(its)] = cs.event_ms(
+            lambda: solver_cuda.solve_loop(contacts, w.bodies, pi), 20)
+
+    s2 = load_scene("Stress2048", device="cuda")
+    w2 = solver.run_steps(s2.world, s2.params, s2.cap, 600)
+    a2 = cs.k1_inputs(w2, s2)
+    out["k1_2048_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a2), 20)
+
+    ws, ps, caps, _ = cs.sheets_world()
+    ws = solver.run_steps(ws, ps, caps, 300)
+    a3 = cs.k1_inputs(ws, types.SimpleNamespace(params=ps, cap=caps))
+    out["k1_sheets_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a3), 20)
+
+    s4 = load_scene("Stress4096", device="cuda")
+    w4 = solver.run_steps(s4.world, s4.params, s4.cap, 1000)
+    wi = cs.grid_inputs(w4, s4)
+    a6 = cs.k6_args(wi, s4, solver_grid.collide_grid(*cs.k5_args(wi, s4))[0])
+    out["k6_ms"] = cs.event_ms(lambda: solver_grid.iterblock_grid(*a6), 20)
+
+    if args.routes:
+        import time
+
+        def forced(tile, dc, blk=0):
+            """The plan of ``tile`` bodies a block, one launch per half-sweep
+            (``blk`` 0) or clusters covering logical blocks of ``blk``."""
+            threads, spt, smem = solver_cuda._tile_shape(tile, dc)
+            return solver_cuda.SweepPlan(tile, threads, spt, smem, blk // tile)
+
+        def k1_routes(a, blk):
+            old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k = a[:10]
+            cache_args = solver_cuda.cache_to_args(old)
+            dc = old.other.shape[0]
+            res = {"chosen": repr(solver_cuda.sweep_plan(b.n, dc))}
+            plans = [forced(32, dc), forced(64, dc)]
+            plans += [forced(t, dc, blk) for t in (32, 64) if blk // t <= solver_cuda.MAX_CLUSTER]
+            for plan in plans:
+                def call():
+                    return kernels.launch_step(cache_args, nb, key, thr, b, anchor, anchor_q, pk,
+                                               n_main, k, plan=plan)
+                name = f"{plan.route}_tile{plan.tile}"
+                res[name] = cs.event_ms(call, 20)
+                # The same calls traced: the kernels' own time on the card,
+                # which the host's pace between launches does not enter.
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        call()
+                    torch.cuda.synchronize()
+                res[name + "_device_us"] = sum(
+                    profile_phases.device_time_us(e) for e in prof.key_averages()
+                    if cs.own_kernel(e.key)) / 20
+            return res
+
+        routes = {"k1_settled": k1_routes(a1, 1024)}
+        s5 = load_scene("Stack", device="cuda")
+        w5 = solver.run_steps(s5.world, s5.params, s5.cap, 100)
+        routes["k1_stack"] = k1_routes(cs.k1_inputs(w5, s5), 128)
+
+        pg, gb, spec, c6, b6, pos, quat, lam, pen, stickf, ip, iq = a6
+        dc6 = c6.other.shape[0]
+        routes["k6"] = {"chosen": repr(solver_cuda.sweep_plan(b6.n, dc6, gb * 128))}
+        for plan in (forced(32, dc6), forced(64, dc6), forced(64, dc6, gb * 128)):
+            routes["k6"][f"{plan.route}_tile{plan.tile}"] = cs.event_ms(
+                lambda: kernels.launch_iterblock_grid(c6, b6, pos, quat, lam, pen, stickf, ip, iq,
+                                                      pg, gb * 128, spec, plan=plan), 20)
+
+        # End to end: every step of a settled block on one route.
+        chooser = solver_cuda.sweep_plan
+
+        def steps_per_s(world, scene, n_steps, plan):
+            solver_cuda.sweep_plan = (lambda *a, **k: plan) if plan else chooser
+            try:
+                solver.run_steps(world, scene.params, scene.cap, 5)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solver.run_steps(world, scene.params, scene.cap, n_steps)
+                torch.cuda.synchronize()
+                return n_steps / (time.perf_counter() - t0)
+            finally:
+                solver_cuda.sweep_plan = chooser
+
+        e2e = {"Stress1000": {}, "Stress4096": {}}
+        for rep in range(6):
+            order = (("launches_tile32", 32, 0), ("cluster_tile64", 64, 1024))
+            for name, tile, blk in order if rep % 2 == 0 else order[::-1]:
+                e2e["Stress1000"].setdefault(name, []).append(
+                    steps_per_s(w, sc, 150, forced(tile, 12, blk)))
+                e2e["Stress4096"].setdefault(name, []).append(
+                    steps_per_s(w4, s4, 50, forced(tile, 16, blk)))
+        routes["steps_per_s"] = e2e
+        out["routes"] = routes
+    torch.cuda.synchronize()
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,8 +12,10 @@
    Checks: K1 and K2 launched, sanitized == 0, overflow 0, penetration below
    PEN_LIMIT at every step after the landing cascade, poses finite.
 3. Kernel vs plain on the card: K1 for one step from a landing state and a
-   settled state, K2 on the initial and the settled state.  Integer outputs
-   must be identical; float tolerances are stated at the checks.
+   settled state (Stress1000 takes one launch per half-sweep), K1 on its
+   cluster-resident route on Pyramid and a 7^3 pile, K2 on the initial and
+   the settled state.  Integer outputs must be identical; float tolerances
+   are stated at the checks.
 4. Times: steps/s of the falling window (steps 0-300) and of a settled block
    (steps 700-1000) with the kernels, steps/s of the plain path over a few
    settled steps, and each kernel's time beside its plain version's.
@@ -23,16 +25,19 @@
    tier, K5 launched once and K6 five times per step, sanitized 0, pair and
    degree overflow 0 and finite poses at every step, penetration below
    PEN_LIMIT over steps 901-1000.  Then K5 and K6 against their plain
-   versions from a landing and a settled state, their times, and the
-   falling (0-300) and settled (901-1000) steps/s.
+   versions from a landing and a settled state (K6 on its cluster-resident
+   route, logical blocks of 1024 bodies, and on its launch-per-half-sweep
+   route, the world as one logical block), their times, and the falling
+   (0-300) and settled (901-1000) steps/s.
 6. The reference's large-N gate (tests/test_large_n_envelope.py): the
    low-drop 16^3 pile with Stress4096's plan, 60 landing + 30 settle steps,
    overflow 0, sanitized 0, and the worst settle penetration held to
    LOW_DROP_PEN_LIMIT (see there: the reference's own grid tier does not
    meet the slop bound on IEEE float32).
 7. Stress2048 (N = 2048, fused path) for 600 steps: K1 launched, the same
-   envelope (penetration below PEN_LIMIT over steps 401-600), and steps/s of
-   the last 200 steps.
+   envelope (penetration below PEN_LIMIT over steps 401-600), steps/s of
+   the last 200 steps, and K1 against its plain version at the settled
+   state.
 8. Jointed worlds through K1's joint/spring branch, counters reset before
    and read after each: RodJointed 600 steps held to the reference's slow
    tests (static anchor, weld gaps, rest, link tensions), SoftGrid 150
@@ -59,7 +64,14 @@
    landing state and resumed for 50 steps bitwise equal to the
    uninterrupted run, ``pick`` straight down onto the settled pile, the
    viewer's ``Sim`` (state, spawn into a padding slot, the refresh after
-   it), and utils/profile_phases' table for 50 settled steps.
+   it), and utils/profile_phases' table for 50 settled steps, whose kernel
+   count is held to the sweep plan's own.
+12. The sweep kernels' record: the route ``solver_cuda.sweep_plan`` gives
+   each scene and the kernels a step of it queues, ptxas registers and spill
+   bytes of the tiled kernels, and K1 / K4 / K6 timed by
+   utils/time_sweeps.py in this tree and, where an archive of the parent
+   commit lies in ``_archive/parent`` (git-ignored), in that tree too, in
+   turns within this one run.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -211,6 +223,30 @@ def compare_k1(args, label: str) -> float:
     return err
 
 
+def small_cluster_worlds() -> float:
+    """K1 on its cluster-resident route (contact-only worlds whose 32-body
+    tiles fit one cluster) against its plain version: Pyramid after 60 steps
+    (N = 128, a cluster of 4 blocks) and a settling 7^3 pile after 200 steps
+    (N = 384, a cluster of 12)."""
+    from avbd3d_tpu_torch import load_scene, solver, solver_cuda
+    from avbd3d_tpu_torch.convert import world_from_arrays
+    from avbd3d_tpu_torch.models.scenes import _scene_stress_n
+
+    sc = load_scene("Pyramid", device="cuda")
+    arrays, p7, cap7, _ = _scene_stress_n(7, 7, 7)
+    worlds = (("Pyramid step 60", sc.world, sc.params, sc.cap, 60, 4),
+              ("7^3 pile step 200", world_from_arrays(arrays, "cuda"), p7, cap7, 200, 12))
+    err = 0.0
+    for label, w, p, cap, steps, cluster in worlds:
+        plan = solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0])
+        if (plan.route, plan.cluster) != ("cluster", cluster):
+            fail(f"{label}: expected a cluster of {cluster} blocks, the plan is {plan}")
+        w = solver.run_steps(w, p, cap, steps)
+        args = k1_inputs(w, types.SimpleNamespace(params=p, cap=cap))
+        err = max(err, compare_k1(args, f"{label}, cluster of {cluster}"))
+    return err
+
+
 def compare_k2(world, params, label: str) -> float:
     """K2 kernel vs plain: min/max lanes are exact in any order; the anchor
     deviation lane uses block-wide sums, so all lanes are held to a 1e-5
@@ -305,7 +341,13 @@ def grid_phase(card: str) -> dict:
         wi = grid_inputs(saved[label], scene)
         e5, contacts = compare_k5(wi, scene, label)
         k5_err = max(k5_err, e5)
-        k6_err = max(k6_err, compare_k6(k6_args(wi, scene, contacts), label))
+        a6 = k6_args(wi, scene, contacts)
+        k6_err = max(k6_err, compare_k6(a6, label))
+        if label == "settled":
+            # The launch-per-half-sweep route: one logical block of all 5120
+            # bodies fits no cluster.
+            whole = (a6[0], wi.bodies.g) + a6[2:]
+            k6_err = max(k6_err, compare_k6(whole, "settled, one logical block"))
 
     fall_sps = 300 / marks[300]
     settled_sps = (n_steps - hold_from) / (t_run - marks[hold_from])
@@ -371,7 +413,7 @@ def stress2048_phase(card: str):
     """Stress2048 on the fused path: 600 steps, the envelope after the
     landing, steps/s of the last 200 steps.  Returns (settled world,
     params)."""
-    from avbd3d_tpu_torch import load_scene, solver
+    from avbd3d_tpu_torch import load_scene, solver, solver_cuda
 
     scene = load_scene("Stress2048", device="cuda")
     p, cap = scene.params, scene.cap
@@ -400,7 +442,8 @@ def stress2048_phase(card: str):
     print(f"[{card}] Stress2048 steps {t_from + 1}-{n_steps}: {sps:.1f} steps/s "
           f"(step {n_steps}: manifolds {int(d['active_manifolds'])}, "
           f"max_pen {d['max_penetration']:.6f})")
-    return w, p
+    err = compare_k1(k1_inputs(w, scene), "Stress2048 settled")
+    return w, p, err
 
 
 def low_drop_stress(nx, ny, nz, max_degree, cache_degree):
@@ -526,8 +569,11 @@ def compare_k6(args, label: str) -> float:
             err = max(err, abs_err)
         if bad:
             fail(f"K6 {label}: {name} max abs err {abs_err}")
-    print(f"K6 vs plain ({label}, {len(args[2])} iterations, gb={args[1]}): stick "
-          f"identical, pose/sep max abs err {err:.3e}")
+    from avbd3d_tpu_torch import solver_cuda
+
+    route = solver_cuda.sweep_plan(args[4].n, args[3].other.shape[0], args[1] * 128).route
+    print(f"K6 vs plain ({label}, {len(args[2])} iterations, gb={args[1]}, route {route}): "
+          f"stick identical, pose/sep max abs err {err:.3e}")
     return err
 
 
@@ -919,7 +965,7 @@ def app_phase(card, scene, landing, settled):
     steps 150 / 700."""
     import torch
 
-    from avbd3d_tpu_torch import pick, solver
+    from avbd3d_tpu_torch import pick, solver, solver_cuda
     from avbd3d_tpu_torch.maths import quat_rotate
     from avbd3d_tpu_torch.utils import profile_phases
     from avbd3d_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -1010,13 +1056,116 @@ def app_phase(card, scene, landing, settled):
           f"{n_real}, next step's gates {gates}, body at y = {y:.4f} after 5 steps, sanitized 0")
 
     r = profile_phases.profile("Stress1000", 700, 50, "cuda")
-    if not (r["device_us"] > 0.0 and r["launches"] >= 46 * 50 and 0.0 < r["busy"] <= 1.0):
+    # Every settled step is a contact step, so the trace must hold the
+    # kernels the sweep plan says K1 queues, 50 times over.
+    plan = solver_cuda.sweep_plan(settled.bodies.n, settled.contacts.other.shape[0])
+    n_main, _k = solver_cuda.select_variant(p, True, True)
+    per_step = solver_cuda.step_kernel_count(plan, n_main, n_main + int(p.post_stabilize))
+    step_kernels = sum(c for name, _us, c in r["kernels"] if own_kernel(name))
+    if not (r["device_us"] > 0.0 and 0.0 < r["busy"] <= 1.0):
         fail(f"profile_phases traced no device work: device_us {r['device_us']}, launches "
              f"{r['launches']}, busy {r['busy']}")
-    step_kernels = sum(c for name, _us, c in r["kernels"] if name.startswith("k_"))
+    if step_kernels != per_step * 50 or r["launches"] < step_kernels:
+        fail(f"profile_phases traced {step_kernels} of the port's kernels in 50 steps "
+             f"({r['launches']} launches in all), the plan ({plan.route}) says {per_step} a step")
     print(f"[{card}] profile_phases, 50 settled Stress1000 steps: busy share "
           f"{100 * r['busy']:.1f}%, {r['launches'] / 50:.1f} launches/step "
-          f"({step_kernels / 50:.1f} of them the port's own kernels)")
+          f"({step_kernels / 50:.1f} of them the port's own kernels, the sweep plan's "
+          f"{per_step}); device {r['device_us'] / 50:.1f} us/step: "
+          + ", ".join(f"{name.split('(')[0].split()[-1]} {us / 50:.1f}"
+                      for name, us, _c in r["kernels"] if own_kernel(name)))
+    return {"device_us_per_step": r["device_us"] / 50, "busy": r["busy"],
+            "launches_per_step": r["launches"] / 50, "own_per_step": step_kernels / 50}
+
+
+def own_kernel(name: str) -> bool:
+    """A traced kernel of csrc/ (``k_...``; a template's name is demangled
+    with its return type in front)."""
+    return name.split("(")[0].split()[-1].startswith("k_")
+
+
+# ---------------------------------------------------------------------------
+# The sweep kernels' record (phase 12)
+# ---------------------------------------------------------------------------
+
+SWEEP_KERNELS = ("k_sweeps", "k_primal", "k_contact_acc")
+
+# The parent commit's sweep kernels (one thread per body in the primal pass,
+# two launches per sweep), as PERF.md section 6 records them from one H100
+# 80GB HBM3 at 700 W; printed where no archive of that commit is at hand.
+PARENT_RECORDED = {"k1_settled_ms": 1.246, "k1_sheets_ms": 3.626, "k4_ms": {"20": 1.158},
+                   "k6_ms": 0.408}
+PARENT_DIR = os.path.join("_archive", "parent")
+
+# (scene, N, DC, logical block, DJ, DS, colours, sweeps of its usual step)
+SWEEP_SCENES = (("Stress1000", 1024, 12, None, 0, 0, 1, 20),
+                ("7^3 pile", 384, 12, None, 0, 0, 1, 20),
+                ("Stress2048", 2048, 12, None, 0, 0, 1, 20),
+                ("RodJointed", 128, 16, None, 2, 0, 2, 20),
+                ("SoftGrid", 128, 16, None, 4, 0, 1, 20),
+                ("20 sheets", 2048, 32, None, 4, 0, 1, 20),
+                ("Stack", 128, 16, None, 0, 0, 1, 10))
+
+
+def time_sweeps(root: str, routes: bool = False) -> dict:
+    """utils/time_sweeps.py on the tree ``root``, as a process of its own."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.join(here, "avbd3d_tpu_torch", "utils", "time_sweeps.py"),
+           "--root", root] + (["--routes"] if routes else [])
+    run = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        fail(f"time_sweeps on {root} exited {run.returncode}: {run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def sweep_record(card, lib, smoke_times) -> dict:
+    """Routes and kernels per step by scene, ptxas usage of the tiled
+    kernels, and parent-vs-change times of K1, K4 and K6.  ``smoke_times``:
+    this run's own event times, printed beside the recorded parent where no
+    parent tree is at hand."""
+    from avbd3d_tpu_torch import kernels, solver_cuda
+
+    usage = {k: v for k, v in kernels.ptxas_usage(lib.log).items()
+             if k.split("<")[0] in SWEEP_KERNELS}
+    if {k.split("<")[0] for k in usage} != set(SWEEP_KERNELS):
+        fail(f"the build log names no ptxas usage for some of {SWEEP_KERNELS}: {sorted(usage)}")
+    for name, u in sorted(usage.items()):
+        print(f"ptxas {name}: {u['registers']} registers, {u['spill_bytes']} spill bytes")
+    for name, n, dc, blk, dj, ds, colors, its in SWEEP_SCENES:
+        plan = solver_cuda.sweep_plan(n, dc, blk, dj, ds)
+        print(f"sweep plan {name} (N = {n}, DC = {dc}): route {plan.route}, tile {plan.tile}, "
+              f"{plan.threads} threads, {plan.smem_bytes} B shared, cluster {plan.cluster}; "
+              f"{solver_cuda.step_kernel_count(plan, its, its, dj, ds, colors)} kernels per K1 "
+              f"step of {its} sweeps")
+    plan6 = solver_cuda.sweep_plan(5120, 16, 1024)
+    print(f"sweep plan Stress4096 (N = 5120, DC = 16, logical blocks of 1024): route "
+          f"{plan6.route}, tile {plan6.tile}, {plan6.threads} threads, {plan6.smem_bytes} B "
+          f"shared, cluster {plan6.cluster}; {solver_cuda.iterblock_kernel_count(plan6, 4)} "
+          f"kernel per K6 launch of 4 iterations, 3 + 5 x that per grid step")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.join(here, PARENT_DIR)
+    rows = (("K1 contact-only, settled Stress1000", lambda t: t["k1_settled_ms"]),
+            ("K1 joint branch, 20 sheets", lambda t: t["k1_sheets_ms"]),
+            ("K4, 20 iterations", lambda t: t["k4_ms"]["20"]),
+            ("K6, one launch of 4 iterations", lambda t: t["k6_ms"]))
+    if os.path.isdir(os.path.join(parent, "avbd3d_tpu_torch")):
+        # parent, change, change, parent, each a process of its own.
+        runs = [time_sweeps(parent), time_sweeps(here, routes=True), time_sweeps(here),
+                time_sweeps(parent)]
+        rows += (("K1 contact-only, settled Stress2048", lambda t: t["k1_2048_ms"]),
+                 ("K4, 5 iterations", lambda t: t["k4_ms"]["5"]),
+                 ("K4, 1 iteration", lambda t: t["k4_ms"]["1"]))
+        for label, get in rows:
+            print(f"[{card}] {label}: parent {get(runs[0]):.4f} / {get(runs[3]):.4f} ms, "
+                  f"change {get(runs[1]):.4f} / {get(runs[2]):.4f} ms (one run, in turns)")
+        for key, r in runs[1]["routes"].items():
+            print(f"[{card}] routes, {key}: " + json.dumps(r))
+        return {"usage": usage, "ab": runs}
+    for label, get in rows:
+        print(f"[{card}] {label}: change {get(smoke_times):.4f} ms; parent {get(PARENT_RECORDED):.3f} "
+              f"ms as recorded in PERF.md (no tree of the parent commit in {PARENT_DIR})")
+    return {"usage": usage, "ab": None}
 
 
 # ---------------------------------------------------------------------------
@@ -1087,6 +1236,17 @@ def k1_bound(args, outs) -> tuple:
                                              "rrest", "rstiff", "penalty")]
     return bound(nbytes(old, nb, key, thr, body_in, anchor, anchor_q, rows_in, contacts,
                         body_out, diag, [r for r in rows if r is not None]), ops)
+
+
+def sweep_extra(plan, sweeps: dict, rows: bool = False) -> dict:
+    """The sweep route of a kernel entry and the ptxas usage of the tiled
+    kernel it runs (the instance compiled for the plan's block size)."""
+    kernel = "k_contact_acc" if rows else ("k_sweeps" if plan.cluster else "k_primal")
+    ceiling = min(int(k.split("<")[1][:-1]) for k in sweeps["usage"]
+                  if k.startswith(kernel + "<") and int(k.split("<")[1][:-1]) >= plan.threads)
+    u = sweeps["usage"][f"{kernel}<{ceiling}>"]
+    return {"sweep_route": plan.route, "sweep_kernel": f"{kernel}<{ceiling}>",
+            "registers": u["registers"], "spill_bytes": u["spill_bytes"]}
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
@@ -1220,6 +1380,7 @@ def main() -> int:
 
     # ---- 3. kernel vs plain ----
     k1_err = max(compare_k1(k1_inputs(saved[k], scene), k) for k in ("landing", "settled"))
+    k1_small_err = small_cluster_worlds()
     init = scene.world
     init = init.replace(bp=build_bp_cache(init.bodies, init.exclusions, cap.max_degree,
                                           p.bp_margin))
@@ -1258,14 +1419,16 @@ def main() -> int:
 
     grid = grid_phase(card)
     low_drop_gate()
-    w2048, p2048 = stress2048_phase(card)
+    w2048, p2048, k1_2048_err = stress2048_phase(card)
     jointed = jointed_phases(card)
     prof = profiler_phase(w, scene, card)
     probe = probe_phase(card, scene, {
         "Stress1000 landing": (saved["landing"], p), "Stress1000 settled": (w, p),
         "Stress2048 settled": (w2048, p2048),
         "Stress4096 settled": (grid["settled"], grid["params"])})
-    app_phase(card, scene, saved["landing"], w)
+    traced = app_phase(card, scene, saved["landing"], w)
+    sweeps = sweep_record(card, lib, {"k1_settled_ms": k1_ms, "k1_sheets_ms": jointed["ms"],
+                                      "k4_ms": {"20": prof["ms4"]}, "k6_ms": grid["k6_ms"]})
 
     k1_bnd = k1_bound(a1, solver_cuda.step_kernel(*a1))
     jb_bnd = k1_bound(jointed["args"], solver_cuda.step_kernel(*jointed["args"]))
@@ -1291,13 +1454,27 @@ def main() -> int:
     csrc = "avbd3d_tpu_torch/csrc/"
     report = {"kernels": [
         kernel_entry("step_kernel", csrc + "step_kernel.cu", "avbd3d_tpu/solver_tpu.py:864",
-                     launches["step_kernel"], max(k1_err, jointed["err"]), k1_ms, k1_plain_ms,
-                     k1_bnd, joint_branch={
+                     launches["step_kernel"], max(k1_err, k1_small_err, k1_2048_err, jointed["err"]),
+                     k1_ms, k1_plain_ms,
+                     k1_bnd, **sweep_extra(solver_cuda.sweep_plan(1024, 12), sweeps),
+                     cluster_route={
+                         "note": "contact-only worlds up to 512 bodies: all sweeps in one "
+                                 "cluster-resident launch; compared on Pyramid (N = 128, cluster "
+                                 "of 4) and a 7^3 pile (N = 384, cluster of 12)",
+                         "max_abs_err": k1_small_err,
+                         **sweep_extra(solver_cuda.sweep_plan(128, 16), sweeps)},
+                     stress2048={
+                         "note": "N = 2048 contact-only, compared at the settled Stress2048 state",
+                         "max_abs_err": k1_2048_err,
+                         **sweep_extra(solver_cuda.sweep_plan(2048, 12), sweeps)},
+                     joint_branch={
                          "note": "dj/ds > 0: colour sub-passes with joint and spring rows; "
                                  "20 SoftGrid sheets, N = 2048, 3600 soft joints",
                          "launches": jointed["launches"], "max_abs_err": jointed["err"],
                          "ms": jointed["ms"], "plain_ms": jointed["plain_ms"],
-                         "bound_ms": jb_bnd[0], "bound_by": jb_bnd[1]}),
+                         "bound_ms": jb_bnd[0], "bound_by": jb_bnd[1],
+                         **sweep_extra(solver_cuda.sweep_plan(2048, 32, None, 4), sweeps,
+                                       rows=True)}),
         kernel_entry("control_lanes", csrc + "control_lanes.cu", "avbd3d_tpu/solver_tpu.py:262",
                      launches["control_lanes"], k2_err, k2_ms, k2_plain_ms, k2_bnd),
         kernel_entry("collide_and_init", csrc + "step_kernel.cu", "avbd3d_tpu/solver_tpu.py:152",
@@ -1305,13 +1482,14 @@ def main() -> int:
                      prof["plain3"], k3_bnd),
         kernel_entry("solve_loop", csrc + "step_kernel.cu", "avbd3d_tpu/solver_tpu.py:922",
                      prof["launches"]["solve_loop"], prof["err4"], prof["ms4"], prof["plain4"],
-                     k4_bnd),
+                     k4_bnd, **sweep_extra(solver_cuda.sweep_plan(1024, 12), sweeps)),
         kernel_entry("collide_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1355",
                      grid["launches"]["collide_grid"], grid["k5_err"], grid["k5_ms"],
                      grid["k5_plain_ms"], grid["k5_bound"]),
         kernel_entry("iterblock_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1614",
                      grid["launches"]["iterblock_grid"], grid["k6_err"], grid["k6_ms"],
-                     grid["k6_plain_ms"], grid["k6_bound"]),
+                     grid["k6_plain_ms"], grid["k6_bound"],
+                     **sweep_extra(solver_cuda.sweep_plan(5120, 16, 1024), sweeps)),
         kernel_entry("bp_probe", csrc + "bp_probe.cu", "avbd3d_tpu/solver_tpu.py:207",
                      probe["launches"], probe["err"], probe["ms"], probe["plain_ms"],
                      probe["bound"], stress4096={
@@ -1319,6 +1497,9 @@ def main() -> int:
                          "ms": probe["grid"][0], "plain_ms": probe["grid"][1],
                          "bound_ms": probe["grid"][2][0], "bound_by": probe["grid"][2][1]}),
     ]}
+    print(f"[{card}] settled Stress1000 trace: device {traced['device_us_per_step']:.1f} us/step, "
+          f"busy share {100 * traced['busy']:.1f}%, {traced['launches_per_step']:.1f} launches/step, "
+          f"{traced['own_per_step']:.1f} of them the port's")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -354,3 +354,155 @@ def test_cuda_wrappers_raise_on_bad_operands(cuda_stress):
     with pytest.raises(TypeError, match="side"):
         solver_cuda.step_kernel(rw.contacts, rw.bp.nb, rw.bp.key, rw.bp.thr, rw.bodies,
                                 rw.bp.anchor, rw.bp.anchor_quat, rod.params, 20, 4, bad, None, 2)
+
+
+# ---------------------------------------------------------------------------
+# Each route of the sweep plan against the plain versions, bit for bit
+# ---------------------------------------------------------------------------
+
+def forced_plan(tile, dc, blk=0):
+    """``tile`` bodies a block, one launch per half-sweep (``blk`` 0) or
+    clusters covering logical blocks of ``blk`` bodies."""
+    threads, spt, smem = solver_cuda._tile_shape(tile, dc)
+    return solver_cuda.SweepPlan(tile, threads, spt, smem, blk // tile)
+
+
+def assert_step_equal(plain, got):
+    """K1's outputs: cache integers identical, every float leaf equal."""
+    (cp, bp_, dp, _rp), (ck, bk, dk) = plain, got
+    for f in solver_cuda.CACHE_FIELDS:
+        assert torch.equal(getattr(cp, f), getattr(ck, f)), f
+    for x, y in zip(bp_, bk):
+        assert torch.equal(x, y)
+    assert torch.equal(dp[0, :10], dk[0, :10]) and torch.equal(dp[0, 15], dk[0, 15])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route, tile", [("cluster", 64), ("launches", 32), ("launches", 64)])
+def test_cuda_step_kernel_routes_match_plain(cuda_stress, route, tile):
+    """K1 at a landing Stress1000 state on the cluster-resident route (one
+    cluster of 16 blocks, which ``sweep_plan`` leaves to the grid tier) and
+    on the launch-per-half-sweep route at both tiles: equal to the plain
+    version bit for bit."""
+    sc, w = cuda_stress
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    bp, b = w.bp, w.bodies
+    plan = forced_plan(tile, 12, 1024 if route == "cluster" else 0)
+    assert plan.route == route
+    args = (bp.nb, bp.key, bp.thr, b, bp.anchor, bp.anchor_quat, sc.params, 20, 4)
+    plain = solver_cuda.step_kernel_plain(w.contacts, *args)
+    new, body, diag, _rows = kernels.launch_step(solver_cuda.cache_to_args(w.contacts), *args,
+                                                 plan=plan)
+    torch.cuda.synchronize()
+    assert_step_equal(plain, (solver_cuda.args_to_cache(new), body, diag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene, steps, cluster", [("Stack", 60, 4), ("Pyramid", 60, 4)])
+def test_cuda_small_world_takes_cluster_route(scene, steps, cluster):
+    """A contact-only world of 128 bodies: ``sweep_plan`` gives it one
+    cluster of 32-body tiles, and K1 there equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    kernels.build()
+    sc = load_scene(scene, device="cuda")
+    w = run_steps(sc.world, sc.params, sc.cap, steps)
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    plan = solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0])
+    assert (plan.route, plan.cluster) == ("cluster", cluster)
+    bp = w.bp
+    args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
+            sc.params, sc.params.iterations, 4)
+    plain = solver_cuda.step_kernel_plain(*args)
+    ck, bk, dk, _ = solver_cuda.step_kernel(*args)
+    torch.cuda.synchronize()
+    assert int(dk[0, 5]) > 0
+    assert_step_equal(plain, (ck, bk, dk))
+
+
+@pytest.mark.cuda
+def test_cuda_step_kernel_at_2048_takes_launch_route():
+    """Stress2048 after 250 steps (landing): ``sweep_plan`` gives N = 2048
+    one launch per half-sweep, and K1 there equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    kernels.build()
+    sc = load_scene("Stress2048", device="cuda")
+    w = run_steps(sc.world, sc.params, sc.cap, 250)
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    assert solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0]).route == "launches"
+    bp = w.bp
+    args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
+            sc.params, 20, 4)
+    plain = solver_cuda.step_kernel_plain(*args)
+    ck, bk, dk, _ = solver_cuda.step_kernel(*args)
+    torch.cuda.synchronize()
+    assert int(dk[0, 5]) > 1000
+    assert_step_equal(plain, (ck, bk, dk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene, steps", [("SoftGrid", 5), ("RodJointed", 30)])
+def test_cuda_joint_branch_matches_plain_bitwise(scene, steps):
+    """The joint branch (launch route; tiled ``k_contact_acc``): body
+    outputs, cache and joint duals equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    kernels.build()
+    sc = load_scene(scene, device="cuda")
+    w = run_steps(sc.world, sc.params, sc.cap, steps)
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    assert solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0], None,
+                                  w.joints.dj, 0).route == "launches"
+    bp = w.bp
+    args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
+            sc.params, 20, 4, w.joints, None, sc.cap.joint_colors)
+    plain = solver_cuda.step_kernel_plain(*args)
+    ck, bk, dk, rk = solver_cuda.step_kernel(*args)
+    torch.cuda.synchronize()
+    assert_step_equal(plain, (ck, bk, dk))
+    assert torch.equal(plain[3][0], rk[0]) and torch.equal(plain[3][1], rk[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gb, route", [(8, "cluster"), (40, "launches")])
+def test_cuda_iterblock_grid_routes_match_plain(cuda_grid, gb, route):
+    """K6 with logical blocks of 1024 bodies (one cluster each) and with the
+    world as one logical block (no cluster holds it): both equal the plain
+    version bit for bit."""
+    w, p, cap = cuda_grid
+    c = solver_grid.collide_grid(w.contacts, w.bp.nb, w.bp.key, w.bp.thr, w.bodies, p)[0]
+    b, g = w.bodies, w.bodies.g
+    assert solver_cuda.sweep_plan(b.n, c.other.shape[0], gb * 128).route == route
+    _lv, _av, ip, iq, ps, qs, _s = solver.predict(b, p)
+
+    def cg(a):
+        return a.T.contiguous().reshape(a.shape[1], g, 128)
+
+    spec = solver_grid.grid_specs(p, p.iterations, p.lhs_rebuild_every, cap.grid_residency)[0]
+    args = (p, gb, spec, c, b, cg(ps), cg(qs), c.lam, c.penalty,
+            c.stick.to(torch.float32), cg(ip), cg(iq))
+    outs_p = solver_grid.iterblock_grid_plain(*args)
+    outs_k = solver_grid.iterblock_grid(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(outs_p, outs_k):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_launch_that_cannot_run_raises(cuda_stress):
+    """A plan the card cannot take is an error, never a fallback: clusters
+    that do not cover the logical block, and a cluster above 16 blocks."""
+    sc, w = cuda_stress
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    bp = w.bp
+    args = (solver_cuda.cache_to_args(w.contacts), bp.nb, bp.key, bp.thr, w.bodies, bp.anchor,
+            bp.anchor_quat, sc.params, 20, 4)
+    for plan in (forced_plan(64, 12, 512), forced_plan(32, 12, 1024)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.launch_step(*args, plan=plan)
