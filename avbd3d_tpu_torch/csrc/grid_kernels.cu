@@ -7,7 +7,10 @@
 // own kernels (k_filter_cull, k_collide: one SAT, in step_kernel.cu) at any N
 // and adds what the grid tier needs besides: the symmetric filter's keep
 // mask (written by k_filter_cull when Work::keptmask is set), the
-// once-per-pair mask (k_once) and the dropped-manifold count (counters[1]).
+// once-per-pair mask (written by k_collide's lane that writes the slot's
+// partner, when Work::once is set) and the dropped-manifold count
+// (counters[1]).  Two kernels, one warp per body and a group of 4 lanes per
+// cache slot (see there).
 //
 // K6, avbd_iterblock_grid, replaces _iterblock_grid_call /
 // _make_kernel_iterblock_grid (solver_tpu.py:1397-1651): one launch of
@@ -35,20 +38,6 @@
 // its plain PyTorch version.
 #include "step_kernel.cuh"
 
-// Once-per-pair counting mask (ops/replicated.once_mask), one thread per
-// cache slot.
-__global__ void __launch_bounds__(BLOCK) k_once(Dims dm, const int* other, const float* inv_mass,
-                                                unsigned char* once) {
-  int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= dm.dc * dm.n) return;
-  int i = gid % dm.n;
-  int o = other[gid];
-  bool valid = o >= 0;
-  int idx = valid ? o : 0;
-  bool other_dyn = (inv_mass[idx] > F(0.0) ? F(1.0) : F(0.0)) > F(0.5);
-  once[gid] = (valid && ((i < idx) || !other_dyn)) ? 1 : 0;
-}
-
 extern "C" {
 
 // K5.  ptrs (in order):
@@ -75,15 +64,13 @@ int avbd_collide_grid(void** ptrs, const float* params, int n, int d, int dc, vo
   b.inv_mass = (const float*)ptrs[18];
   Work w = {};
   w.keptmask = (float*)ptrs[31];
+  w.once = (unsigned char*)ptrs[32];
   w.nbc = (int*)ptrs[33];
   w.counters = (int*)ptrs[34];
   cudaError_t err = cudaMemsetAsync(w.counters, 0, 3 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  k_filter_cull<<<blocks_for(n), BLOCK, 0, st>>>(dm, (const int*)ptrs[12], (const int*)ptrs[13],
-                                                 (const int*)ptrs[14], b, w, p);
-  k_collide<<<blocks_for(dc * n), BLOCK, 0, st>>>(dm, old, c, b, w, p);
-  k_once<<<blocks_for(dc * n), BLOCK, 0, st>>>(dm, c.other, b.inv_mass, (unsigned char*)ptrs[32]);
-  return (int)cudaGetLastError();
+  return (int)launch_collide(dm, (const int*)ptrs[12], (const int*)ptrs[13], (const int*)ptrs[14], old, c, b, w,
+                             p, st);
 }
 
 // K6.  ptrs (in order):
@@ -96,7 +83,7 @@ int avbd_collide_grid(void** ptrs, const float* params, int n, int d, int dc, vo
 //   25-26 scratch geom (36 DC N), mat (24 N)
 // ``flags``: (do_dual, rebuild, ramp) per iteration; ``alphas``: alpha per
 // iteration.  ``blk``: bodies per logical block.  ``plan``: the shape's
-// sweep plan, 5 ints in SweepPlan order.
+// sweep plan, PLAN_INTS ints in SweepPlan order.
 // Returns the first non-zero CUDA error code, or 0.
 int avbd_iterblock_grid(void** ptrs, const float* params, int n, int dc, int blk, int n_iters,
                         const int* flags, const float* alphas, const int* plan, void* stream) {
@@ -136,7 +123,7 @@ int avbd_iterblock_grid(void** ptrs, const float* params, int n, int dc, int blk
   if (pl.cluster > 0) {
     // One launch: the copies, the geometry and every iteration.
     if (n_iters > MAX_RESIDENT_ITERS) return (int)cudaErrorInvalidValue;
-    IterPlan ip = {};
+    IterPlan ip = {};   // the caller's flags, not a step's (iter_plan)
     ip.n = n_iters;
     for (int j = 0; j < n_iters; ++j) {
       ip.alpha[j] = alphas[j];

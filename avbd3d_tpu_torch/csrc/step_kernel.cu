@@ -26,13 +26,19 @@
 //    world here, blk bodies on the grid tier) fits one thread-block cluster
 //    (at most 16 blocks of 64 bodies), the whole sweep loop is ONE launch,
 //    k_sweeps, with the cluster's hardware barrier as that barrier; only the
-//    poses cross threads, through L2.  Larger worlds, and worlds with joint or spring
-//    rows (colour sub-passes ping-pong two pose buffers), take one launch per
-//    half-sweep.  Which of the two a shape takes is decided before the
-//    launch by solver_cuda.sweep_plan, whose numbers the entry points
-//    receive; a cluster launch that cannot be scheduled is an error.
-//   k_filter_cull   1 thread / body         symmetric filter + ordered precull
-//   k_collide       1 thread / (slot, body) SAT, warmstart match, row init
+//    poses cross threads, through L2.  Larger contact-only worlds take one
+//    launch per half-sweep.  A world with joint or spring rows runs all its
+//    sweeps and colour sub-passes (which ping-pong two pose buffers) in ONE
+//    launch, k_joint_sweeps, with the cluster's barrier or, above one
+//    cluster, a grid barrier in a cooperative launch.  Which route a shape
+//    takes is decided before the launch by solver_cuda.sweep_plan, whose
+//    numbers the entry points receive; a resident launch that cannot be
+//    scheduled is an error.
+//  - The collide is lane-parallel: a warp per body filters and culls its
+//    candidate slots, a group of lanes per slot runs the SAT and the clip.
+//   k_filter_cull   1 warp / body           symmetric filter + ordered precull
+//   k_collide       4 lanes / (slot, body)  SAT, clip, warmstart match, row
+//                                           init, once-per-pair flag
 //   k_predict       1 thread / body         prediction
 //   cluster route:
 //     k_sweeps      tile x lanes threads    geometry at the predicted poses,
@@ -47,11 +53,18 @@
 //                                           relaxed update
 //       k_dual      1 thread / (slot, body) geometry at the new poses, dual
 //                                           update, ramp at block tails
+//   rows (cluster or grid barrier):
+//     k_joint_sweeps tile x lanes threads   rows' decay, geometry, then every
+//                                           sweep (primal partials and fold,
+//                                           per colour the sub-pass and the
+//                                           barrier, contact and joint duals)
 //   k_final_body    1 thread / body         sanitize, velocities
+//   k_joint_ema     1 thread / joint slot   the slow joint dual tracker
 //   k_final_reduce  1 block                 diagnostics lanes + control lanes
 // 6 launches per contact step on the cluster route, 6 + 2 per sweep on the
-// launch route.  The iteration count and the Hessian cadence are runtime
-// arguments, so the calm, fresh and boosted variants share this code.
+// launch route, 7 per jointed step.  The iteration count and the Hessian
+// cadence are runtime arguments, so the calm, fresh and boosted variants
+// share this code.
 //
 // Replica symmetry: every slot computes in the canonical A/B frame (A = lower
 // body index) from canonical operands, so both replicas of a pair execute the
@@ -67,23 +80,95 @@
 
 namespace cg = cooperative_groups;
 
+// A build for the race check only (kernels.build with the define
+// AVBD_RACE_DELAY=ns): odd thread blocks of the resident kernels sleep this
+// many ns before each read of other blocks' poses and before each pose
+// write, so that a missing barrier shows as different bits rather than
+// hiding behind the blocks' usual timing.  Never defined on the main path.
+#ifdef AVBD_RACE_DELAY
+#define RACE_DELAY()                                   \
+  do {                                                 \
+    if (blockIdx.x & 1) __nanosleep(AVBD_RACE_DELAY);  \
+  } while (0)
+#else
+#define RACE_DELAY() \
+  do {               \
+  } while (0)
+#endif
+
 // ---------------------------------------------------------------------------
-// Narrowphase: collide_pairs_cm for one pair (ops/narrowphase_cm.py).
+// Narrowphase: collide_pairs_cm for one pair (ops/narrowphase_cm.py), by a
+// group of W lanes (COLLIDE_LANES below).  Every statement is
+// the plain version's; the lanes split the 15 SAT axes and the 24 clip
+// candidates between them (lane L takes axes and candidates L, L + W, ...),
+// and each arg-max scan becomes a lane-local scan and a group reduction
+// that picks the serial scan's index.
 // ---------------------------------------------------------------------------
 
-struct PairOut {
-  V3 normal;      // B -> A
-  V3 x_a[4];
-  V3 x_b[4];
-  int feature[4];
-  bool ok[4];
-};
+#define FULL_MASK 0xffffffffu
+
+// Lane of a thread within its group of W lanes, and the group's first lane
+// in the warp.
+template <int W>
+__device__ __forceinline__ int grp_lane() { return threadIdx.x & (W - 1); }
+template <int W>
+__device__ __forceinline__ int grp_first() { return (threadIdx.x & 31) & ~(W - 1); }
+
+template <int W, typename T>
+__device__ __forceinline__ T grp_shfl(T v, int src) {
+  return __shfl_sync(FULL_MASK, v, src, W);
+}
+// The group's bits of a warp-wide ballot (bit k: lane k of the group).
+template <int W>
+__device__ __forceinline__ unsigned grp_ballot(bool pred) {
+  return (__ballot_sync(FULL_MASK, pred) >> grp_first<W>()) & ((1u << W) - 1u);
+}
+
+// The serial scan "best = s[0]; for k >= 1: if (s[k] > best) take k" as a
+// reduction in any order.  Its key for s[k] is s[k], except for NaN, which
+// the scan keeps at k = 0 (nothing compares greater) and skips elsewhere:
+// +inf there, -inf here.  The largest key wins, the lowest index among equal
+// keys (the scan's strict >), so the winner is the scan's index.
+__device__ __forceinline__ float scan_key(float s, int k) {
+  return isnan(s) ? (k == 0 ? INFINITY : -INFINITY) : s;
+}
+__device__ __forceinline__ bool beats(float ka, int ia, float kb, int ib) {
+  return ka > kb || (ka == kb && ia < ib);
+}
+// (key, index) reduced over the group; every lane receives the winner.
+// Lanes without an element hold (-inf, NO_INDEX).
+#define NO_INDEX 64
+template <int W>
+__device__ __forceinline__ void grp_argmax(float* key, int* idx) {
+#pragma unroll
+  for (int off = 1; off < W; off <<= 1) {
+    float k2 = __shfl_xor_sync(FULL_MASK, *key, off, W);
+    int i2 = __shfl_xor_sync(FULL_MASK, *idx, off, W);
+    if (beats(k2, i2, *key, *idx)) {
+      *key = k2;
+      *idx = i2;
+    }
+  }
+}
+
+// items[k] of a lane's small array at a k that is the same on every lane,
+// by selects (a dynamic index would put the array in local memory).
+template <int K, typename T>
+__device__ __forceinline__ T pick_at(const T (&items)[K], int k) {
+  T r = items[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j) r = (k == j) ? items[j] : r;
+  return r;
+}
 
 __device__ __forceinline__ V3 sel3v(int idx, const V3* items) {
   return idx == 0 ? items[0] : (idx == 1 ? items[1] : items[2]);
 }
 __device__ __forceinline__ float sel3f(int idx, const float* items) {
   return idx == 0 ? items[0] : (idx == 1 ? items[1] : items[2]);
+}
+__device__ __forceinline__ float sel4f(int idx, const float* items) {
+  return idx == 0 ? items[0] : (idx == 1 ? items[1] : (idx == 2 ? items[2] : items[3]));
 }
 
 static __device__ void test_axis(V3 axis, V3 delta, const V3* axa, const V3* axb, V3 ha, V3 hb,
@@ -113,45 +198,131 @@ static __device__ void support_edge(const V3* axes, const float* half, int ai, V
   *eh = vscale(ax, hx);
 }
 
-static __device__ void collide_pair(V3 pa, Q4 qa, V3 ha, V3 pb, Q4 qb, V3 hb, float margin, PairOut* out) {
+// Clip candidate c (0-23) of the face manifold in the reference face's
+// (u, v) frame: 0-3 the incident corners, 4 + 4 m + side the incident edge m
+// clipped at a side of the reference face, 20-23 the reference corners
+// inside the incident face.  ``ok`` before the height test.
+static __device__ void clip_candidate(int c, const float* cu, const float* cv, float eu, float ev, float wind,
+                                      float* u, float* v, bool* ok) {
+  if (c < 4) {
+    *u = sel4f(c, cu);
+    *v = sel4f(c, cv);
+    *ok = (fabsf(*u) <= eu + F(1.0e-5)) && (fabsf(*v) <= ev + F(1.0e-5));
+  } else if (c < 20) {
+    int m = (c - 4) >> 2, side = (c - 4) & 3, m2 = (m + 1) % 4;
+    float cum = sel4f(m, cu), cvm = sel4f(m, cv);
+    float du = sel4f(m2, cu) - cum;
+    float dv = sel4f(m2, cv) - cvm;
+    bool side_u = side < 2;
+    float side_sign = (side % 2 == 0) ? F(1.0) : F(-1.0);
+    float bound, dcoord, ccoord, oc, od, oext;
+    if (side_u) {
+      bound = eu * side_sign; dcoord = du; ccoord = cum; oc = cvm; od = dv; oext = ev;
+    } else {
+      bound = ev * side_sign; dcoord = dv; ccoord = cvm; oc = cum; od = du; oext = eu;
+    }
+    bool denom_ok = fabsf(dcoord) > F(1.0e-6);
+    float t = (bound - ccoord) / (denom_ok ? dcoord : F(1.0));
+    float hit = oc + t * od;
+    *ok = denom_ok && (t >= F(-1.0e-5)) && (t <= F(1.0 + 1.0e-5)) && (fabsf(hit) <= oext + F(1.0e-5));
+    // bound + 0 (the reference adds a zero tensor): turns -0 into +0
+    float bz = bound + F(0.0);
+    *u = side_u ? bz : hit;
+    *v = side_u ? hit : bz;
+  } else {
+    int m = c - 20;
+    float ru = ((m == 0 || m == 3) ? F(1.0) : F(-1.0)) * eu;
+    float rv = (m < 2 ? F(1.0) : F(-1.0)) * ev;
+    bool inside = true;
+    for (int e = 0; e < 4; ++e) {
+      int e2 = (e + 1) % 4;
+      float z = (cu[e2] - cu[e]) * (rv - cv[e]) - (cv[e2] - cv[e]) * (ru - cu[e]);
+      inside = inside && ((z * wind) >= F(-1.0e-5));
+    }
+    *u = ru;
+    *v = rv;
+    *ok = inside;
+  }
+}
+
+// The score of a candidate for pick ``pick`` (deepest, farthest from the
+// first, +/- largest area with the first two).
+__device__ __forceinline__ float pick_score(int pick, float u, float v, float h, const float* pu, const float* pv) {
+  if (pick == 0) return -h;
+  if (pick == 1) return (u - pu[0]) * (u - pu[0]) + (v - pv[0]) * (v - pv[0]);
+  float a01 = (pu[1] - pu[0]) * (v - pv[0]) - (pv[1] - pv[0]) * (u - pu[0]);
+  return pick == 2 ? a01 : -a01;
+}
+
+// What a lane keeps of a pair's manifold: the normal (every lane) and
+// contact L & 3 of the four; ``ok_bits``: bit s = contact s is valid.
+struct PairLane {
+  V3 normal;      // B -> A
+  V3 x_a, x_b;
+  int feature;
+  bool ok;
+  unsigned ok_bits;
+};
+
+// Lane L of the group: axes L, L + W, ... of the SAT (0-2 A's
+// face axes, 3-5 B's, 6-14 the edge pairs (i, j) = ((a - 6) / 3, (a - 6) %
+// 3)), clip candidates L, L + W, ... (of 24), and contact L & 3.
+// Every lane of the warp must call it (it shuffles).
+template <int W>
+static __device__ void collide_pair(int L, V3 pa, Q4 qa, V3 ha, V3 pb, Q4 qb, V3 hb, float margin,
+                                    PairLane* out) {
   V3 axa[3], axb[3];
   qaxes(qa, axa);
   qaxes(qb, axb);
   V3 delta = vsub(pb, pa);
+  constexpr int NA = (15 + W - 1) / W, NC = (24 + W - 1) / W;   // axes, candidates a lane
 
-  float fsep[6], esep[9];
-  bool fval[6], evalid[9];
-  V3 fn[6], en[9];
-  for (int k = 0; k < 3; ++k) test_axis(axa[k], delta, axa, axb, ha, hb, &fsep[k], &fval[k], &fn[k]);
-  for (int k = 0; k < 3; ++k) test_axis(axb[k], delta, axa, axb, ha, hb, &fsep[3 + k], &fval[3 + k], &fn[3 + k]);
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      test_axis(vcross(axa[i], axb[j]), delta, axa, axb, ha, hb, &esep[i * 3 + j], &evalid[i * 3 + j], &en[i * 3 + j]);
-
-  bool separated = false;
-  for (int k = 0; k < 6; ++k) separated = separated || (fval[k] && (fsep[k] > margin));
-  for (int k = 0; k < 9; ++k) separated = separated || (evalid[k] && (esep[k] > margin));
-
-  float best_face_sep = fval[0] ? fsep[0] : NEG_BIG;
-  int best_face = 0;
-  for (int k = 1; k < 6; ++k) {
-    float s = fval[k] ? fsep[k] : NEG_BIG;
-    if (s > best_face_sep) { best_face_sep = s; best_face = k; }
+  float s_ax[NA];
+  V3 n_ax[NA];
+  bool sep_lane = false, edge_lane = false;
+  float kf = -INFINITY, ke = -INFINITY;
+  int best_face = NO_INDEX, best_edge = NO_INDEX;
+#pragma unroll
+  for (int k = 0; k < NA; ++k) {
+    const int ax = L + k * W;
+    const bool is_face = ax < 6, is_edge = ax >= 6 && ax < 15;
+    const int e = is_edge ? ax - 6 : 0;
+    V3 axis = ax < 3 ? sel3v(ax, axa)
+                     : (ax < 6 ? sel3v(ax - 3, axb) : vcross(sel3v(e / 3, axa), sel3v(e % 3, axb)));
+    float sep;
+    bool val;
+    test_axis(axis, delta, axa, axb, ha, hb, &sep, &val, &n_ax[k]);
+    sep_lane = sep_lane || ((is_face || is_edge) && val && (sep > margin));
+    edge_lane = edge_lane || (is_edge && val);
+    s_ax[k] = val ? sep : NEG_BIG;
+    const float key_f = scan_key(s_ax[k], ax), key_e = scan_key(s_ax[k], e);
+    if (is_face && beats(key_f, ax, kf, best_face)) {
+      kf = key_f;
+      best_face = ax;
+    }
+    if (is_edge && beats(key_e, e, ke, best_edge)) {
+      ke = key_e;
+      best_edge = e;
+    }
   }
-  float best_edge_sep = evalid[0] ? esep[0] : NEG_BIG;
-  int best_edge = 0;
-  for (int k = 1; k < 9; ++k) {
-    float s = evalid[k] ? esep[k] : NEG_BIG;
-    if (s > best_edge_sep) { best_edge_sep = s; best_edge = k; }
-  }
-  bool edge_any = false;
-  for (int k = 0; k < 9; ++k) edge_any = edge_any || evalid[k];
+  const bool separated = grp_ballot<W>(sep_lane) != 0u;
+  grp_argmax<W>(&kf, &best_face);
+  grp_argmax<W>(&ke, &best_edge);
+  const bool edge_any = grp_ballot<W>(edge_lane) != 0u;
+  // The winners' separations and normals, from the lanes that hold them.
+  const int fa = best_face, ea = best_edge + 6;
+  const int fk = fa / W, fl = fa % W;
+  const int ek = ea / W, el = ea % W;
+  const float best_face_sep = grp_shfl<W>(pick_at(s_ax, fk), fl);
+  const float best_edge_sep = grp_shfl<W>(pick_at(s_ax, ek), el);
   bool use_edge = edge_any && (F(0.95) * best_edge_sep > best_face_sep + F(0.01)) && (best_edge_sep > F(-0.05));
+  const V3 nf = pick_at(n_ax, fk), ne = pick_at(n_ax, ek);
+  const V3 normal_ab = v3(grp_shfl<W>(nf.x, fl), grp_shfl<W>(nf.y, fl), grp_shfl<W>(nf.z, fl));
+  const V3 edge_n = v3(grp_shfl<W>(ne.x, el), grp_shfl<W>(ne.y, el), grp_shfl<W>(ne.z, el));
 
-  // ---- face manifold ----
+  // ---- face manifold (every lane) ----
   bool ref_is_a = best_face < 3;
   int ref_axis = ref_is_a ? best_face : best_face - 3;
-  V3 normal_ab = fn[best_face];
   V3 ref_axes[3], inc_axes[3];
   for (int k = 0; k < 3; ++k) {
     ref_axes[k] = ref_is_a ? axa[k] : axb[k];
@@ -209,93 +380,51 @@ static __device__ void collide_pair(V3 pa, Q4 qa, V3 ha, V3 pb, Q4 qb, V3 hb, fl
   float h0 = vdot(n_inc, vsub(inc_face_center, face_center)) / d_nn;
   float hu = -vdot(n_inc, u_ax) / d_nn;
   float hv = -vdot(n_inc, v_ax) / d_nn;
-
-  float cand_u[24], cand_v[24], cand_h[24];
-  bool cand_ok[24];
-  for (int m = 0; m < 4; ++m) {
-    cand_u[m] = cu[m];
-    cand_v[m] = cv[m];
-    cand_ok[m] = (fabsf(cu[m]) <= eu + F(1.0e-5)) && (fabsf(cv[m]) <= ev + F(1.0e-5));
-  }
-  int c = 4;
-  for (int m = 0; m < 4; ++m) {
-    int m2 = (m + 1) % 4;
-    float du = cu[m2] - cu[m];
-    float dv = cv[m2] - cv[m];
-    for (int side = 0; side < 4; ++side) {
-      bool side_u = side < 2;
-      float side_sign = (side % 2 == 0) ? F(1.0) : F(-1.0);
-      float bound, dcoord, ccoord, oc, od, oext;
-      if (side_u) {
-        bound = eu * side_sign; dcoord = du; ccoord = cu[m]; oc = cv[m]; od = dv; oext = ev;
-      } else {
-        bound = ev * side_sign; dcoord = dv; ccoord = cv[m]; oc = cu[m]; od = du; oext = eu;
-      }
-      bool denom_ok = fabsf(dcoord) > F(1.0e-6);
-      float t = (bound - ccoord) / (denom_ok ? dcoord : F(1.0));
-      float hit = oc + t * od;
-      bool ok = denom_ok && (t >= F(-1.0e-5)) && (t <= F(1.0 + 1.0e-5)) && (fabsf(hit) <= oext + F(1.0e-5));
-      // bound + 0 (the reference adds a zero tensor): turns -0 into +0
-      float bz = bound + F(0.0);
-      if (side_u) { cand_u[c] = bz; cand_v[c] = hit; }
-      else { cand_u[c] = hit; cand_v[c] = bz; }
-      cand_ok[c] = ok;
-      ++c;
-    }
-  }
   float area2 = (cu[1] - cu[0]) * (cv[2] - cv[0]) - (cv[1] - cv[0]) * (cu[2] - cu[0])
               + (cu[2] - cu[0]) * (cv[3] - cv[0]) - (cv[2] - cv[0]) * (cu[3] - cu[0]);
   float wind = area2 >= F(0.0) ? F(1.0) : F(-1.0);
-  for (int m = 0; m < 4; ++m) {
-    float ru = su[m] * eu;
-    float rv = sv[m] * ev;
-    bool inside = true;
-    for (int e = 0; e < 4; ++e) {
-      int e2 = (e + 1) % 4;
-      float z = (cu[e2] - cu[e]) * (rv - cv[e]) - (cv[e2] - cv[e]) * (ru - cu[e]);
-      inside = inside && ((z * wind) >= F(-1.0e-5));
-    }
-    cand_u[c] = ru;
-    cand_v[c] = rv;
-    cand_ok[c] = inside;
-    ++c;
-  }
-  for (int k = 0; k < 24; ++k) {
-    cand_h[k] = h0 + hu * cand_u[k] + hv * cand_v[k];
-    cand_ok[k] = cand_ok[k] && (cand_h[k] <= margin);
+
+  // ---- this lane's clip candidates: L, L + W, ... below 24 ----
+  float cu_[NC], cv_[NC], ch[NC];
+  bool va[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int c = L + k * W;
+    bool ok;
+    clip_candidate(c < 24 ? c : 0, cu, cv, eu, ev, wind, &cu_[k], &cv_[k], &ok);
+    ch[k] = h0 + hu * cu_[k] + hv * cv_[k];
+    va[k] = (c < 24) && ok && (ch[k] <= margin);
   }
 
   // ---- reduce to <= 4 picks: deepest, farthest, +/- max area ----
-  bool valid[24];
-  for (int k = 0; k < 24; ++k) valid[k] = cand_ok[k];
-  float score[24];
-  int ip[4];
+  float pu[4], pv[4], ph[4];
   bool found[4];
-  float pu[4], pv[4];
   for (int pick = 0; pick < 4; ++pick) {
-    for (int k = 0; k < 24; ++k) {
-      float u = cand_u[k], v = cand_v[k];
-      if (pick == 0) score[k] = -cand_h[k];
-      else if (pick == 1) score[k] = (u - pu[0]) * (u - pu[0]) + (v - pv[0]) * (v - pv[0]);
-      else {
-        float a01 = (pu[1] - pu[0]) * (v - pv[0]) - (pv[1] - pv[0]) * (u - pu[0]);
-        score[k] = pick == 2 ? a01 : -a01;
+    float m[NC];
+    float key = -INFINITY;
+    int idx = NO_INDEX;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = L + k * W;
+      m[k] = va[k] ? pick_score(pick, cu_[k], cv_[k], ch[k], pu, pv) : NEG_BIG;
+      const float kk = scan_key(m[k], c);
+      if (c < 24 && beats(kk, c, key, idx)) {
+        key = kk;
+        idx = c;
       }
     }
-    float best_s = valid[0] ? score[0] : NEG_BIG;
-    int best_i = 0;
-    for (int k = 1; k < 24; ++k) {
-      float s = valid[k] ? score[k] : NEG_BIG;
-      if (s > best_s) { best_s = s; best_i = k; }
-    }
-    ip[pick] = best_i;
+    grp_argmax<W>(&key, &idx);
+    const int src = idx % W, kk = idx / W;
+    const float best_s = grp_shfl<W>(pick_at(m, kk), src);
     found[pick] = best_s > F(-3.0e38 * 0.5);
-    pu[pick] = cand_u[best_i];
-    pv[pick] = cand_v[best_i];
+    pu[pick] = grp_shfl<W>(pick_at(cu_, kk), src);
+    pv[pick] = grp_shfl<W>(pick_at(cv_, kk), src);
+    ph[pick] = grp_shfl<W>(pick_at(ch, kk), src);
     if (pick < 3) {
-      for (int k = 0; k < 24; ++k) {
-        float du = cand_u[k] - pu[pick], dv = cand_v[k] - pv[pick];
-        valid[k] = valid[k] && ((du * du + dv * dv) >= F(1.0e-6));
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        float du = cu_[k] - pu[pick], dv = cv_[k] - pv[pick];
+        va[k] = va[k] && ((du * du + dv * dv) >= F(1.0e-6));
       }
     }
   }
@@ -309,7 +438,6 @@ static __device__ void collide_pair(V3 pa, Q4 qa, V3 ha, V3 pb, Q4 qb, V3 hb, fl
 
   // ---- edge contact ----
   int e_i = best_edge / 3, e_j = best_edge % 3;
-  V3 edge_n = en[best_edge];
   V3 ec_a, eh_a, ec_b, eh_b;
   support_edge(axa, hav, e_i, edge_n, &ec_a, &eh_a);
   support_edge(axb, hbv, e_j, vneg(edge_n), &ec_b, &eh_b);
@@ -318,12 +446,12 @@ static __device__ void collide_pair(V3 pa, Q4 qa, V3 ha, V3 pb, Q4 qb, V3 hb, fl
   V3 q0 = vsub(vadd(pb, ec_b), eh_b);
   V3 q1 = vadd(vadd(pb, ec_b), eh_b);
   V3 d1 = vsub(p1, p0), d2 = vsub(q1, q0), r = vsub(p0, q0);
-  float a = vdot(d1, d1), e = vdot(d2, d2), f = vdot(d2, r), cc = vdot(d1, r), b = vdot(d1, d2);
-  float denom = a * e - b * b;
+  float a = vdot(d1, d1), ee = vdot(d2, d2), f = vdot(d2, r), cc = vdot(d1, r), b = vdot(d1, d2);
+  float denom = a * ee - b * b;
   float a_safe = a > F(1.0e-6) ? a : F(1.0);
-  float e_safe = e > F(1.0e-6) ? e : F(1.0);
+  float e_safe = ee > F(1.0e-6) ? ee : F(1.0);
   bool den_ok = fabsf(denom) > F(1.0e-6);
-  float s = den_ok ? clipf((b * f - cc * e) / (den_ok ? denom : F(1.0)), F(0.0), F(1.0)) : F(0.0);
+  float s = den_ok ? clipf((b * f - cc * ee) / (den_ok ? denom : F(1.0)), F(0.0), F(1.0)) : F(0.0);
   float t = (b * s + f) / e_safe;
   s = t < F(0.0) ? clipf(-cc / a_safe, F(0.0), F(1.0))
                  : (t > F(1.0) ? clipf((b - cc) / a_safe, F(0.0), F(1.0)) : s);
@@ -332,37 +460,40 @@ static __device__ void collide_pair(V3 pa, Q4 qa, V3 ha, V3 pb, Q4 qb, V3 hb, fl
   V3 edge_x_b = vadd(q0, vscale(d2, t));
   int edge_feature = (2 << 24) | (e_i << 8) | e_j;
 
+  // ---- contact L & 3 ----
   out->normal = use_edge ? vneg(edge_n) : vneg(normal_ab);
-  for (int slot = 0; slot < 4; ++slot) {
-    float fu = pu[slot], fv = pv[slot], fh = cand_h[ip[slot]];
-    V3 p_ref = vadd(face_center, vadd(vscale(u_ax, fu), vscale(v_ax, fv)));
-    V3 p_inc = vadd(p_ref, vscale(n_ref, fh));
-    V3 face_x_a = ref_is_a ? p_ref : p_inc;
-    V3 face_x_b = ref_is_a ? p_inc : p_ref;
-    int q_u = (int)clipf(floorf((fu / eu_safe + F(1.0)) * F(7.5)), F(0.0), F(15.0));
-    int q_v = (int)clipf(floorf((fv / ev_safe + F(1.0)) * F(7.5)), F(0.0), F(15.0));
-    int face_feat = prefix | (q_u << 4) | q_v;
-    V3 xa, xb;
-    int feat;
-    bool ok;
-    if (slot == 0) {
-      xa = use_edge ? edge_x_a : face_x_a;
-      xb = use_edge ? edge_x_b : face_x_b;
-      feat = use_edge ? edge_feature : face_feat;
-      ok = use_edge || picks_ok[0];
-    } else {
-      xa = face_x_a;
-      xb = face_x_b;
-      feat = face_feat;
-      ok = picks_ok[slot] && !use_edge;
-    }
-    ok = ok && !separated;
-    out->x_a[slot] = xa;
-    out->x_b[slot] = xb;
-    out->feature[slot] = ok ? feat : -1;
-    out->ok[slot] = ok;
+  const int slot = L & 3;
+  float fu = sel4f(slot, pu), fv = sel4f(slot, pv), fh = sel4f(slot, ph);
+  V3 p_ref = vadd(face_center, vadd(vscale(u_ax, fu), vscale(v_ax, fv)));
+  V3 p_inc = vadd(p_ref, vscale(n_ref, fh));
+  V3 face_x_a = ref_is_a ? p_ref : p_inc;
+  V3 face_x_b = ref_is_a ? p_inc : p_ref;
+  int q_u = (int)clipf(floorf((fu / eu_safe + F(1.0)) * F(7.5)), F(0.0), F(15.0));
+  int q_v = (int)clipf(floorf((fv / ev_safe + F(1.0)) * F(7.5)), F(0.0), F(15.0));
+  int face_feat = prefix | (q_u << 4) | q_v;
+  bool pok = slot == 0 ? picks_ok[0] : (slot == 1 ? picks_ok[1] : (slot == 2 ? picks_ok[2] : picks_ok[3]));
+  V3 xa, xb;
+  int feat;
+  bool ok;
+  if (slot == 0) {
+    xa = use_edge ? edge_x_a : face_x_a;
+    xb = use_edge ? edge_x_b : face_x_b;
+    feat = use_edge ? edge_feature : face_feat;
+    ok = use_edge || pok;
+  } else {
+    xa = face_x_a;
+    xb = face_x_b;
+    feat = face_feat;
+    ok = pok && !use_edge;
   }
+  ok = ok && !separated;
+  out->x_a = xa;
+  out->x_b = xb;
+  out->feature = ok ? feat : -1;
+  out->ok = ok;
+  out->ok_bits = grp_ballot<W>(L < 4 && ok);
 }
+
 
 // ---------------------------------------------------------------------------
 // Shared slot helpers
@@ -425,15 +556,21 @@ __device__ __forceinline__ Rows3 eval_rows3(float sep, float slip1, float slip2,
 }
 
 // ---------------------------------------------------------------------------
-// Phase 2a: symmetric filter + ordered precull, one thread per body.
+// Phase 2a: symmetric filter + ordered precull, one warp per body and one
+// lane per candidate slot (in chunks of 32 slots).  Each lane runs the
+// plain version's statements for its slot; the ordered compaction puts a
+// kept slot at the count of kept slots before it (the warp's running count
+// plus the kept lanes below it in its chunk), the position the serial
+// counter gives.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(BLOCK) k_filter_cull(Dims dm, const int* nb, const int* key, const int* thr,
                                                        Bodies b, Work w, KParams p) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= dm.n) return;
-  const int n = dm.n;
-  bool precull = dm.dc < dm.d;
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (i >= dm.n) return;   // whole warps
+  const int n = dm.n, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const bool precull = dm.dc < dm.d;
   V3 pos = ld3(b.pos, i, n);
   Q4 q = ld4(b.quat, i, n);
   V3 own_ax[3];
@@ -441,67 +578,83 @@ __global__ void __launch_bounds__(BLOCK) k_filter_cull(Dims dm, const int* nb, c
   V3 oh = half_at(b.size, i, n);
   float own_half[3] = {oh.x, oh.y, oh.z};
   int kept = 0, run = 0;
-  for (int d = 0; d < dm.d; ++d) {
-    int nbv = nb[d * n + i];
-    bool valid = nbv >= 0;
-    int idx = valid ? nbv : 0;
-    int k = key[d * n + i];
-    int qd = k / n;   // keys are non-negative: floor division
-    int key_rev = qd * n + i;
-    bool kept_me = key_rev <= thr[idx];
-    bool partner_static = (b.inv_mass[idx] > F(0.0) ? F(1.0) : F(0.0)) < F(0.5);
-    bool keep = valid && (kept_me || partner_static);
-    kept += keep ? 1 : 0;
-    if (w.keptmask) w.keptmask[d * n + i] = keep ? F(1.0) : F(0.0);
-    int filt = keep ? nbv : -1;
-    if (!precull) {
-      w.nbc[d * n + i] = filt;
-      continue;
+  for (int d0 = 0; d0 < dm.d; d0 += 32) {
+    const int d = d0 + lane;
+    bool keep = false, keep2 = false;
+    int filt = -1;
+    if (d < dm.d) {
+      int nbv = nb[d * n + i];
+      bool valid = nbv >= 0;
+      int idx = valid ? nbv : 0;
+      int k = key[d * n + i];
+      int qd = k / n;   // keys are non-negative: floor division
+      int key_rev = qd * n + i;
+      bool kept_me = key_rev <= thr[idx];
+      bool partner_static = (b.inv_mass[idx] > F(0.0) ? F(1.0) : F(0.0)) < F(0.5);
+      keep = valid && (kept_me || partner_static);
+      if (w.keptmask) w.keptmask[d * n + i] = keep ? F(1.0) : F(0.0);
+      filt = keep ? nbv : -1;
+      if (!precull) {
+        w.nbc[d * n + i] = filt;
+      } else {
+        // 6-face-axis separation (precull_near): best over own and partner axes.
+        bool v2 = filt >= 0;
+        int j = v2 ? filt : 0;
+        V3 pp = ld3(b.pos, j, n);
+        V3 par_ax[3];
+        qaxes(ld4(b.quat, j, n), par_ax);
+        V3 ph = half_at(b.size, j, n);
+        float par_half[3] = {ph.x, ph.y, ph.z};
+        V3 delta = vsub(pp, pos);
+        float best = F(-1.0e9);
+        for (int a = 0; a < 6; ++a) {
+          V3 nv = a < 3 ? own_ax[a] : par_ax[a - 3];
+          float proj_own = own_half[0] * fabsf(own_ax[0].x * nv.x + own_ax[0].y * nv.y + own_ax[0].z * nv.z)
+                         + own_half[1] * fabsf(own_ax[1].x * nv.x + own_ax[1].y * nv.y + own_ax[1].z * nv.z)
+                         + own_half[2] * fabsf(own_ax[2].x * nv.x + own_ax[2].y * nv.y + own_ax[2].z * nv.z);
+          float proj_par = par_half[0] * fabsf(par_ax[0].x * nv.x + par_ax[0].y * nv.y + par_ax[0].z * nv.z)
+                         + par_half[1] * fabsf(par_ax[1].x * nv.x + par_ax[1].y * nv.y + par_ax[1].z * nv.z)
+                         + par_half[2] * fabsf(par_ax[2].x * nv.x + par_ax[2].y * nv.y + par_ax[2].z * nv.z);
+          float sep = fabsf(delta.x * nv.x + delta.y * nv.y + delta.z * nv.z) - proj_own - proj_par;
+          best = fmaxf(best, sep);
+        }
+        keep2 = v2 && (best <= p.precull_margin);
+      }
     }
-    // 6-face-axis separation (precull_near): best over own and partner axes.
-    bool v2 = filt >= 0;
-    int j = v2 ? filt : 0;
-    V3 pp = ld3(b.pos, j, n);
-    V3 par_ax[3];
-    qaxes(ld4(b.quat, j, n), par_ax);
-    V3 ph = half_at(b.size, j, n);
-    float par_half[3] = {ph.x, ph.y, ph.z};
-    V3 delta = vsub(pp, pos);
-    float best = F(-1.0e9);
-    for (int a = 0; a < 6; ++a) {
-      V3 nv = a < 3 ? own_ax[a] : par_ax[a - 3];
-      float proj_own = own_half[0] * fabsf(own_ax[0].x * nv.x + own_ax[0].y * nv.y + own_ax[0].z * nv.z)
-                     + own_half[1] * fabsf(own_ax[1].x * nv.x + own_ax[1].y * nv.y + own_ax[1].z * nv.z)
-                     + own_half[2] * fabsf(own_ax[2].x * nv.x + own_ax[2].y * nv.y + own_ax[2].z * nv.z);
-      float proj_par = par_half[0] * fabsf(par_ax[0].x * nv.x + par_ax[0].y * nv.y + par_ax[0].z * nv.z)
-                     + par_half[1] * fabsf(par_ax[1].x * nv.x + par_ax[1].y * nv.y + par_ax[1].z * nv.z)
-                     + par_half[2] * fabsf(par_ax[2].x * nv.x + par_ax[2].y * nv.y + par_ax[2].z * nv.z);
-      float sep = fabsf(delta.x * nv.x + delta.y * nv.y + delta.z * nv.z) - proj_own - proj_par;
-      best = fmaxf(best, sep);
-    }
-    bool keep2 = v2 && (best <= p.precull_margin);
-    if (keep2) {
-      if (run < dm.dc) w.nbc[run * n + i] = filt;
-      ++run;
+    kept += __popc(__ballot_sync(FULL_MASK, keep));
+    if (precull) {
+      const unsigned kept2 = __ballot_sync(FULL_MASK, keep2);
+      const int at = run + __popc(kept2 & below);
+      if (keep2 && at < dm.dc) w.nbc[at * n + i] = filt;
+      run += __popc(kept2);
     }
   }
-  if (precull) {
-    for (int t = run; t < dm.dc; ++t) w.nbc[t * n + i] = -1;
-    int dropped = run > dm.dc ? run - dm.dc : 0;
+  if (precull)
+    for (int t = run + lane; t < dm.dc; t += 32) w.nbc[t * n + i] = -1;
+  if (lane == 0) {
+    int dropped = precull && run > dm.dc ? run - dm.dc : 0;
     if (dropped) atomicAdd(&w.counters[1], dropped);
+    if (kept) atomicAdd(&w.counters[0], kept);
   }
-  if (kept) atomicAdd(&w.counters[0], kept);
 }
 
 // ---------------------------------------------------------------------------
-// Phase 2b: narrowphase + warmstart match + init, one thread per (slot, body).
+// Phase 2b: narrowphase + warmstart match + init, a group of W lanes per
+// (slot, body).  The group runs the SAT and the clip (collide_pair),
+// finds the body's old slot of the pair (lanes over the old slots, first hit),
+// and lanes 0-3 then match, initialise and write one contact each; lane 0
+// writes the slot's pair fields and, on the grid tier, its once-per-pair
+// flag (ops/replicated.once_mask).  Invalid slots run the same arithmetic
+// against body 0, as the plain version does.
 // ---------------------------------------------------------------------------
 
+template <int W>
 __global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, Bodies b, Work w, KParams p) {
-  int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = dm.n, dc = dm.dc;
-  if (gid >= dc * n) return;
-  int t = gid / n, i = gid - t * n;
+  const int grp = gid / W, L = grp_lane<W>();
+  if (grp >= dc * n) return;   // whole warps: DC * N * W is a multiple of 32
+  int t = grp / n, i = grp - t * n;
   int sl = t * n + i;          // slot offset in a (DC, N) leaf
   const int S = dc * n;        // stride between components of a slot leaf
 
@@ -516,40 +669,35 @@ __global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, 
   Q4 qa = is_a ? own_q : oth_q, qb = is_a ? oth_q : own_q;
   V3 ha = is_a ? own_h : oth_h, hb = is_a ? oth_h : own_h;
 
-  PairOut g;
-  collide_pair(pa, qa, ha, pb, qb, hb, p.collision_margin, &g);
+  PairLane g;
+  collide_pair<W>(L, pa, qa, ha, pb, qb, hb, p.collision_margin, &g);
+  const int s = L & 3;   // this lane's contact
+  const bool slot_valid = g.ok && valid;
+  const int feature_s = slot_valid ? g.feature : -1;
+  int feature[4];
   bool slot_ok[4];
-  int feature[4], count = 0;
-  for (int s = 0; s < 4; ++s) {
-    slot_ok[s] = g.ok[s] && valid;
-    feature[s] = slot_ok[s] ? g.feature[s] : -1;
-    count += g.ok[s] ? 1 : 0;
+  for (int q = 0; q < 4; ++q) {
+    feature[q] = grp_shfl<W>(feature_s, q);
+    slot_ok[q] = ((g.ok_bits >> q) & 1u) && valid;
   }
-  count = valid ? count : 0;
+  const int count = valid ? __popc(g.ok_bits) : 0;
 
-  // ---- pair match against the body's own old slots ----
+  // ---- pair match against the body's own old slots: the first hit ----
   bool found = false;
   int m = 0;
-  for (int dp = 0; dp < dc; ++dp) {
-    bool hit = valid && (old.other[dp * n + i] == nbv) && (old.count[dp * n + i] > 0) && !found;
-    if (hit) { found = true; m = dp; }
+  for (int dp0 = 0; dp0 < dc; dp0 += W) {
+    int dp = dp0 + L;
+    bool hit = dp < dc && valid && (old.other[dp * n + i] == nbv) && (old.count[dp * n + i] > 0);
+    unsigned bits = grp_ballot<W>(hit);
+    if (!found && bits) {
+      found = true;
+      m = dp0 + __ffs(bits) - 1;
+    }
   }
   int ms = m * n + i;
   int o_count = found ? old.count[ms] : 0;
   int o_feature[4];
-  bool o_stick[4];
-  V3 o_ra[4], o_rb[4];
-  float o_lam[12], o_pen[12];
-  for (int s = 0; s < 4; ++s) {
-    o_feature[s] = found ? old.feature[s * S + ms] : -1;
-    o_stick[s] = old.stick[s * S + ms] > F(0.5);
-    o_ra[s] = v3(old.r_a[(s * 3 + 0) * S + ms], old.r_a[(s * 3 + 1) * S + ms], old.r_a[(s * 3 + 2) * S + ms]);
-    o_rb[s] = v3(old.r_b[(s * 3 + 0) * S + ms], old.r_b[(s * 3 + 1) * S + ms], old.r_b[(s * 3 + 2) * S + ms]);
-  }
-  for (int r = 0; r < 12; ++r) {
-    o_lam[r] = old.lam[r * S + ms];
-    o_pen[r] = old.pen[r * S + ms];
-  }
+  for (int j = 0; j < 4; ++j) o_feature[j] = found ? old.feature[j * S + ms] : -1;
   V3 o_normal = v3(old.normal[ms], old.normal[S + ms], old.normal[2 * S + ms]);
 
   V3 new_n_unit = normalize_or(g.normal, v3(F(0.0), F(1.0), F(0.0)));
@@ -558,53 +706,59 @@ __global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, 
 
   V3 n_unit, t1, t2;
   contact_basis(g.normal, &n_unit, &t1, &t2);
-  V3 old_mid[4];
-  for (int s = 0; s < 4; ++s)
-    old_mid[s] = vscale(vadd(vadd(pa, qrotate(qa, o_ra[s])), vadd(pb, qrotate(qb, o_rb[s]))), F(0.5));
 
+  // The greedy feature match of the four contacts in order; this lane keeps
+  // the old contact its own contact takes (-1: none).
   bool used[4] = {false, false, false, false};
-  for (int s = 0; s < 4; ++s) {
-    bool slot_valid = slot_ok[s];
-    bool matched = false, m_stick = false;
-    V3 m_mid = v3(0.f, 0.f, 0.f), m_ra = v3(0.f, 0.f, 0.f), m_rb = v3(0.f, 0.f, 0.f);
-    float m_lam[3] = {0.f, 0.f, 0.f}, m_pen[3] = {0.f, 0.f, 0.f};
+  int mine = -1;
+  for (int q = 0; q < 4; ++q) {
+    bool matched = false;
     for (int j = 0; j < 4; ++j) {
       bool o_ok = (j < o_count) && (o_feature[j] >= 0);
-      bool elig = (o_feature[j] == feature[s]) && o_ok && !used[j] && slot_valid && !matched && found;
+      bool elig = (o_feature[j] == feature[q]) && o_ok && !used[j] && slot_ok[q] && !matched && found;
       if (elig) {
         matched = true;
         used[j] = true;
-        m_mid = old_mid[j];
-        m_stick = o_stick[j];
-        m_ra = o_ra[j];
-        m_rb = o_rb[j];
-        for (int k = 0; k < 3; ++k) {
-          m_lam[k] = o_lam[j * 3 + k];
-          m_pen[k] = o_pen[j * 3 + k];
-        }
+        if (q == s) mine = j;
       }
     }
-    V3 new_ra = qrotate_inv(qa, vsub(g.x_a[s], pa));
-    V3 new_rb = qrotate_inv(qb, vsub(g.x_b[s], pb));
-    V3 new_mid = vscale(vadd(g.x_a[s], g.x_b[s]), F(0.5));
-    V3 dm_ = vsub(new_mid, m_mid);
-    float drift2 = vdot(dm_, dm_);
-    bool warm = matched && (normal_dot >= p.warmstart_normal_min_dot) && (drift2 <= p.ws2);
-    float lam_i[3], pen_i[3];
+  }
+  bool matched = mine >= 0, m_stick = false;
+  V3 m_mid = v3(0.f, 0.f, 0.f), m_ra = v3(0.f, 0.f, 0.f), m_rb = v3(0.f, 0.f, 0.f);
+  float m_lam[3] = {0.f, 0.f, 0.f}, m_pen[3] = {0.f, 0.f, 0.f};
+  if (matched) {
+    const int j = mine;
+    m_ra = v3(old.r_a[(j * 3 + 0) * S + ms], old.r_a[(j * 3 + 1) * S + ms], old.r_a[(j * 3 + 2) * S + ms]);
+    m_rb = v3(old.r_b[(j * 3 + 0) * S + ms], old.r_b[(j * 3 + 1) * S + ms], old.r_b[(j * 3 + 2) * S + ms]);
+    m_mid = vscale(vadd(vadd(pa, qrotate(qa, m_ra)), vadd(pb, qrotate(qb, m_rb))), F(0.5));
+    m_stick = old.stick[j * S + ms] > F(0.5);
     for (int k = 0; k < 3; ++k) {
-      lam_i[k] = warm ? m_lam[k] : F(0.0);
-      pen_i[k] = warm ? clipf(m_pen[k], p.penalty_min, p.manifold_penalty_cap) : p.penalty_min;
+      m_lam[k] = old.lam[(j * 3 + k) * S + ms];
+      m_pen[k] = old.pen[(j * 3 + k) * S + ms];
     }
-    bool reuse = warm && m_stick && (normal_dot >= p.stick_normal_min_dot) && (drift2 <= p.st2);
-    bool stick_i = m_stick && reuse;
-    V3 r_a_i = reuse ? m_ra : new_ra;
-    V3 r_b_i = reuse ? m_rb : new_rb;
-    for (int k = 0; k < 3; ++k) {
-      if (p.post_stabilize == F(0.0)) lam_i[k] = lam_i[k] * p.decay;
-      pen_i[k] = clipf(pen_i[k] * p.gamma, p.penalty_min, p.penalty_max);
-      lam_i[k] = slot_valid ? lam_i[k] : F(0.0);
-      pen_i[k] = slot_valid ? pen_i[k] : F(0.0);
-    }
+  }
+  V3 new_ra = qrotate_inv(qa, vsub(g.x_a, pa));
+  V3 new_rb = qrotate_inv(qb, vsub(g.x_b, pb));
+  V3 new_mid = vscale(vadd(g.x_a, g.x_b), F(0.5));
+  V3 dm_ = vsub(new_mid, m_mid);
+  float drift2 = vdot(dm_, dm_);
+  bool warm = matched && (normal_dot >= p.warmstart_normal_min_dot) && (drift2 <= p.ws2);
+  float lam_i[3], pen_i[3];
+  for (int k = 0; k < 3; ++k) {
+    lam_i[k] = warm ? m_lam[k] : F(0.0);
+    pen_i[k] = warm ? clipf(m_pen[k], p.penalty_min, p.manifold_penalty_cap) : p.penalty_min;
+  }
+  bool reuse = warm && m_stick && (normal_dot >= p.stick_normal_min_dot) && (drift2 <= p.st2);
+  bool stick_i = m_stick && reuse;
+  V3 r_a_i = reuse ? m_ra : new_ra;
+  V3 r_b_i = reuse ? m_rb : new_rb;
+  for (int k = 0; k < 3; ++k) {
+    if (p.post_stabilize == F(0.0)) lam_i[k] = lam_i[k] * p.decay;
+    pen_i[k] = clipf(pen_i[k] * p.gamma, p.penalty_min, p.penalty_max);
+    lam_i[k] = slot_valid ? lam_i[k] : F(0.0);
+    pen_i[k] = slot_valid ? pen_i[k] : F(0.0);
+  }
+  if (L < 4) {
     V3 p_a_i = vadd(pa, qrotate(qa, r_a_i));
     V3 p_b_i = vadd(pb, qrotate(qb, r_b_i));
     V3 delta = vsub(p_a_i, p_b_i);
@@ -618,18 +772,44 @@ __global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, 
     c.r_b[(s * 3 + 1) * S + sl] = r_b_i.y;
     c.r_b[(s * 3 + 2) * S + sl] = r_b_i.z;
     c.stick[s * S + sl] = stick_i ? F(1.0) : F(0.0);
-    c.feature[s * S + sl] = feature[s];
+    c.feature[s * S + sl] = feature_s;
     for (int k = 0; k < 3; ++k) {
       c.lam[(s * 3 + k) * S + sl] = lam_i[k];
       c.pen[(s * 3 + k) * S + sl] = pen_i[k];
     }
   }
-  c.other[sl] = count > 0 ? nbv : -1;
-  c.count[sl] = count;
-  c.normal[sl] = n_unit.x;
-  c.normal[S + sl] = n_unit.y;
-  c.normal[2 * S + sl] = n_unit.z;
+  if (L == 0) {
+    int other = count > 0 ? nbv : -1;
+    c.other[sl] = other;
+    c.count[sl] = count;
+    c.normal[sl] = n_unit.x;
+    c.normal[S + sl] = n_unit.y;
+    c.normal[2 * S + sl] = n_unit.z;
+    if (w.once) {
+      bool o_valid = other >= 0;
+      int o_idx = o_valid ? other : 0;
+      bool other_dyn = (b.inv_mass[o_idx] > F(0.0) ? F(1.0) : F(0.0)) > F(0.5);
+      w.once[sl] = (o_valid && ((i < o_idx) || !other_dyn)) ? 1 : 0;
+    }
+  }
 }
+
+// Lanes of a slot's group.  A wider group shortens the pair's dependent
+// chain (a lane of 16 tests 1 of the 15 axes), but every lane repeats the
+// face frame, the edge contact and the warmstart match, so wide groups
+// issue more instructions in all.  Measured on the card (PERF.md section
+// 6): 4 lanes were the fastest at every shape but the smallest, where they
+// tied.
+constexpr int COLLIDE_LANES = 4;
+
+cudaError_t launch_collide(Dims dm, const int* nb, const int* key, const int* thr, Cache old, Cache c, Bodies b,
+                           Work w, KParams p, cudaStream_t st) {
+  k_filter_cull<<<blocks_for(dm.n * 32), BLOCK, 0, st>>>(dm, nb, key, thr, b, w, p);
+  k_collide<COLLIDE_LANES>
+      <<<blocks_for(dm.dc * dm.n * COLLIDE_LANES), BLOCK, 0, st>>>(dm, old, c, b, w, p);
+  return cudaGetLastError();
+}
+
 
 // ---------------------------------------------------------------------------
 // Phase 3: prediction, one thread per body.
@@ -711,6 +891,7 @@ struct PairPose {
 };
 
 __device__ __forceinline__ PairPose pair_pose(const Work& w, int i, int idx, bool is_a, int n) {
+  RACE_DELAY();
   bool same_block = (idx / w.blk) == (i / w.blk);
   const float* pp = same_block ? w.pos : w.snap_pos;
   const float* pq = same_block ? w.quat : w.snap_quat;
@@ -979,13 +1160,13 @@ __device__ __forceinline__ TileIdx tile_index(int tile) {
 // The primal pass's slot half for the block's tile: every (slot, body)
 // partial to shared memory (``sh``: N_PART x DC x tile floats, body fastest),
 // then the fold over slots, left to right from slot 0 as cm.dsum folds: F
-// and T to ``fold`` (6 x tile floats after the partials) and, on a rebuild,
+// and T to ``fold`` (6 x tile floats, after the partials) and, on a rebuild,
 // the Hessian terms to w.mat.  ``own``: the constants of the thread's one
 // slot where it has exactly one, else null.  Ends with the block
 // synchronised.
 __device__ __forceinline__ void primal_tile(const Dims& dm, const Cache& c, const Bodies& b, const Work& w,
                                             const KParams& p, int rebuild, float alpha_cur, const TileIdx& ti,
-                                            float* sh, const SlotCtx* own) {
+                                            float* sh, float* fold, const SlotCtx* own) {
   const int dc = dm.dc, tile = ti.tile, pstride = dc * tile, i = ti.base + ti.bl;
   const float bias = clipf(F(1.0) - alpha_cur, F(0.0), F(1.0));
   if (own) {
@@ -996,7 +1177,6 @@ __device__ __forceinline__ void primal_tile(const Dims& dm, const Cache& c, cons
       primal_slot(dm, c, b, w, p, slot_ctx(dm, c, b, p, i, t), rebuild, bias, i, sh + t * tile + ti.bl, pstride);
   }
   __syncthreads();
-  float* fold = sh + N_PART * pstride;
   const int n_comp = rebuild ? N_PART : 6;
   for (int k = threadIdx.x; k < n_comp * tile; k += blockDim.x) {
     int q = k / tile, bl = k - q * tile;
@@ -1009,9 +1189,11 @@ __device__ __forceinline__ void primal_tile(const Dims& dm, const Cache& c, cons
   __syncthreads();
 }
 
-// One family of joint or spring rows summed over a body's slots.
+// One family of joint or spring rows summed over a body's slots: F (3), T
+// (3), ll (6), la (9), aa (6), in that order.
+#define ROW_TERMS 27
 struct RowAcc {
-  float F[3], T[3], ll[6], la[9], aa[6];
+  float v[ROW_TERMS];
 };
 
 // The primal solve of body i at (pos, quat): inertia and contact terms
@@ -1048,15 +1230,16 @@ __device__ __forceinline__ void body_solve(const Bodies& b, const Work& w, const
                    m_aa[2] + iw[2] * p.inv_dt2, m_aa[3] + iw[3] * p.inv_dt2 + gyro[1],
                    m_aa[4] + iw[4] * p.inv_dt2, m_aa[5] + iw[5] * p.inv_dt2 + gyro[2]};
   for (int a = 0; a < n_acc; ++a) {
+    const float* v = acc[a].v;
     for (int k = 0; k < 3; ++k) {
-      rhs_l[k] = rhs_l[k] + acc[a].F[k];
-      rhs_a[k] = rhs_a[k] + acc[a].T[k];
+      rhs_l[k] = rhs_l[k] + v[k];
+      rhs_a[k] = rhs_a[k] + v[3 + k];
     }
     for (int k = 0; k < 6; ++k) {
-      a_ll[k] = a_ll[k] + acc[a].ll[k];
-      a_aa[k] = a_aa[k] + acc[a].aa[k];
+      a_ll[k] = a_ll[k] + v[6 + k];
+      a_aa[k] = a_aa[k] + v[21 + k];
     }
-    for (int k = 0; k < 9; ++k) a_la[k] = a_la[k] + acc[a].la[k];
+    for (int k = 0; k < 9; ++k) a_la[k] = a_la[k] + v[12 + k];
   }
   solve66(a_ll, a_la, a_aa, rhs_l, rhs_a, dl, da);
 }
@@ -1094,6 +1277,7 @@ __device__ __forceinline__ void primal_bodies(const Dims& dm, const Bodies& b, c
   V3 new_pos;
   Q4 nq;
   pose_update(pos, quat, dl, da, dynf, dyn, p, &new_pos, &nq);
+  RACE_DELAY();
   st3(w.pos, i, n, new_pos);
   st4(w.quat, i, n, nq);
 }
@@ -1107,8 +1291,9 @@ __global__ void __launch_bounds__(MAXT) k_primal(Dims dm, Cache c, Bodies b, Wor
                                                  int rebuild, float alpha_cur) {
   extern __shared__ float sh[];
   TileIdx ti = tile_index(tile);
-  primal_tile(dm, c, b, w, p, rebuild, alpha_cur, ti, sh, nullptr);
-  primal_bodies(dm, b, w, p, ti, sh + N_PART * dm.dc * tile);
+  float* fold = sh + N_PART * dm.dc * tile;
+  primal_tile(dm, c, b, w, p, rebuild, alpha_cur, ti, sh, fold, nullptr);
+  primal_bodies(dm, b, w, p, ti, fold);
 }
 
 // ---------------------------------------------------------------------------
@@ -1232,17 +1417,18 @@ __global__ void __launch_bounds__(MAXT) k_sweeps(Dims dm, Cache c, Bodies b, Wor
   // thread has 64, and keeping them spills more than it saves); otherwise it
   // recomputes them per pass.
   const bool one = MAXT <= 768 && ti.lanes >= dc;
+  float* fold = sh + N_PART * dc * tile;
   SlotCtx own;
   if (one) own = slot_ctx(dm, c, b, p, i, ti.lane);
   // The start geometry has read its partner poses.
   cluster_arrive();
   if (ip.n == 0) cluster_wait();
   for (int it = 0; it < ip.n; ++it) {
-    primal_tile(dm, c, b, w, p, ip.rebuild[it], ip.alpha[it], ti, sh, one ? &own : nullptr);
+    primal_tile(dm, c, b, w, p, ip.rebuild[it], ip.alpha[it], ti, sh, fold, one ? &own : nullptr);
     // Every partner has read this body's old pose (for the start geometry
     // or in the previous sweep's dual pass) before the new one is written.
     cluster_wait();
-    primal_bodies(dm, b, w, p, ti, sh + N_PART * dc * tile);
+    primal_bodies(dm, b, w, p, ti, fold);
     cluster_arrive();
     const bool more = it + 1 < ip.n;
     for (int t = ti.lane; t < dc; t += ti.lanes) {
@@ -1290,7 +1476,6 @@ struct JointRows {
   float* j_lam;            // (6, DJ, N) carried duals (outputs)
   float* j_pen;
   float* s_pen;            // (DS, N) the step's spring penalty (output)
-  float* ft;               // (6, N) contact force / torque of the sweep
 };
 
 struct JointGeom {
@@ -1299,7 +1484,9 @@ struct JointGeom {
   bool valid, is_a, is_world;
 };
 
-// joint_geometry for slot sl = t * N + i (S = DJ * N) at the poses P / Q.
+// joint_geometry for slot sl = t * N + i (S = DJ * N) at the poses P / Q,
+// read through L2: inside the resident loop other thread blocks rewrite
+// them.
 __device__ __forceinline__ JointGeom joint_geometry(const JointRows& jr, int sl, int S, int i, int n,
                                                     const float* P, const float* Q) {
   JointGeom g;
@@ -1308,8 +1495,8 @@ __device__ __forceinline__ JointGeom joint_geometry(const JointRows& jr, int sl,
   int idx = g.valid ? other : 0;
   g.is_a = jr.j_side[sl] > 0;
   g.is_world = jr.j_world[sl] > 0;
-  V3 own_p = ld3(P, i, n), oth_p = ld3(P, idx, n);
-  Q4 own_q = ld4(Q, i, n), oth_q = ld4(Q, idx, n);
+  V3 own_p = ld3cg(P, i, n), oth_p = ld3cg(P, idx, n);
+  Q4 own_q = ld4cg(Q, i, n), oth_q = ld4cg(Q, idx, n);
   V3 anchor_a = v3(jr.j_anchor_a[sl], jr.j_anchor_a[S + sl], jr.j_anchor_a[2 * S + sl]);
   V3 anchor_b = v3(jr.j_anchor_b[sl], jr.j_anchor_b[S + sl], jr.j_anchor_b[2 * S + sl]);
   Q4 rest = Q4{jr.j_rest[sl], jr.j_rest[S + sl], jr.j_rest[2 * S + sl], jr.j_rest[3 * S + sl]};
@@ -1335,10 +1522,10 @@ __device__ __forceinline__ float joint_stiff(const JointRows& jr, int sl, int r)
   return r < 3 ? jr.j_stiff_lin[sl] : jr.j_stiff_ang[sl];
 }
 
-// joint_force + joint_accumulate of one slot, added into acc (first slot:
-// stored).
+// joint_force + joint_accumulate's terms of one slot, to out[q * os] for
+// the ROW_TERMS terms q.
 __device__ __forceinline__ void joint_slot_terms(const JointRows& jr, const JointGeom& g, int sl, int S,
-                                                 bool first, RowAcc* acc) {
+                                                 float* out, int os) {
   float f[6], pen[6];
   for (int r = 0; r < 6; ++r) {
     float lam = jr.j_lam[r * S + sl];
@@ -1375,26 +1562,21 @@ __device__ __forceinline__ void joint_slot_terms(const JointRows& jr, const Join
     float v = pp[0] * cc[0][a] * cc[0][bb] + pp[1] * cc[1][a] * cc[1][bb] + pp[2] * cc[2][a] * cc[2][bb];
     t[21 + k] = (a == bb) ? v + pp[3 + a] : v;
   }
-  for (int k = 0; k < 3; ++k) {
-    acc->F[k] = first ? t[k] : acc->F[k] + t[k];
-    acc->T[k] = first ? t[3 + k] : acc->T[k] + t[3 + k];
-  }
-  for (int k = 0; k < 6; ++k) acc->ll[k] = first ? t[6 + k] : acc->ll[k] + t[6 + k];
-  for (int k = 0; k < 9; ++k) acc->la[k] = first ? t[12 + k] : acc->la[k] + t[12 + k];
-  for (int k = 0; k < 6; ++k) acc->aa[k] = first ? t[21 + k] : acc->aa[k] + t[21 + k];
+  for (int q = 0; q < ROW_TERMS; ++q) out[q * os] = t[q];
 }
 
-// spring_geometry + spring_force + spring_accumulate of one slot, added
-// into acc (first slot: stored).
+// spring_geometry + spring_force + spring_accumulate's terms of one slot at
+// the poses P / Q (read through L2), to out[q * os] for the ROW_TERMS terms
+// q.
 __device__ __forceinline__ void spring_slot_terms(const JointRows& jr, int sl, int S, int i, int n,
-                                                  const float* P, const float* Q, bool first, RowAcc* acc) {
+                                                  const float* P, const float* Q, float* out, int os) {
   int other = jr.s_other[sl];
   bool valid = other >= 0;
   int idx = valid ? other : 0;
   bool is_a = jr.s_side[sl] > 0;
   bool is_world = jr.s_world[sl] > 0;
-  V3 own_p = ld3(P, i, n), oth_p = ld3(P, idx, n);
-  Q4 own_q = ld4(Q, i, n), oth_q = ld4(Q, idx, n);
+  V3 own_p = ld3cg(P, i, n), oth_p = ld3cg(P, idx, n);
+  Q4 own_q = ld4cg(Q, i, n), oth_q = ld4cg(Q, idx, n);
   V3 anchor_a = v3(jr.s_anchor_a[sl], jr.s_anchor_a[S + sl], jr.s_anchor_a[2 * S + sl]);
   V3 anchor_b = v3(jr.s_anchor_b[sl], jr.s_anchor_b[S + sl], jr.s_anchor_b[2 * S + sl]);
   V3 pa_body = is_a ? own_p : oth_p;
@@ -1424,28 +1606,19 @@ __device__ __forceinline__ void spring_slot_terms(const JointRows& jr, int sl, i
   float n3[3] = {nv.x, nv.y, nv.z}, c3[3] = {cv.x, cv.y, cv.z};
   const int ij[6][2] = {{0, 0}, {0, 1}, {0, 2}, {1, 1}, {1, 2}, {2, 2}};
   for (int k = 0; k < 3; ++k) {
-    float fk = sign * n3[k] * fs, tk = sign * c3[k] * fs;
-    acc->F[k] = first ? fk : acc->F[k] + fk;
-    acc->T[k] = first ? tk : acc->T[k] + tk;
+    out[k * os] = sign * n3[k] * fs;
+    out[(3 + k) * os] = sign * c3[k] * fs;
   }
   for (int k = 0; k < 6; ++k) {
-    float l = pp * n3[ij[k][0]] * n3[ij[k][1]], a = pp * c3[ij[k][0]] * c3[ij[k][1]];
-    acc->ll[k] = first ? l : acc->ll[k] + l;
-    acc->aa[k] = first ? a : acc->aa[k] + a;
+    out[(6 + k) * os] = pp * n3[ij[k][0]] * n3[ij[k][1]];
+    out[(21 + k) * os] = pp * c3[ij[k][0]] * c3[ij[k][1]];
   }
   for (int a = 0; a < 3; ++a)
-    for (int k = 0; k < 3; ++k) {
-      float v = pp * n3[a] * c3[k];
-      acc->la[a * 3 + k] = first ? v : acc->la[a * 3 + k] + v;
-    }
+    for (int k = 0; k < 3; ++k) out[(12 + a * 3 + k) * os] = pp * n3[a] * c3[k];
 }
 
-// Phase 2 decay of joint and spring rows (joint_decay, spring_decay), one
-// thread per (slot, body) over max(DJ, DS) slots.
-__global__ void __launch_bounds__(BLOCK) k_row_decay(Dims dm, JointRows jr, KParams p) {
-  int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = dm.n;
-  int t = gid / n, i = gid - t * n;
+// Phase 2 decay of joint and spring slot (t, i) (joint_decay, spring_decay).
+__device__ __forceinline__ void row_decay_slot(const JointRows& jr, const KParams& p, int t, int i, int n) {
   if (t < jr.dj) {
     const int S = jr.dj * n, sl = t * n + i;
     bool valid = jr.j_other[sl] >= 0;
@@ -1470,57 +1643,55 @@ __global__ void __launch_bounds__(BLOCK) k_row_decay(Dims dm, JointRows jr, KPar
   }
 }
 
-// Sweep with rows, part 1: the contact terms of every body, tiled as
-// k_primal: F/T to jr.ft and (on a rebuild) the Hessian to w.mat.
-template <int MAXT>
-__global__ void __launch_bounds__(MAXT) k_contact_acc(Dims dm, Cache c, Bodies b, Work w, JointRows jr,
-                                                      KParams p, int tile, int rebuild, float alpha_cur) {
-  extern __shared__ float sh[];
-  TileIdx ti = tile_index(tile);
-  primal_tile(dm, c, b, w, p, rebuild, alpha_cur, ti, sh, nullptr);
-  const float* fold = sh + N_PART * dm.dc * tile;
-  for (int k = threadIdx.x; k < 6 * tile; k += blockDim.x) {
-    int q = k / tile, bl = k - q * tile;
-    jr.ft[q * dm.n + ti.base + bl] = fold[k];
+// Colour sub-pass ci of the block's tile (_kernel_b_math 472-540), from the
+// poses (src_p, src_q) into (dst_p, dst_q).  Thread (lane, body) evaluates
+// the body's joint and spring slots lane, lane + lanes, ... at the source
+// poses and leaves each slot's ROW_TERMS terms in ``rt`` (ROW_TERMS x (DJ +
+// DS) x tile floats, body fastest); after a block barrier thread ``body``
+// folds them over the slots of each family left to right from slot 0 (the
+// order cm.dsum sums in), adds them to the inertia and contact terms (the
+// folded F / T in ``fold``, the Hessian in w.mat), solves, and writes the
+// new pose of a body of colour ci (every body when there is one colour);
+// other bodies are copied.
+__device__ __forceinline__ void subpass_tile(const Dims& dm, const Bodies& b, const Work& w, const JointRows& jr,
+                                             const KParams& p, const TileIdx& ti, int ci, const float* fold,
+                                             float* rt, const float* src_p, const float* src_q, float* dst_p,
+                                             float* dst_q) {
+  const int n = dm.n, tile = ti.tile, i = ti.base + ti.bl, rows = jr.dj + jr.ds;
+  const int os = rows * tile;   // stride between a slot's terms
+  RACE_DELAY();
+  for (int t = ti.lane; t < rows; t += ti.lanes) {
+    float* out = rt + t * tile + ti.bl;
+    if (t < jr.dj) {
+      const int sl = t * n + i;
+      joint_slot_terms(jr, joint_geometry(jr, sl, jr.dj * n, i, n, src_p, src_q), sl, jr.dj * n, out, os);
+    } else {
+      spring_slot_terms(jr, (t - jr.dj) * n + i, jr.ds * n, i, n, src_p, src_q, out, os);
+    }
   }
-}
-
-// Sweep with rows, part 2: colour sub-pass ci (_kernel_b_math 472-540), one
-// thread per body.  Reads every pose from (src_p, src_q), evaluates the
-// body's joint and spring rows there, solves, and writes the new pose of a
-// body of colour ci (all bodies when there is one colour) to (dst_p,
-// dst_q); other bodies are copied.  The launch boundary is the barrier
-// between sub-passes, and the double buffer keeps partner reads race-free.
-__global__ void __launch_bounds__(BLOCK) k_subpass(Dims dm, Bodies b, Work w, JointRows jr, KParams p, int ci,
-                                                   const float* src_p, const float* src_q, float* dst_p,
-                                                   float* dst_q) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= dm.n) return;
-  const int n = dm.n;
+  __syncthreads();
+  if (threadIdx.x >= tile) return;
   bool dyn = b.inv_mass[i] > F(0.0);
   float dynf = dyn ? F(1.0) : F(0.0);
-  V3 pos = ld3(src_p, i, n);
-  Q4 quat = ld4(src_q, i, n);
+  V3 pos = ld3cg(src_p, i, n);
+  Q4 quat = ld4cg(src_q, i, n);
   float F3[3], T3[3], M[24];
   for (int k = 0; k < 3; ++k) {
-    F3[k] = jr.ft[k * n + i];
-    T3[k] = jr.ft[(3 + k) * n + i];
+    F3[k] = fold[k * tile + threadIdx.x];
+    T3[k] = fold[(3 + k) * tile + threadIdx.x];
   }
   for (int q = 0; q < 24; ++q) M[q] = w.mat[q * n + i];
   RowAcc acc[2];
   int n_acc = 0;
-  if (jr.dj > 0) {
-    const int S = jr.dj * n;
-    for (int t = 0; t < jr.dj; ++t) {
-      int sl = t * n + i;
-      JointGeom g = joint_geometry(jr, sl, S, i, n, src_p, src_q);
-      joint_slot_terms(jr, g, sl, S, t == 0, &acc[n_acc]);
+  const int fams[2][2] = {{0, jr.dj}, {jr.dj, jr.ds}};   // (first slot, slots) of each family
+  for (int f = 0; f < 2; ++f) {
+    if (fams[f][1] == 0) continue;
+    const float* src = rt + fams[f][0] * tile + threadIdx.x;
+    for (int q = 0; q < ROW_TERMS; ++q) {
+      float v = src[q * os];
+      for (int t = 1; t < fams[f][1]; ++t) v = v + src[q * os + t * tile];
+      acc[n_acc].v[q] = v;
     }
-    ++n_acc;
-  }
-  if (jr.ds > 0) {
-    const int S = jr.ds * n;
-    for (int t = 0; t < jr.ds; ++t) spring_slot_terms(jr, t * n + i, S, i, n, src_p, src_q, t == 0, &acc[n_acc]);
     ++n_acc;
   }
   float dl[3], da[3];
@@ -1535,18 +1706,18 @@ __global__ void __launch_bounds__(BLOCK) k_subpass(Dims dm, Bodies b, Work w, Jo
   V3 new_pos;
   Q4 nq;
   pose_update(pos, quat, dl, da, applyf, applyb, p, &new_pos, &nq);
+  RACE_DELAY();
   st3(dst_p, i, n, new_pos);
   st4(dst_q, i, n, nq);
 }
 
-// Joint dual at the post-primal poses (joint_dual), one thread per joint
-// slot; hard rows only, updated in place.
-__global__ void __launch_bounds__(BLOCK) k_joint_dual(Dims dm, JointRows jr, Work w, KParams p) {
-  int sl = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = dm.n, S = jr.dj * n;
-  if (sl >= S) return;
-  int i = sl % n;
-  JointGeom g = joint_geometry(jr, sl, S, i, n, w.pos, w.quat);
+// Joint dual of slot sl at the post-primal poses (joint_dual); hard rows
+// only, updated in place.
+__device__ __forceinline__ void joint_dual_slot(const JointRows& jr, const KParams& p, int sl, int i, int n,
+                                                const float* P, const float* Q) {
+  const int S = jr.dj * n;
+  RACE_DELAY();
+  JointGeom g = joint_geometry(jr, sl, S, i, n, P, Q);
   float worldf = g.is_world ? F(1.0) : F(0.0);
   for (int r = 0; r < 6; ++r) {
     bool hard = !isfinite(joint_stiff(jr, sl, r)) && g.valid;
@@ -1572,6 +1743,77 @@ __global__ void __launch_bounds__(BLOCK) k_joint_dual(Dims dm, JointRows jr, Wor
   }
 }
 
+// Floats a body takes in front of the fold in the resident joint loop's
+// shared memory: the contact partials, or a sub-pass's row terms where the
+// rows outnumber them (a narrow cache).  The same as solver_cuda._tile_shape.
+__host__ __device__ __forceinline__ int joint_smem_floats(int dc, int rows) {
+  return N_PART * dc > ROW_TERMS * rows ? N_PART * dc : ROW_TERMS * rows;
+}
+
+// The barrier between colour sub-passes of the resident joint loop: the
+// whole grid (a cooperative launch) or the world's one cluster.
+template <bool CLUSTER>
+__device__ __forceinline__ void world_sync() {
+  if constexpr (CLUSTER) cg::this_cluster().sync();
+  else cg::this_grid().sync();
+}
+
+// Sweeps of a world with rows, all of ``ip`` in one launch: thread blocks
+// of the plan's tiles (32 bodies, or 16 where DC is above 16, so that a
+// block keeps 128 registers a thread), resident together (a cooperative
+// launch, or one cluster where the world fits one; the launcher checks).
+// With ``first`` it opens with the rows' decay and the geometry at the
+// predicted poses.  A sweep: the contact partials and their ordered fold at
+// the sweep-start poses (primal_tile), then per colour the sub-pass from
+// buffer X into buffer Y (subpass_tile: row terms by (slot, body) threads,
+// the solve by one thread per body) and the world's barrier, X and Y
+// swapping; then the contact dual and (with do_dual) the joint dual at the
+// final poses.  A cache slot's and a joint slot's duals, penalties and
+// latches are written and read by the one thread that owns the slot, so
+// only the poses cross blocks (through L2, ld.global.cg).  No barrier follows the
+// dual pass: the next sub-pass writes the buffer that the last barrier
+// finished reading, while the dual pass reads the other one.  w.pos / quat:
+// buffer X at the launch; ``alt_p`` / ``alt_q``: buffer Y.
+template <int MAXT, bool CLUSTER>
+__global__ void __launch_bounds__(MAXT) k_joint_sweeps(Dims dm, Cache c, Bodies b, Work w, JointRows jr,
+                                                       KParams p, int tile, IterPlan ip, int first, float* alt_p,
+                                                       float* alt_q) {
+  extern __shared__ float sh[];
+  TileIdx ti = tile_index(tile);
+  const int n = dm.n, dc = dm.dc, i = ti.base + ti.bl;
+  if (first) {
+    const int dr = jr.dj > jr.ds ? jr.dj : jr.ds;
+    for (int t = ti.lane; t < dr; t += ti.lanes) row_decay_slot(jr, p, t, i, n);
+    for (int t = ti.lane; t < dc; t += ti.lanes) geom_slot(dm, c, w, i, t);
+  }
+  float *xp = w.pos, *xq = w.quat, *yp = alt_p, *yq = alt_q;
+  float* fold = sh + joint_smem_floats(dc, jr.dj + jr.ds) * tile;
+  for (int it = 0; it < ip.n; ++it) {
+    // Rows decayed, slots' geometry and duals written (by their own thread)
+    // before primal_tile's first block barrier.
+    primal_tile(dm, c, b, w, p, ip.rebuild[it], ip.alpha[it], ti, sh, fold, nullptr);
+    for (int ci = 0; ci < jr.n_colors; ++ci) {
+      // The row terms reuse the partials' shared memory, free after the
+      // fold; the world's barrier below also ends their reads.
+      subpass_tile(dm, b, w, jr, p, ti, ci, fold, sh, xp, xq, yp, yq);
+      world_sync<CLUSTER>();
+      float *tp = xp, *tq = xq;
+      xp = yp;
+      xq = yq;
+      yp = tp;
+      yq = tq;
+      w.pos = xp;
+      w.quat = xq;
+      w.snap_pos = xp;
+      w.snap_quat = xq;
+    }
+    for (int t = ti.lane; t < dc; t += ti.lanes)
+      dual_slot(dm, c, w, p, slot_ctx(dm, c, b, p, i, t), ip.do_dual[it], ip.ramp[it], ip.alpha[it], i, 0);
+    if (jr.dj > 0 && ip.do_dual[it])
+      for (int t = ti.lane; t < jr.dj; t += ti.lanes) joint_dual_slot(jr, p, t * n + i, i, n, xp, xq);
+  }
+}
+
 // The slow joint dual tracker on the final poses (joint_dual_ema), one
 // thread per joint slot, after k_final_body.
 __global__ void __launch_bounds__(BLOCK) k_joint_ema(Dims dm, JointRows jr, Work w, KParams p) {
@@ -1585,6 +1827,7 @@ __global__ void __launch_bounds__(BLOCK) k_joint_ema(Dims dm, JointRows jr, Work
     jr.j_lam[r * S + sl] = hard ? lam + p.joint_ema_rate * jr.j_pen[r * S + sl] * g.C[r] : lam;
   }
 }
+
 
 // ---------------------------------------------------------------------------
 // Phase 5: sanitize + velocities, one thread per body.
@@ -1699,7 +1942,7 @@ static cudaError_t opt_in(K kernel, bool clusters) {
 static bool plan_ok(const SweepPlan& pl, const Dims& dm) {
   return pl.tile > 0 && pl.threads > 0 && pl.threads <= 1024 && pl.threads % pl.tile == 0 &&
          dm.n % pl.tile == 0 && pl.smem >= (int)sizeof(float) * (N_PART * dm.dc + 6) * pl.tile &&
-         pl.cluster >= 0 && pl.cluster <= 16;
+         pl.cluster >= 0 && pl.cluster <= 16 && (pl.grid == 0 || pl.grid == 1) && !(pl.grid && pl.cluster);
 }
 
 template <int MAXT>
@@ -1720,27 +1963,6 @@ cudaError_t launch_primal(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work 
   if (!plan_ok(pl, dm)) return cudaErrorInvalidValue;
   if (pl.threads <= 512) return launch_primal_t<512>(pl, dm, c, b, w, p, rebuild, alpha_cur, st);
   return launch_primal_t<1024>(pl, dm, c, b, w, p, rebuild, alpha_cur, st);
-}
-
-template <int MAXT>
-static cudaError_t launch_contact_acc_t(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, JointRows jr,
-                                        KParams p, int rebuild, float alpha_cur, cudaStream_t st) {
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t err = opt_in(k_contact_acc<MAXT>, false);
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
-  k_contact_acc<MAXT><<<dm.n / pl.tile, pl.threads, pl.smem, st>>>(dm, c, b, w, jr, p, pl.tile, rebuild,
-                                                                   alpha_cur);
-  return cudaGetLastError();
-}
-
-static cudaError_t launch_contact_acc(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, JointRows jr,
-                                      KParams p, int rebuild, float alpha_cur, cudaStream_t st) {
-  if (!plan_ok(pl, dm)) return cudaErrorInvalidValue;
-  if (pl.threads <= 512) return launch_contact_acc_t<512>(pl, dm, c, b, w, jr, p, rebuild, alpha_cur, st);
-  return launch_contact_acc_t<1024>(pl, dm, c, b, w, jr, p, rebuild, alpha_cur, st);
 }
 
 template <int MAXT>
@@ -1788,6 +2010,79 @@ cudaError_t launch_sweeps(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work 
   return launch_sweeps_t<1024>(pl, dm, c, b, w, p, ip, with_geom, carry, st);
 }
 
+template <int MAXT, bool CLUSTER>
+static cudaError_t launch_joint_sweeps_t(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, JointRows jr,
+                                         KParams p, const IterPlan& ip, int first, float* alt_p, float* alt_q,
+                                         cudaStream_t st) {
+  static bool ready = false;
+  static int ok_n = 0, ok_threads = 0, ok_smem = 0;
+  if (!ready) {
+    cudaError_t err = opt_in(k_joint_sweeps<MAXT, CLUSTER>, CLUSTER);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int blocks = dm.n / pl.tile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(pl.threads, 1, 1);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  if (CLUSTER) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = pl.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  } else {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (dm.n != ok_n || pl.threads != ok_threads || pl.smem != ok_smem) {
+    // Every block of the launch must be resident at once, checked once per
+    // shape: a grid barrier over blocks that cannot all run would hang.
+    if (CLUSTER) {
+      int max_clusters = 0;
+      cudaError_t err = cudaOccupancyMaxActiveClusters(&max_clusters, k_joint_sweeps<MAXT, CLUSTER>, &cfg);
+      if (err != cudaSuccess) return err;
+      if (max_clusters < 1) return cudaErrorLaunchOutOfResources;
+    } else {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_joint_sweeps<MAXT, CLUSTER>, pl.threads,
+                                                            pl.smem);
+      if (err != cudaSuccess) return err;
+      if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
+    }
+    ok_n = dm.n;
+    ok_threads = pl.threads;
+    ok_smem = pl.smem;
+  }
+  return cudaLaunchKernelEx(&cfg, k_joint_sweeps<MAXT, CLUSTER>, dm, c, b, w, jr, p, pl.tile, ip, first, alt_p,
+                            alt_q);
+}
+
+// The resident sweeps of a world with rows: a cooperative launch (pl.grid)
+// or, where the world is one cluster (tile * cluster = N), a cluster launch.
+static cudaError_t launch_joint_sweeps(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work w, JointRows jr,
+                                       KParams p, const IterPlan& ip, int first, float* alt_p, float* alt_q,
+                                       cudaStream_t st) {
+  if (!plan_ok(pl, dm) || (pl.grid == 0 && pl.cluster * pl.tile != dm.n) ||
+      pl.smem < (int)sizeof(float) * (joint_smem_floats(dm.dc, jr.dj + jr.ds) + 6) * pl.tile)
+    return cudaErrorInvalidValue;
+  if (pl.grid) {
+    if (pl.threads <= 512)
+      return launch_joint_sweeps_t<512, false>(pl, dm, c, b, w, jr, p, ip, first, alt_p, alt_q, st);
+    return launch_joint_sweeps_t<1024, false>(pl, dm, c, b, w, jr, p, ip, first, alt_p, alt_q, st);
+  }
+  if (pl.threads <= 512)
+    return launch_joint_sweeps_t<512, true>(pl, dm, c, b, w, jr, p, ip, first, alt_p, alt_q, st);
+  return launch_joint_sweeps_t<1024, true>(pl, dm, c, b, w, jr, p, ip, first, alt_p, alt_q, st);
+}
+
 // Sweep it of a step's loop (solve_half's plan): alpha and the three flags.
 static void step_iter(const KParams& p, int it, int n_main, int iters_end, int k, float* alpha, int* do_dual,
                       int* rebuild, int* ramp) {
@@ -1797,9 +2092,24 @@ static void step_iter(const KParams& p, int it, int n_main, int iters_end, int k
   *do_dual = it < n_main;
 }
 
+// Sweeps s .. s + MAX_RESIDENT_ITERS - 1 of a step's loop as one resident
+// launch's plan.
+static IterPlan iter_plan(const KParams& p, int s, int n_main, int iters_end, int k) {
+  IterPlan ip = {};
+  ip.n = iters_end - s < MAX_RESIDENT_ITERS ? iters_end - s : MAX_RESIDENT_ITERS;
+  for (int j = 0; j < ip.n; ++j) {
+    int do_dual, rebuild, ramp;
+    step_iter(p, s + j, n_main, iters_end, k, &ip.alpha[j], &do_dual, &rebuild, &ramp);
+    ip.do_dual[j] = do_dual;
+    ip.rebuild[j] = rebuild;
+    ip.ramp[j] = ramp;
+  }
+  return ip;
+}
+
 extern "C" {
 
-// Rows of a jointed world from ptrs 54-79 (see avbd_step).
+// Rows of a jointed world from ptrs 54-76 (see avbd_step).
 static JointRows rows_from(void** ptrs, int dj, int ds, int n_colors) {
   JointRows jr;
   jr.dj = dj;
@@ -1830,20 +2140,19 @@ static JointRows rows_from(void** ptrs, int dj, int ds, int n_colors) {
   jr.j_lam = (float*)ptrs[74];
   jr.j_pen = (float*)ptrs[75];
   jr.s_pen = (float*)ptrs[76];
-  jr.ft = (float*)ptrs[77];
   return jr;
 }
 
 // The solve of a step after its collide, shared by avbd_step (K1) and
 // avbd_solve_loop (K4): prediction, slot geometry, the sweeps and the final
-// velocities.  Contact-only with pl.cluster > 0: the geometry and all sweeps
-// in cluster-resident launches of at most MAX_RESIDENT_ITERS sweeps (one
-// launch for any scene of the repository).  Contact-only otherwise: k_geom,
-// then k_primal + k_dual per sweep.  With joint or spring rows (jr.dj or
-// jr.ds > 0) a sweep is k_contact_acc plus one k_subpass per colour,
-// ping-ponging between w's pose buffers and pos_b/quat_b, then k_dual and
-// k_joint_dual; k_joint_ema follows k_final_body.  On return w's poses are
-// its output buffers again.
+// velocities.  With joint or spring rows (jr.dj or jr.ds > 0): the rows'
+// decay, the geometry and all sweeps in resident launches of at most
+// MAX_RESIDENT_ITERS sweeps (k_joint_sweeps; one launch for any scene of the
+// repository), ping-ponging between w's pose buffers and pos_b / quat_b, and
+// k_joint_ema after k_final_body.  Contact-only with pl.cluster > 0: the
+// geometry and all sweeps in cluster-resident launches (k_sweeps).
+// Contact-only otherwise: k_geom, then k_primal + k_dual per sweep.  On
+// return w's poses are its output buffers again.
 static cudaError_t solve_phases(const SweepPlan& pl, Dims dm, Cache c, Bodies b, Work* wp, KParams p,
                                 const JointRows& jr, float* pos_b, float* quat_b, int n_main, int iters_end,
                                 int k_rebuild, cudaStream_t st) {
@@ -1853,49 +2162,42 @@ static cudaError_t solve_phases(const SweepPlan& pl, Dims dm, Cache c, Bodies b,
   const bool rows = jr.dj > 0 || jr.ds > 0;
   const int k = k_rebuild < 1 ? 1 : k_rebuild;
   cudaError_t err;
-  if (rows && pl.cluster > 0) return cudaErrorInvalidValue;
+  // Worlds with rows take a resident route, contact-only worlds never the grid one.
+  if (rows ? (pl.grid == 0 && pl.cluster == 0) : pl.grid != 0) return cudaErrorInvalidValue;
   k_predict<<<nb_body, BLOCK, 0, st>>>(dm, b, w, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   float* const out_pos = w.pos;
   float* const out_quat = w.quat;
-  if (pl.cluster > 0) {
-    const Carry none = {};
+  if (rows) {
+    float* buf_p[2] = {out_pos, pos_b};
+    float* buf_q[2] = {out_quat, quat_b};
+    int cur = 0;
     for (int s = 0; s < iters_end || s == 0; s += MAX_RESIDENT_ITERS) {
-      IterPlan ip = {};
-      ip.n = iters_end - s < MAX_RESIDENT_ITERS ? iters_end - s : MAX_RESIDENT_ITERS;
-      for (int j = 0; j < ip.n; ++j) {
-        int do_dual, rebuild, ramp;
-        step_iter(p, s + j, n_main, iters_end, k, &ip.alpha[j], &do_dual, &rebuild, &ramp);
-        ip.do_dual[j] = do_dual;
-        ip.rebuild[j] = rebuild;
-        ip.ramp[j] = ramp;
-      }
-      if ((err = launch_sweeps(pl, dm, c, b, w, p, ip, s == 0, none, st)) != cudaSuccess) return err;
+      IterPlan ip = iter_plan(p, s, n_main, iters_end, k);
+      w.pos = buf_p[cur];
+      w.quat = buf_q[cur];
+      w.snap_pos = w.pos;
+      w.snap_quat = w.quat;
+      err = launch_joint_sweeps(pl, dm, c, b, w, jr, p, ip, s == 0, buf_p[cur ^ 1], buf_q[cur ^ 1], st);
+      if (err != cudaSuccess) return err;
+      cur ^= (ip.n * jr.n_colors) & 1;
     }
+    w.pos = buf_p[cur];
+    w.quat = buf_q[cur];
+  } else if (pl.cluster > 0) {
+    const Carry none = {};
+    for (int s = 0; s < iters_end || s == 0; s += MAX_RESIDENT_ITERS)
+      if ((err = launch_sweeps(pl, dm, c, b, w, p, iter_plan(p, s, n_main, iters_end, k), s == 0, none, st)) !=
+          cudaSuccess)
+        return err;
   } else {
     k_geom<<<nb_slot, BLOCK, 0, st>>>(dm, c, w);
     for (int it = 0; it < iters_end; ++it) {
       float alpha_cur;
       int do_dual, rebuild, ramp;
       step_iter(p, it, n_main, iters_end, k, &alpha_cur, &do_dual, &rebuild, &ramp);
-      if (!rows) {
-        if ((err = launch_primal(pl, dm, c, b, w, p, rebuild, alpha_cur, st)) != cudaSuccess) return err;
-      } else {
-        // Contact terms once at the sweep-start poses, then one launch per
-        // colour sub-pass, ping-ponging between the two pose buffers.
-        if ((err = launch_contact_acc(pl, dm, c, b, w, jr, p, rebuild, alpha_cur, st)) != cudaSuccess) return err;
-        for (int ci = 0; ci < jr.n_colors; ++ci) {
-          float* dst_p = w.pos == out_pos ? pos_b : out_pos;
-          float* dst_q = w.quat == out_quat ? quat_b : out_quat;
-          k_subpass<<<nb_body, BLOCK, 0, st>>>(dm, b, w, jr, p, ci, w.pos, w.quat, dst_p, dst_q);
-          w.pos = dst_p;
-          w.quat = dst_q;
-          w.snap_pos = w.pos;
-          w.snap_quat = w.quat;
-        }
-      }
+      if ((err = launch_primal(pl, dm, c, b, w, p, rebuild, alpha_cur, st)) != cudaSuccess) return err;
       k_dual<<<nb_slot, BLOCK, 0, st>>>(dm, c, b, w, p, do_dual, ramp, alpha_cur);
-      if (dj > 0 && do_dual) k_joint_dual<<<blocks_for(dj * n), BLOCK, 0, st>>>(dm, jr, w, p);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -1932,8 +2234,8 @@ static cudaError_t solve_phases(const SweepPlan& pl, Dims dm, Cache c, Bodies b,
 //   66-73 springs: other, world, side, anchor_a, anchor_b, rrest, rstiff,
 //         penalty
 //   74-76 outputs j_lam, j_pen (6 DJ N), s_pen (DS N)
-//   77-79 scratch: ft (6N), second pose buffer pos (3N), quat (4N)
-// ``plan``: the shape's sweep plan, 5 ints in SweepPlan order.
+//   77-78 scratch: second pose buffer pos (3N), quat (4N)
+// ``plan``: the shape's sweep plan, PLAN_INTS ints in SweepPlan order.
 // Returns the first non-zero CUDA error code, or 0.
 int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, int ds, int n_colors,
               int n_main, int iters_end, int k_rebuild, const int* plan, void* stream) {
@@ -1978,6 +2280,7 @@ int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, in
   w.nbc = (int*)ptrs[52];
   w.counters = (int*)ptrs[53];
   w.keptmask = nullptr;
+  w.once = nullptr;
   w.snap_pos = w.pos;
   w.snap_quat = w.quat;
   w.blk = n;
@@ -1986,14 +2289,10 @@ int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, in
   if (err != cudaSuccess) return (int)err;
   const bool rows = dj > 0 || ds > 0;
   JointRows jr = {};
-  if (rows) {
-    jr = rows_from(ptrs, dj, ds, dj > 0 ? n_colors : 1);
-    k_row_decay<<<blocks_for((dj > ds ? dj : ds) * n), BLOCK, 0, st>>>(dm, jr, p);
-  }
-  k_filter_cull<<<blocks_for(n), BLOCK, 0, st>>>(dm, nb, key, thr, b, w, p);
-  k_collide<<<blocks_for(dc * n), BLOCK, 0, st>>>(dm, old, c, b, w, p);
-  err = solve_phases(pl, dm, c, b, &w, p, jr, rows ? (float*)ptrs[78] : nullptr,
-                     rows ? (float*)ptrs[79] : nullptr, n_main, iters_end, k_rebuild, st);
+  if (rows) jr = rows_from(ptrs, dj, ds, dj > 0 ? n_colors : 1);
+  if ((err = launch_collide(dm, nb, key, thr, old, c, b, w, p, st)) != cudaSuccess) return (int)err;
+  err = solve_phases(pl, dm, c, b, &w, p, jr, rows ? (float*)ptrs[77] : nullptr,
+                     rows ? (float*)ptrs[78] : nullptr, n_main, iters_end, k_rebuild, st);
   if (err != cudaSuccess) return (int)err;
   CtrlIn ctrl;
   ctrl.nb = nb;
@@ -2035,10 +2334,8 @@ int avbd_collide(void** ptrs, const float* params, int n, int d, int dc, void* s
   w.counters = (int*)ptrs[32];
   cudaError_t err = cudaMemsetAsync(w.counters, 0, 3 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  k_filter_cull<<<blocks_for(n), BLOCK, 0, st>>>(dm, (const int*)ptrs[12], (const int*)ptrs[13],
-                                                 (const int*)ptrs[14], b, w, p);
-  k_collide<<<blocks_for(dc * n), BLOCK, 0, st>>>(dm, old, c, b, w, p);
-  return (int)cudaGetLastError();
+  return (int)launch_collide(dm, (const int*)ptrs[12], (const int*)ptrs[13], (const int*)ptrs[14], old, c, b, w,
+                             p, st);
 }
 
 // K4, the solve half of K1 for a contact-only world (solve_loop_tpu):
@@ -2051,7 +2348,7 @@ int avbd_collide(void** ptrs, const float* params, int n, int d, int dc, void* s
 //   31    diag (8, 128)
 //   32-35 scratch ip (3N), iq (4N), geom (36 DC N), mat (24 N)
 //   36    counters (3 ints)
-// ``plan``: the shape's sweep plan, 5 ints in SweepPlan order.
+// ``plan``: the shape's sweep plan, PLAN_INTS ints in SweepPlan order.
 // Returns the first non-zero CUDA error code, or 0.
 int avbd_solve_loop(void** ptrs, const float* params, int n, int dc, int n_main, int iters_end, int k_rebuild,
                     const int* plan, void* stream) {

@@ -53,6 +53,7 @@ struct Work {
   int* counters;    // [kept, dropped, sanitized]
   float* diag;      // (8, 128)
   float* keptmask;  // (D, N) symmetric-filter keep mask, or null
+  unsigned char* once;  // (DC, N) once-per-pair mask of the new cache, or null
   // Partner poses: a slot whose partner lies in the same logical block of
   // ``blk`` bodies reads ``pos``/``quat``; any other partner reads the
   // launch-start poses ``snap_pos``/``snap_quat`` (the grid tier's
@@ -72,13 +73,16 @@ struct Dims {
 // cache slots lane, lane + lanes, ... (``spt`` of them at most).  ``smem``:
 // dynamic shared memory of the block in bytes.  ``cluster`` > 0: the sweeps
 // of a logical block run in one launch of thread-block clusters of that
-// many blocks (tile * cluster bodies = one logical block); 0: one launch per
-// half-sweep.
+// many blocks (tile * cluster bodies = one logical block).  ``grid`` 1: the
+// sweeps of the world run in one cooperative launch, a grid barrier between
+// colour sub-passes (worlds with joint or spring rows).  Both 0: one launch
+// per half-sweep (contact-only worlds).
 struct SweepPlan {
-  int tile, threads, spt, smem, cluster;
+  int tile, threads, spt, smem, cluster, grid;
 };
 
-static inline SweepPlan plan_from(const int* v) { return SweepPlan{v[0], v[1], v[2], v[3], v[4]}; }
+#define PLAN_INTS 6
+static inline SweepPlan plan_from(const int* v) { return SweepPlan{v[0], v[1], v[2], v[3], v[4], v[5]}; }
 
 // The iterations of one cluster-resident launch.
 #define MAX_RESIDENT_ITERS 64
@@ -98,9 +102,12 @@ struct Carry {
   const float* stick;  // (4, DC, N)
 };
 
-__global__ void __launch_bounds__(BLOCK) k_filter_cull(Dims dm, const int* nb, const int* key, const int* thr,
-                                                       Bodies b, Work w, KParams p);
-__global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, Bodies b, Work w, KParams p);
+// The collide half of a step (K1, K3, K5): k_filter_cull (one warp per
+// body) then k_collide (a group of COLLIDE_LANES lanes per cache slot); with
+// w.keptmask / w.once set it also writes the keep mask and the once-per-pair
+// mask.  Returns the launches' CUDA error.
+cudaError_t launch_collide(Dims dm, const int* nb, const int* key, const int* thr, Cache old, Cache c, Bodies b,
+                           Work w, KParams p, cudaStream_t st);
 __global__ void __launch_bounds__(BLOCK) k_geom(Dims dm, Cache c, Work w);
 __global__ void __launch_bounds__(BLOCK) k_dual(Dims dm, Cache c, Bodies b, Work w, KParams p, int do_dual,
                                                 int ramp, float alpha_cur);

@@ -18,6 +18,7 @@ returns a CUDA error.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -60,7 +61,8 @@ class _Lib:
         self.log = log
 
 
-_LIB = None
+_LIBS = {}        # extra -D defines (none: the main build) -> _Lib
+_ACTIVE = None    # the library the launch functions use; None: the main build
 
 
 def _nvcc() -> str:
@@ -70,12 +72,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
 
 
-def build(force: bool = False) -> _Lib:
-    """Compile csrc/ (if needed) and load the library; returns it."""
-    global _LIB
-    if _LIB is not None and not force:
-        return _LIB
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def build(force: bool = False, defines: tuple = ()) -> _Lib:
+    """Compile csrc/ (if needed) and load the library; returns it.
+
+    ``defines`` ("NAME=VALUE" strings) builds another library with those
+    compile-time choices, for checks and comparisons only, never the main
+    path: ``AVBD_RACE_DELAY=ns`` makes odd thread blocks of the resident
+    kernels sleep before each read of other blocks' poses and each pose
+    write (the race check).  The launch functions use such a library only
+    inside ``using(lib)``."""
+    defines = tuple(defines)
+    if not force and defines in _LIBS:
+        return _LIBS[defines]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
@@ -87,7 +97,7 @@ def build(force: bool = False) -> _Lib:
         nvcc = _nvcc()
         stem = path[:-len(".so")]
         objs = [f"{stem}.{os.path.splitext(src)[0]}.{os.getpid()}.o" for src in _SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, src), "-o", obj],
+        procs = [subprocess.Popen([nvcc, *flags, "-c", os.path.join(_CSRC, src), "-o", obj],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(_SOURCES, objs)]
         failed = []
@@ -136,15 +146,32 @@ def build(force: bool = False) -> _Lib:
         raise RuntimeError(
             f"parameter block mismatch: kernel {cdll.avbd_n_params()} floats, "
             f"binding {len(_PARAM_NAMES)}")
-    _LIB = _Lib(cdll, path, time.perf_counter() - t0, log)
-    return _LIB
+    lib = _LIBS[defines] = _Lib(cdll, path, time.perf_counter() - t0, log)
+    return lib
+
+
+def _lib() -> _Lib:
+    return _ACTIVE if _ACTIVE is not None else build()
+
+
+@contextlib.contextmanager
+def using(lib: _Lib):
+    """Route every launch through ``lib`` (a build of ``build``) inside the
+    block."""
+    global _ACTIVE
+    before, _ACTIVE = _ACTIVE, lib
+    try:
+        yield lib
+    finally:
+        _ACTIVE = before
 
 
 def ptxas_usage(log: str) -> dict:
     """Registers and spill bytes of every kernel in a ``ptxas -v`` log:
     {kernel name: {"registers": r, "spill_bytes": stores + loads}}, the name
-    demangled as far as its identifier and one integer template argument
-    (``_Z8k_sweepsILi768EEv4Dims...`` -> ``k_sweeps<768>``)."""
+    demangled as far as its identifier and its integer and bool template
+    arguments (``_Z8k_sweepsILi768EEv4Dims...`` -> ``k_sweeps<768>``,
+    ``_Z14k_joint_sweepsILi512ELb0EEv...`` -> ``k_joint_sweeps<512, false>``)."""
     usage, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -154,8 +181,12 @@ def ptxas_usage(log: str) -> dict:
             name = sym
             if mm:
                 end = mm.end() + int(mm.group(1))
-                targ = re.match(r"ILi(\d+)E", sym[end:])
-                name = sym[mm.end():end] + (f"<{targ.group(1)}>" if targ else "")
+                targs = re.match(r"I((?:L[ib]\d+E)+)E", sym[end:])
+                name = sym[mm.end():end]
+                if targs:
+                    vals = [("true" if v == "1" else "false") if t == "b" else v
+                            for t, v in re.findall(r"L([ib])(\d+)E", targs.group(1))]
+                    name += "<" + ", ".join(vals) + ">"
             usage[name] = {"registers": None, "spill_bytes": None}
             continue
         if name is None:
@@ -170,9 +201,10 @@ def ptxas_usage(log: str) -> dict:
 
 
 def _plan_arg(plan):
-    """A ``solver_cuda.SweepPlan`` as the 5 ints the entry points take."""
-    return (ctypes.c_int * 5)(plan.tile, plan.threads, plan.slots_per_thread,
-                              plan.smem_bytes, plan.cluster)
+    """A ``solver_cuda.SweepPlan`` as the 6 ints the entry points take
+    (``struct SweepPlan`` order)."""
+    return (ctypes.c_int * 6)(plan.tile, plan.threads, plan.slots_per_thread,
+                              plan.smem_bytes, plan.cluster, plan.grid)
 
 
 def param_block(params) -> list:
@@ -318,7 +350,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
     jointed world (None or empty otherwise), whose slot leaves follow the
     contact operands.  Returns (12 new cache leaves, 6 body leaves, diag
     (8, 128), (j_lam, j_pen, s_pen) with None for an absent family)."""
-    lib = build()
+    lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
     dc = cache_args[0].shape[0]
@@ -355,7 +387,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
                    torch.empty((ds, g, 128), dtype=f32, device=dev) if ds else None)
         tensors += [t if t is not None else torch.empty((0,), dtype=f32, device=dev)
                     for t in row_out]
-        tensors += [torch.empty(s, dtype=f32, device=dev) for s in ((6, n), (3, n), (4, n))]
+        tensors += [torch.empty(s, dtype=f32, device=dev) for s in ((3, n), (4, n))]
     iters_end = n_main + (1 if params.post_stabilize else 0)
     code = lib.cdll.avbd_step(_ptrs(tensors), _fparams(params), n, d, dc, dj, ds,
                               int(n_colors), int(n_main), int(iters_end), int(k_rebuild),
@@ -367,7 +399,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
 def launch_collide(cache_args, nb, key, thr, b, params):
     """Run K3, the collide half of the step kernel.  Returns (12 new cache
     leaves, kept directed slots () int32, dropped manifolds () int32)."""
-    lib = build()
+    lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
     dc = cache_args[0].shape[0]
@@ -391,7 +423,7 @@ def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int, *, pla
     with the sweep plan ``plan``.
     Returns (6 body leaves, lam, penalty, stick (0/1 float32), diag (8, 128)
     with lanes 0-8 filled)."""
-    lib = build()
+    lib = _lib()
     dev = _cuda_device(b)
     dc, g, _ = cache_args[0].shape
     n = g * 128
@@ -416,7 +448,7 @@ def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int, *, pla
 
 def launch_control(nb, b, anchor, anchor_quat, params):
     """Run the control-lanes kernel; returns the (5,) float32 lanes."""
-    lib = build()
+    lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
     f32 = torch.float32
@@ -435,7 +467,7 @@ def launch_control(nb, b, anchor, anchor_quat, params):
 def launch_bp_probe(nb, b, params):
     """Run K7, the broadphase probe; returns (min_sep () f32, n_slots ()
     int32, near (G, 128) bool)."""
-    lib = build()
+    lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
     ins = [_check(nb, "nb", (d, g, 128), torch.int32, dev)]
@@ -463,7 +495,7 @@ def launch_collide_grid(cache_args, nb, key, thr, b, params):
     """Run K5, the grid tier's collide.  ``cache_args``: the 12 old cache
     leaves (stick as float32).  Returns (12 new cache leaves, kept mask
     (D, G, 128) f32, once mask (DC, G, 128) bool, dropped manifolds () i32)."""
-    lib = build()
+    lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
     dc = cache_args[0].shape[0]
@@ -492,7 +524,7 @@ def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, para
     do_dual, rebuild, ramp) each, from the launch-start poses, partners
     outside a slot's logical block of ``blk`` bodies read at those poses.  Returns (pos, quat, lam,
     pen, stick f32, sep (4, DC, G, 128))."""
-    lib = build()
+    lib = _lib()
     dev = _cuda_device(b)
     dc, g, _ = contacts.other.shape
     n = g * 128

@@ -215,11 +215,17 @@ def select_path(world: World, cap: Capacity) -> str:
     tier ("grid"); "pallas" forces the fused path and "grid" the grid tier,
     each raising the reference's ValueError on a scene it does not cover;
     "xla" (the portable ``_step_impl``) is not ported, so a jointed scene
-    above 2048 bodies raises as a contact-only one outside both tiers does."""
+    above 2048 bodies raises as a contact-only one outside both tiers does.
+    Nor is the swept broadphase (the reference's refresh with
+    ``window=cap.bp_window``, solver.py:377-380): ``cap.bp_window > 0``
+    raises too, rather than stepping with the matrix broadphase."""
     b = world.bodies
     supports_fused = b.n <= 2048
     supports_grid = (b.n <= 16384 and b.g % 8 == 0 and world.joints.dj == 0
                      and world.springs.ds == 0)
+    if cap.bp_window > 0:
+        raise NotImplementedError(
+            f"cap.bp_window={cap.bp_window} > 0 (the swept broadphase) is not ported")
     if cap.backend == "xla":
         raise NotImplementedError("backend='xla' (the portable _step_impl) is not ported")
     if cap.backend == "pallas":

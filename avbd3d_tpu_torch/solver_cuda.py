@@ -73,8 +73,10 @@ CACHE_FIELDS = (
 MAX_THREADS = 1024          # threads of a thread block
 MAX_SMEM_BYTES = 232448     # dynamic shared memory a block may opt into (227 KB)
 MAX_CLUSTER = 16            # blocks of a thread-block cluster on the H100
+H100_SMS = 132              # streaming multiprocessors: blocks a grid barrier can hold, one each
 N_PARTIALS = 30             # a slot's partial sums: F (3), T (3), 24 Hessian terms
-MAX_RESIDENT_ITERS = 64     # sweeps of one cluster-resident launch
+ROW_TERMS = 27              # a joint or spring slot's terms in a sub-pass: F, T, 21 Hessian
+MAX_RESIDENT_ITERS = 64     # sweeps of one resident launch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,26 +85,36 @@ class SweepPlan:
     thread block owns ``tile`` bodies with ``threads`` = tile x lanes
     threads; thread (lane, body) takes the cache slots lane, lane + lanes,
     ... (``slots_per_thread`` at most); ``smem_bytes``: the block's partial
-    sums (N_PARTIALS x DC x tile floats) and folded force / torque (6 x tile).
+    sums (N_PARTIALS x DC x tile floats; with rows, ROW_TERMS x (DJ + DS) x
+    tile where that is more) and folded force / torque (6 x tile).
     ``cluster`` > 0: the sweeps of a logical block of tile x cluster bodies
-    run in one launch of thread-block clusters of that size; 0: one launch
-    per half-sweep."""
+    run in one launch of thread-block clusters of that size (with joint or
+    spring rows: the world is one cluster); ``grid``: the sweeps of a world
+    with rows run in one cooperative launch with a grid barrier; neither:
+    one launch per half-sweep."""
 
     tile: int
     threads: int
     slots_per_thread: int
     smem_bytes: int
     cluster: int
+    grid: int = 0
 
     @property
     def route(self) -> str:
+        if self.grid:
+            return "grid"
         return "cluster" if self.cluster > 0 else "launches"
 
 
-def _tile_shape(tile: int, dc: int):
+def _tile_shape(tile: int, dc: int, rows: int = 0):
+    """Threads, slots per thread and shared memory of a ``tile``-body block
+    for ``dc`` cache slots and ``rows`` joint and spring slots a body: the
+    contact partials, or a sub-pass's row terms where they are more, then the
+    folded force / torque."""
     spt = -(-dc * tile // MAX_THREADS)
     lanes = -(-dc // spt)
-    return lanes * tile, spt, 4 * (N_PARTIALS * dc + 6) * tile
+    return lanes * tile, spt, 4 * (max(N_PARTIALS * dc, ROW_TERMS * rows) + 6) * tile
 
 
 def sweep_plan(n: int, dc: int, blk: int = None, dj: int = 0, ds: int = 0) -> SweepPlan:
@@ -110,8 +122,16 @@ def sweep_plan(n: int, dc: int, blk: int = None, dj: int = 0, ds: int = 0) -> Sw
     ``dc`` cache slots, logical blocks of ``blk`` bodies (the whole world by
     default: K1 and K4) and ``dj`` / ``ds`` joint and spring slots.
 
-    Cluster-resident sweeps where the world is contact-only and a logical
-    block fits one cluster: the smallest tile of 32 and 64 bodies with
+    A world with joint or spring rows: every sweep of a step in one resident
+    launch (``k_joint_sweeps``) with a barrier over the whole world between
+    colour sub-passes, in tiles of 32 bodies, or 16 where a 32-body tile
+    would take more than 512 threads (DC > 16), so that a thread keeps 128
+    registers.  Where the world is at most MAX_CLUSTER tiles the launch is
+    one cluster and the barrier the cluster's (measured faster than the
+    grid barrier at RodJointed and SoftGrid, PERF.md section 6); otherwise a
+    cooperative launch with a grid barrier, whose blocks must all be
+    resident: at most one per SM.  A contact-only world: cluster-resident sweeps where a
+    logical block fits one cluster: the smallest tile of 32 and 64 bodies with
     blk / tile <= MAX_CLUSTER whose block fits the thread and shared-memory
     limits.  Tiles of 64 bodies only where several logical blocks run side by
     side (the grid tier): a lone cluster of 16 such blocks holds a whole
@@ -133,20 +153,33 @@ def sweep_plan(n: int, dc: int, blk: int = None, dj: int = 0, ds: int = 0) -> Sw
     threads, spt, smem = _tile_shape(32, dc)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"cache width DC={dc} does not fit a block's shared memory")
-    return SweepPlan(32, threads, spt, smem, 0)
+    if dj == 0 and ds == 0:
+        return SweepPlan(32, threads, spt, smem, 0)
+    tile = 32 if threads <= 512 else 16
+    threads, spt, smem = _tile_shape(tile, dc, dj + ds)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{dj + ds} joint and spring slots do not fit a block's shared memory")
+    blocks = n // tile
+    if blocks <= MAX_CLUSTER:
+        return SweepPlan(tile, threads, spt, smem, blocks)
+    if blocks > H100_SMS:
+        raise ValueError(f"N={n}: {blocks} blocks of {tile} bodies cannot all be resident for "
+                         f"the grid barrier of the joint rows (at most {H100_SMS})")
+    return SweepPlan(tile, threads, spt, smem, 0, 1)
 
 
-def step_kernel_count(plan: SweepPlan, n_main: int, iters_end: int, dj: int = 0, ds: int = 0,
-                      n_colors: int = 1) -> int:
-    """Kernels one K1 call queues under ``plan`` (copies and memsets not
-    counted): filter, collide, predict, final body and final reduce, plus
-    the sweeps by route."""
+def step_kernel_count(plan: SweepPlan, iters_end: int, dj: int = 0, ds: int = 0) -> int:
+    """Kernels one K1 call of ``iters_end`` sweeps queues under ``plan``
+    (copies and memsets not counted): filter, collide, predict, final body
+    and final reduce, plus the sweeps by route: one resident launch per
+    MAX_RESIDENT_ITERS sweeps (with joints also the dual tracker after the
+    final body, and the colour sub-passes inside the resident launch), or
+    the geometry and two launches per sweep."""
+    resident = max(1, -(-iters_end // MAX_RESIDENT_ITERS))
     if dj or ds:
-        n_colors = n_colors if dj else 1
-        ema = 1 if dj else 0    # with joint_ema_rate > 0
-        return 1 + 6 + (2 + n_colors) * iters_end + (n_main if dj else 0) + ema
+        return 5 + resident + (1 if dj else 0)    # the tracker with joint_ema_rate > 0
     if plan.cluster > 0:
-        return 5 + max(1, -(-iters_end // MAX_RESIDENT_ITERS))
+        return 5 + resident
     return 6 + 2 * iters_end
 
 

@@ -1,4 +1,5 @@
-"""Times of the sweep kernels (K1, K4, K6) of one source tree, on the card.
+"""Times of the sweep and collide kernels (K1, K3, K4, K5, K6) of one source
+tree, on the card.
 
     python avbd3d_tpu_torch/utils/time_sweeps.py [--root DIR] [--routes]
 
@@ -13,14 +14,23 @@ launches, the card's name and power limit beside them, one JSON line last:
   k1_sheets_ms    K1's joint branch, 20 SoftGrid sheets after 300 steps
   k4_ms           K4 at the settled Stress1000 state, iterations 20 / 5 / 1
   k6_ms           K6, one launch of 4 iterations, Stress4096 after 1000 steps
+  traced          per call, as CUDA-event time (``ms``) and as the kernels'
+                  own time in a trace of 20 calls (``device_us``, and
+                  ``kernels`` / ``launches``: us and launches per call by
+                  kernel name) for K1's joint
+                  branch at RodJointed (step 30), SoftGrid (step 5) and the
+                  20 sheets (step 300), K5 at settled Stress4096, and K3 and
+                  K1 contact-only at settled Stress1000
 
 ``--routes`` (a tree whose launch functions take a sweep plan) also times
 K1 at Stress1000 and at Stack (N = 128) and K6 at Stress4096 with the plan
 forced to each route at tiles of 32 and 64 bodies (K1 also as the summed
 device time of its kernels in a trace of the same calls), beside the route
-``sweep_plan`` chooses, and the settled steps/s of Stress1000 (150 steps)
-and Stress4096 (50 steps) with every step on each route, six times in
-turns.
+``sweep_plan`` chooses; K1's joint branch at the 20 sheets (step 300),
+RodJointed (step 30) and SoftGrid (step 5) on each barrier (one cluster,
+or a cooperative launch with a grid barrier) and tile (32 or 16 bodies)
+that fits, twice in turns; and the settled steps/s of Stress1000 (150 steps) and Stress4096
+(50 steps) with every step on each route, six times in turns.
 """
 
 from __future__ import annotations
@@ -50,13 +60,34 @@ def main(argv=None) -> int:
         print("time_sweeps: CUDA is not available", file=sys.stderr)
         return 2
     kernels.build()
-    out = {"root": os.path.abspath(args.root), "card": cs.card_line()}
+    out = {"root": os.path.abspath(args.root), "card": cs.card_line(), "traced": {}}
+
+    def traced(label, call, reps=20):
+        """``call`` timed with CUDA events, then traced: the kernels' own
+        time per call, in sum and by name."""
+        ms = cs.event_ms(call, reps)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        by_name, counts = {}, {}
+        for e in prof.key_averages():
+            if cs.own_kernel(e.key):
+                # "void k_x<512, true>(...)" for a template
+                name = e.key.split("(")[0].removeprefix("void ")
+                by_name[name] = by_name.get(name, 0.0) + profile_phases.device_time_us(e) / reps
+                counts[name] = counts.get(name, 0) + e.count / reps
+        out["traced"][label] = {"ms": ms, "device_us": sum(by_name.values()),
+                                "kernels": by_name, "launches": counts}
 
     sc = load_scene("Stress1000", device="cuda")
     p = sc.params
     w = solver.run_steps(sc.world, p, sc.cap, 700)
     a1 = cs.k1_inputs(w, sc)
     out["k1_settled_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a1), 20)
+    traced("K1 contact-only, settled Stress1000", lambda: solver_cuda.step_kernel(*a1))
+    a3c = (w.contacts, w.bp.nb, w.bp.key, w.bp.thr, w.bodies, p)
+    traced("K3, settled Stress1000", lambda: solver_cuda.collide_and_init(*a3c))
     contacts = solver_cuda.collide_and_init(w.contacts, w.bp.nb, w.bp.key, w.bp.thr, w.bodies, p)[0]
     out["k4_ms"] = {}
     for its in (20, 5, 1):
@@ -73,11 +104,18 @@ def main(argv=None) -> int:
     ws = solver.run_steps(ws, ps, caps, 300)
     a3 = cs.k1_inputs(ws, types.SimpleNamespace(params=ps, cap=caps))
     out["k1_sheets_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a3), 20)
+    traced("K1 joint branch, 20 sheets", lambda: solver_cuda.step_kernel(*a3))
+    for name, steps in (("RodJointed", 30), ("SoftGrid", 5)):
+        sj = load_scene(name, device="cuda")
+        aj = cs.k1_inputs(solver.run_steps(sj.world, sj.params, sj.cap, steps), sj)
+        traced(f"K1 joint branch, {name}", lambda: solver_cuda.step_kernel(*aj))
 
     s4 = load_scene("Stress4096", device="cuda")
     w4 = solver.run_steps(s4.world, s4.params, s4.cap, 1000)
     wi = cs.grid_inputs(w4, s4)
-    a6 = cs.k6_args(wi, s4, solver_grid.collide_grid(*cs.k5_args(wi, s4))[0])
+    a5 = cs.k5_args(wi, s4)
+    traced("K5, settled Stress4096", lambda: solver_grid.collide_grid(*a5))
+    a6 = cs.k6_args(wi, s4, solver_grid.collide_grid(*a5)[0])
     out["k6_ms"] = cs.event_ms(lambda: solver_grid.iterblock_grid(*a6), 20)
 
     if args.routes:
@@ -114,7 +152,45 @@ def main(argv=None) -> int:
                     if cs.own_kernel(e.key)) / 20
             return res
 
+        def joint_routes(a):
+            """K1's joint branch with its resident launch on each barrier and
+            tile that fits: one cluster, or a cooperative launch of 32- or
+            16-body tiles; CUDA-event ms and the kernels' own us per call."""
+            old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k, j, sp, ncol = a
+            cache_args = solver_cuda.cache_to_args(old)
+            dc = old.other.shape[0]
+            dj, ds = (j.dj if j is not None else 0), (sp.ds if sp is not None else 0)
+            res = {"chosen": repr(solver_cuda.sweep_plan(b.n, dc, None, dj, ds))}
+            plans = []
+            for tile in (32, 16):
+                threads, spt, smem = solver_cuda._tile_shape(tile, dc, dj + ds)
+                if b.n // tile <= solver_cuda.MAX_CLUSTER:
+                    plans.append(solver_cuda.SweepPlan(tile, threads, spt, smem, b.n // tile))
+                if b.n // tile <= solver_cuda.H100_SMS:
+                    plans.append(solver_cuda.SweepPlan(tile, threads, spt, smem, 0, 1))
+            for rep in range(2):
+                for plan in plans:
+                    def call():
+                        return kernels.launch_step(cache_args, nb, key, thr, b, anchor, anchor_q, pk,
+                                                   n_main, k, j, sp, ncol, plan=plan)
+                    name = f"{plan.route}_tile{plan.tile}_threads{plan.threads}"
+                    res.setdefault(name, []).append(cs.event_ms(call, 20))
+                    with torch.profiler.profile(
+                            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        for _ in range(20):
+                            call()
+                        torch.cuda.synchronize()
+                    res.setdefault(name + "_device_us", []).append(sum(
+                        profile_phases.device_time_us(e) for e in prof.key_averages()
+                        if cs.own_kernel(e.key)) / 20)
+            return res
+
         routes = {"k1_settled": k1_routes(a1, 1024)}
+        routes["k1_joint_sheets"] = joint_routes(a3)
+        for name, steps in (("RodJointed", 30), ("SoftGrid", 5)):
+            sj = load_scene(name, device="cuda")
+            routes[f"k1_joint_{name}"] = joint_routes(
+                cs.k1_inputs(solver.run_steps(sj.world, sj.params, sj.cap, steps), sj))
         s5 = load_scene("Stack", device="cuda")
         w5 = solver.run_steps(s5.world, s5.params, s5.cap, 100)
         routes["k1_stack"] = k1_routes(cs.k1_inputs(w5, s5), 128)

@@ -14,8 +14,9 @@
 3. Kernel vs plain on the card: K1 for one step from a landing state and a
    settled state (Stress1000 takes one launch per half-sweep), K1 on its
    cluster-resident route on Pyramid and a 7^3 pile, K2 on the initial and
-   the settled state.  Integer outputs must be identical; float tolerances
-   are stated at the checks.
+   the settled state.  Integer outputs must be identical and K1's floats
+   equal (difference 0) but for the control lanes' world-wide sums; the
+   tolerances of the others are stated at the checks.
 4. Times: steps/s of the falling window (steps 0-300) and of a settled block
    (steps 700-1000) with the kernels, steps/s of the plain path over a few
    settled steps, and each kernel's time beside its plain version's.
@@ -24,7 +25,8 @@
    counters reset before and read after.  Checks: every step took the grid
    tier, K5 launched once and K6 five times per step, sanitized 0, pair and
    degree overflow 0 and finite poses at every step, penetration below
-   PEN_LIMIT over steps 901-1000.  Then K5 and K6 against their plain
+   PEN_LIMIT over steps 901-1000.  Then K5 (two kernels a call, held to
+   that in a trace; floats with difference 0) and K6 against their plain
    versions from a landing and a settled state (K6 on its cluster-resident
    route, logical blocks of 1024 bodies, and on its launch-per-half-sweep
    route, the world as one logical block), their times, and the falling
@@ -45,7 +47,12 @@
    tests, and 20 SoftGrid sheets side by side (N = 2048, 3,600 soft
    joints) for 300 steps with their steps/s and K1 time; then K1 with
    joints against its plain version at a state of each of the three
-   scenes.
+   scenes (float difference 0), on the resident route ``sweep_plan`` gives
+   each (one cluster at N = 128, a cooperative launch of 128 blocks for the
+   sheets), and at a welded rod with a cache of width 1 (its row terms,
+   not its contact partials, size the launch's shared memory), and traces
+   of jointed steps (profile_phases on RodJointed, five
+   sheet steps) held to ``step_kernel_count``: one resident launch a step.
 9. The profiler path: K3 and K4 against their plain versions at the
    settled Stress1000 state, utils/profile_cuda's per-phase table, and
    their times.
@@ -66,12 +73,22 @@
    viewer's ``Sim`` (state, spawn into a padding slot, the refresh after
    it), and utils/profile_phases' table for 50 settled steps, whose kernel
    count is held to the sweep plan's own.
-12. The sweep kernels' record: the route ``solver_cuda.sweep_plan`` gives
+12. The race gate: every resident route (K1's cluster route at clusters of
+   4, 12 and 16 blocks, K6 with 5 clusters, K1's joint route at RodJointed,
+   SoftGrid and the 20 sheets, RodJointed also on the grid barrier) run
+   RACE_REPS times on one input with every output bit-identical, then
+   through a build whose odd blocks sleep before their pose reads and
+   writes, bit-identical again; compute-sanitizer's racecheck and synccheck
+   on the collide kernels (the tool's control) and on each resident kernel
+   of Stack and RodJointed, cluster and grid barrier, where the tool runs
+   (else the reason).
+13. The sweep kernels' record: the route ``solver_cuda.sweep_plan`` gives
    each scene and the kernels a step of it queues, ptxas registers and spill
-   bytes of the tiled kernels, and K1 / K4 / K6 timed by
-   utils/time_sweeps.py in this tree and, where an archive of the parent
-   commit lies in ``_archive/parent`` (git-ignored), in that tree too, in
-   turns within this one run.
+   bytes of the tiled and the collide kernels, and K1 / K3 / K4 / K5 / K6
+   timed by utils/time_sweeps.py (CUDA events, and the kernels' own time in
+   a trace) in this tree and, where an archive of the parent commit lies in
+   ``_archive/parent`` (git-ignored), in that tree too, in turns within
+   this one run.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -178,56 +195,74 @@ def event_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def compare_k1(args, label: str) -> float:
-    """K1 kernel vs plain on the same operands.  Integers (slots, counts,
-    feature ids, stick latches, kept/dropped lanes) must be identical.  Both
-    sides run the same float32 operations in the same order (csrc/
-    avbd_common.cuh), so floats are held to 1e-5 (absolute for poses and
-    velocities, relative for lambda/penalty/diagnostics) — a margin for the
-    control lanes' block-wide sums, whose order differs."""
+def float_diff(a, b) -> float:
+    """Largest |a - b| of two float tensors; positions that are NaN on both
+    sides count 0, NaN on one side only counts inf."""
     import torch
 
+    if a.numel() == 0:
+        return 0.0
+    both = torch.isnan(a) & torch.isnan(b)
+    d = torch.where(both, torch.zeros_like(a), (a - b).abs())
+    return float(torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d).max())
+
+
+def same_bits(a, b) -> bool:
+    """Bit-identical tensors (floats compared as their 32-bit words)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def compare_k1(args, label: str) -> float:
+    """K1 kernel vs plain on the same operands: integers (slots, counts,
+    feature ids, kept/dropped lanes) identical and every float of the cache,
+    the bodies and the joint/spring rows with difference 0 — both sides run
+    the same float32 operations in the same order (csrc/avbd_common.cuh).
+    Diagnostics lanes 0-9 and 15 equal too; the control lanes (10-14) sum
+    over the whole world in another order and are held to 1e-5 relative.
+    Returns the largest float difference (0.0, or the run has failed)."""
     from avbd3d_tpu_torch import solver_cuda
 
     cp, bp_, dp, rp = solver_cuda.step_kernel_plain(*args)
     ck, bk, dk, rk = solver_cuda.step_kernel(*args)
     sync()
+    err = 0.0
     for name, a, b in zip(("j_lam", "j_pen", "s_pen"), rp, rk):
         if (a is None) != (b is None):
             fail(f"K1 {label}: {name} returned by one side only")
         if a is not None:
-            rel = float(((a - b).abs() / (a.abs() + 1.0)).max()) if a.numel() else 0.0
-            if rel > 1e-5:
-                fail(f"K1 {label}: {name} rel err {rel}")
+            err = max(err, float_diff(a, b))
     for f in solver_cuda.CACHE_FIELDS:
         a, b = getattr(cp, f), getattr(ck, f)
-        if a.dtype in (torch.int32, torch.bool):
-            bad = int((a != b).sum())
-            if bad:
-                fail(f"K1 {label}: cache.{f} differs in {bad} entries")
-        else:
-            rel = float(((a - b).abs() / (a.abs() + 1.0)).max())
-            if rel > 1e-5:
-                fail(f"K1 {label}: cache.{f} rel err {rel}")
-    for lane in (5, 6, 7, 8, 9, 15):
+        if a.dtype.is_floating_point:
+            err = max(err, float_diff(a, b))
+        elif not same_bits(a, b):
+            fail(f"K1 {label}: cache.{f} differs in {int((a != b).sum())} entries")
+    err = max([err] + [float_diff(a, b) for a, b in zip(bp_, bk)])
+    for lane in list(range(10)) + [15]:
         if float(dp[0, lane]) != float(dk[0, lane]):
             fail(f"K1 {label}: diag lane {lane} {float(dp[0, lane])} vs {float(dk[0, lane])}")
     drel = float(((dp - dk).abs() / (dp.abs() + 1.0)).max())
     if drel > 1e-5:
-        fail(f"K1 {label}: diag rel err {drel}")
-    err = max(float((a - b).abs().max()) for a, b in zip(bp_, bk))
-    if err > 1e-5:
-        fail(f"K1 {label}: body outputs max abs err {err}")
-    print(f"K1 vs plain ({label}): integers identical, body max abs err {err:.3e}, "
-          f"diag max rel err {drel:.3e}, contacts {int(dk[0, 5])}")
+        fail(f"K1 {label}: control lanes rel err {drel}")
+    if err != 0.0:
+        fail(f"K1 {label}: float outputs differ from the plain version by up to {err}")
+    print(f"K1 vs plain ({label}): integers identical, float difference 0 (cache, bodies, rows), "
+          f"control lanes max rel err {drel:.3e}, contacts {int(dk[0, 5])}")
     return err
 
 
-def small_cluster_worlds() -> float:
+def small_cluster_worlds():
     """K1 on its cluster-resident route (contact-only worlds whose 32-body
     tiles fit one cluster) against its plain version: Pyramid after 60 steps
     (N = 128, a cluster of 4 blocks) and a settling 7^3 pile after 200 steps
-    (N = 384, a cluster of 12)."""
+    (N = 384, a cluster of 12).  Returns (largest float difference, the
+    pile's operands)."""
     from avbd3d_tpu_torch import load_scene, solver, solver_cuda
     from avbd3d_tpu_torch.convert import world_from_arrays
     from avbd3d_tpu_torch.models.scenes import _scene_stress_n
@@ -236,7 +271,7 @@ def small_cluster_worlds() -> float:
     arrays, p7, cap7, _ = _scene_stress_n(7, 7, 7)
     worlds = (("Pyramid step 60", sc.world, sc.params, sc.cap, 60, 4),
               ("7^3 pile step 200", world_from_arrays(arrays, "cuda"), p7, cap7, 200, 12))
-    err = 0.0
+    err, args = 0.0, None
     for label, w, p, cap, steps, cluster in worlds:
         plan = solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0])
         if (plan.route, plan.cluster) != ("cluster", cluster):
@@ -244,7 +279,7 @@ def small_cluster_worlds() -> float:
         w = solver.run_steps(w, p, cap, steps)
         args = k1_inputs(w, types.SimpleNamespace(params=p, cap=cap))
         err = max(err, compare_k1(args, f"{label}, cluster of {cluster}"))
-    return err
+    return err, args
 
 
 def compare_k2(world, params, label: str) -> float:
@@ -358,6 +393,14 @@ def grid_phase(card: str) -> dict:
     a5 = k5_args(wi, scene)
     k5_ms = event_ms(lambda: solver_grid.collide_grid(*a5), 20)
     k5_plain_ms = event_ms(lambda: solver_grid.collide_grid_plain(*a5), 3)
+    # K5 is two kernels a call: the filter (a warp per body) and the SAT (a
+    # group of lanes per slot), which also writes the once-per-pair mask.
+    k5_trace = trace_kernels(lambda: solver_grid.collide_grid(*a5), 20)
+    if (len(k5_trace) != 2 or {k.split("<")[0]: c for k, (_us, c) in k5_trace.items()}
+            != {"k_filter_cull": 1.0, "k_collide": 1.0}):
+        fail(f"K5 is not one k_filter_cull and one k_collide a call: {k5_trace}")
+    print(f"[{card}] K5 on the card alone (trace of 20 calls, settled Stress4096): "
+          + ", ".join(f"{k} {us:.2f} us" for k, (us, _c) in sorted(k5_trace.items())))
     a6 = k6_args(wi, scene, solver_grid.collide_grid(*a5)[0])
     k6_ms = event_ms(lambda: solver_grid.iterblock_grid(*a6), 20)
     k6_plain_ms = event_ms(lambda: solver_grid.iterblock_grid_plain(*a6), 3)
@@ -377,7 +420,7 @@ def grid_phase(card: str) -> dict:
     return {"settled": w, "params": p,
             "launches": launches, "k5_err": k5_err, "k6_err": k6_err, "k5_ms": k5_ms,
             "k5_plain_ms": k5_plain_ms, "k6_ms": k6_ms, "k6_plain_ms": k6_plain_ms,
-            "k5_bound": k5_bound, "k6_bound": k6_bound}
+            "k5_bound": k5_bound, "k6_bound": k6_bound, "k5_trace": k5_trace, "k6_args": a6}
 
 
 def low_drop_gate():
@@ -515,9 +558,10 @@ def k6_args(world, scene, contacts):
 
 def compare_k5(world, scene, label: str):
     """K5 kernel vs plain: integers (slots, counts, feature ids, stick
-    latches, kept and once masks, dropped count) identical; floats held to
-    1e-5 relative (same float32 operations in the same order on both
-    sides).  Returns (max abs float error, the kernel's contacts)."""
+    latches, kept and once masks, dropped count) identical, floats with
+    difference 0 (the same float32 operations in the same order on both
+    sides; the lanes of a slot's group pick the serial scans' indices).
+    Returns (max abs float error, the kernel's contacts)."""
     from avbd3d_tpu_torch import solver_cuda, solver_grid
 
     args = k5_args(world, scene)
@@ -528,12 +572,11 @@ def compare_k5(world, scene, label: str):
     for f in solver_cuda.CACHE_FIELDS:
         a, b = getattr(cp, f), getattr(ck, f)
         if a.dtype.is_floating_point:
-            rel = float(((a - b).abs() / (a.abs() + 1.0)).max())
-            if rel > 1e-5:
-                fail(f"K5 {label}: cache.{f} rel err {rel}")
-            err = max(err, float((a - b).abs().max()))
+            err = max(err, float_diff(a, b))
         elif bool((a != b).any()):
             fail(f"K5 {label}: cache.{f} differs in {int((a != b).sum())} entries")
+    if err != 0.0:
+        fail(f"K5 {label}: cache floats differ from the plain version by up to {err}")
     for name, a, b in (("kept", kp, kk), ("once", op, ok)):
         if bool((a != b).any()):
             fail(f"K5 {label}: {name} mask differs in {int((a != b).sum())} entries")
@@ -720,6 +763,29 @@ def small_worlds_phase():
           f"world joint: anchor off by {drift:.2e} after 120 steps")
 
 
+def narrow_cache_rod(device="cuda"):
+    """A rod of four segments hard-welded below a static top segment, and a
+    cube resting on a slab, with a contact cache of width 1 (D = 8, DC = 1,
+    two joint slots a body, two colours): a world whose
+    sub-pass row terms (27 x 2 a body) outnumber its contact partials (30 x
+    1), so they size the resident joint launch's shared memory.  The same
+    world as tests/test_torch_sweep_plan.py's."""
+    from avbd3d_tpu_torch import SceneBuilder, SolverParams
+    from avbd3d_tpu_torch.convert import world_from_arrays
+
+    sb = SceneBuilder()
+    sb.add_body((40, 1, 40), 0.0, 0.5, (0, -0.5, 0))
+    sb.add_body((1, 1, 1), 1.0, 0.5, (3.0, 0.55, 0.0))
+    prev = None
+    for i in range(5):
+        cur = sb.add_body((0.25, 1, 0.25), 0.0 if i == 0 else 1.0, 0.5, (0, 6.0 - i, 0))
+        if prev is not None:
+            sb.add_joint(prev, cur, (0, -0.5, 0), (0, 0.5, 0))
+        prev = cur
+    arrays, p, cap, _ = sb.build(SolverParams(iterations=20), max_degree=8, cache_degree=1)
+    return world_from_arrays(arrays, device), p, cap
+
+
 def sheets_world(n_sheets=20):
     """``n_sheets`` copies of SoftGrid's sheet side by side along z at 1.0 m
     pitch on one ground slab: 2001 bodies, N = 2048, 3,600 soft joints,
@@ -774,18 +840,95 @@ def sheets_phase(card):
             "launches": launches["step_kernel"]}
 
 
+def trace_kernels(fn, reps: int) -> dict:
+    """The port's kernels in a torch.profiler trace of ``reps`` calls of
+    ``fn``: {name: (device us per call, launches per call)}."""
+    import torch
+
+    from avbd3d_tpu_torch.utils import profile_phases
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        if own_kernel(e.key):
+            name = kernel_name(e.key)
+            us, count = out.get(name, (0.0, 0.0))
+            out[name] = (us + profile_phases.device_time_us(e) / reps, count + e.count / reps)
+    return out
+
+
+def joint_step_trace(card, label, step_fn, args, n_steps: int):
+    """``n_steps`` calls of ``step_fn`` (steps of a jointed world) traced:
+    the port's kernels per step must be the sweep plan's
+    ``step_kernel_count``, one of them the resident joint kernel, and none
+    of the launch-per-sub-pass kernels."""
+    from avbd3d_tpu_torch import solver_cuda
+
+    b, j, sp = args[4], args[10], args[11]
+    dj, ds = (j.dj if j is not None else 0), (sp.ds if sp is not None else 0)
+    plan = solver_cuda.sweep_plan(b.n, args[0].other.shape[0], None, dj, ds)
+    iters = args[8] + int(args[7].post_stabilize)
+    per_step = solver_cuda.step_kernel_count(plan, iters, dj, ds)
+    t = trace_kernels(step_fn, n_steps)
+    total = sum(c for _us, c in t.values())
+    resident = sum(c for name, (_us, c) in t.items() if name.startswith("k_joint_sweeps"))
+    if total != per_step or resident != 1 or any(k in t for k in ("k_subpass", "k_contact_acc")):
+        fail(f"{label}: the trace shows {total} of the port's kernels a step ({t}), the plan "
+             f"({plan.route}) says {per_step} with one resident joint launch")
+    print(f"[{card}] {label}, traced: {total:.0f} kernels a step (the sweep plan's {per_step}, "
+          f"route {plan.route}); device us a step: "
+          + ", ".join(f"{k} {us:.1f}" for k, (us, _c) in sorted(t.items())))
+    return t
+
+
 def jointed_phases(card) -> dict:
     """RodJointed, SoftGrid, the spring and world-joint worlds and the
     20-sheet world through K1's joint branch, then K1 with joints against
-    its plain version at a state of each of the three scenes."""
+    its plain version at a state of each of the three scenes, on the route
+    ``sweep_plan`` gives each (one cluster at 128 bodies, the cooperative
+    grid barrier at 2048), and the traced kernels of a jointed step held to
+    ``step_kernel_count``."""
+    from avbd3d_tpu_torch import solver, solver_cuda
+    from avbd3d_tpu_torch.utils import profile_phases
+
     rod_scene, rod_state = rod_jointed_phase(card)
     soft_scene, soft_state = soft_grid_phase()
     small_worlds_phase()
     sheets = sheets_phase(card)
-    err = max(compare_k1(k1_inputs(rod_state, rod_scene), "RodJointed step 30, 2 colours"),
-              compare_k1(k1_inputs(soft_state, soft_scene), "SoftGrid step 5, contacts"),
-              compare_k1(k1_inputs(sheets["state"], sheets["scene"]), "20 sheets step 100"))
-    return {**sheets, "err": err}
+    states = {"RodJointed step 30": k1_inputs(rod_state, rod_scene),
+              "SoftGrid step 5": k1_inputs(soft_state, soft_scene),
+              "20 sheets step 100": k1_inputs(sheets["state"], sheets["scene"])}
+    err = 0.0
+    for (label, args), route in zip(states.items(), ("cluster", "cluster", "grid")):
+        plan = solver_cuda.sweep_plan(args[4].n, args[0].other.shape[0], None, args[10].dj)
+        if plan.route != route:
+            fail(f"{label}: the joint branch's plan is {plan}, expected the {route} route")
+        err = max(err, compare_k1(args, f"{label}, {plan.route} route"))
+    cw, cp, ccap = narrow_cache_rod()
+    cargs = k1_inputs(solver.run_steps(cw, cp, ccap, 20), types.SimpleNamespace(params=cp, cap=ccap))
+    plan = solver_cuda.sweep_plan(cargs[4].n, cargs[0].other.shape[0], None, cargs[10].dj)
+    if (plan.route, cargs[0].other.shape[0], cargs[10].dj, ccap.joint_colors) != ("cluster", 1, 2, 2):
+        fail(f"narrow-cache rod: plan {plan}, DC {cargs[0].other.shape[0]}, DJ {cargs[10].dj}, "
+             f"{ccap.joint_colors} colours; expected one cluster at DC = 1, DJ = 2, 2 colours")
+    err = max(err, compare_k1(cargs, "narrow-cache rod step 20, DC = 1, cluster route"))
+    # profile_phases on a named jointed scene, and a trace of sheet steps.
+    r = profile_phases.profile("RodJointed", 30, 20, "cuda")
+    own = {kernel_name(name): c for name, _us, c in r["kernels"] if own_kernel(name)}
+    rod_args = states["RodJointed step 30"]
+    per_step = solver_cuda.step_kernel_count(
+        solver_cuda.sweep_plan(128, rod_args[0].other.shape[0], None, 2), 20, 2)
+    resident = sum(c for name, c in own.items() if name.startswith("k_joint_sweeps"))
+    if sum(own.values()) != 20 * per_step or resident != 20:
+        fail(f"profile_phases, 20 RodJointed steps: {own}, the plan says {per_step} a step")
+    print(f"profile_phases, 20 RodJointed steps: {sum(own.values()) / 20:.0f} of the port's kernels "
+          f"a step (the plan's {per_step}): {own}")
+    w, p, cap = sheets["state"], sheets["scene"].params, sheets["scene"].cap
+    trace = joint_step_trace(card, "20 sheets, 5 steps from step 100",
+                             lambda: solver.step(w, p, cap), states["20 sheets step 100"], 5)
+    return {**sheets, "err": err, "states": states, "trace": trace}
 
 
 def profiler_phase(w, scene, card) -> dict:
@@ -806,11 +949,11 @@ def profiler_phase(w, scene, card) -> dict:
     for f in solver_cuda.CACHE_FIELDS:
         a, b = getattr(cp, f), getattr(ck, f)
         if a.dtype.is_floating_point:
-            if float(((a - b).abs() / (a.abs() + 1.0)).max()) > 1e-5:
-                fail(f"K3: cache.{f} differs")
-            err3 = max(err3, float((a - b).abs().max()))
+            err3 = max(err3, float_diff(a, b))
         elif bool((a != b).any()):
             fail(f"K3: cache.{f} differs in {int((a != b).sum())} entries")
+    if err3 != 0.0:
+        fail(f"K3: cache floats differ from the plain version by up to {err3}")
     if (int(kp), int(dp)) != (int(kk), int(dk)):
         fail(f"K3: kept/dropped {int(kp)}/{int(dp)} vs {int(kk)}/{int(dk)}")
     a4 = (ck, w.bodies, p)
@@ -826,8 +969,8 @@ def profiler_phase(w, scene, card) -> dict:
             fail(f"K4: {name} differs")
     if err4 > 1e-5:
         fail(f"K4: body outputs max abs err {err4}")
-    print(f"K3 vs plain (settled Stress1000): integers identical, kept {int(kk)}, float max abs "
-          f"err {err3:.3e}; K4 vs plain ({p.iterations} iterations): stick identical, body max "
+    print(f"K3 vs plain (settled Stress1000): integers identical, kept {int(kk)}, float "
+          f"difference {err3:.1e}; K4 vs plain ({p.iterations} iterations): stick identical, body max "
           f"abs err {err4:.3e}")
     reset_counts()
     rows = profile_cuda.profile("Stress1000", 300, "cuda")
@@ -1060,7 +1203,7 @@ def app_phase(card, scene, landing, settled):
     # kernels the sweep plan says K1 queues, 50 times over.
     plan = solver_cuda.sweep_plan(settled.bodies.n, settled.contacts.other.shape[0])
     n_main, _k = solver_cuda.select_variant(p, True, True)
-    per_step = solver_cuda.step_kernel_count(plan, n_main, n_main + int(p.post_stabilize))
+    per_step = solver_cuda.step_kernel_count(plan, n_main + int(p.post_stabilize))
     step_kernels = sum(c for name, _us, c in r["kernels"] if own_kernel(name))
     if not (r["device_us"] > 0.0 and 0.0 < r["busy"] <= 1.0):
         fail(f"profile_phases traced no device work: device_us {r['device_us']}, launches "
@@ -1072,39 +1215,47 @@ def app_phase(card, scene, landing, settled):
           f"{100 * r['busy']:.1f}%, {r['launches'] / 50:.1f} launches/step "
           f"({step_kernels / 50:.1f} of them the port's own kernels, the sweep plan's "
           f"{per_step}); device {r['device_us'] / 50:.1f} us/step: "
-          + ", ".join(f"{name.split('(')[0].split()[-1]} {us / 50:.1f}"
+          + ", ".join(f"{kernel_name(name)} {us / 50:.1f}"
                       for name, us, _c in r["kernels"] if own_kernel(name)))
     return {"device_us_per_step": r["device_us"] / 50, "busy": r["busy"],
             "launches_per_step": r["launches"] / 50, "own_per_step": step_kernels / 50}
 
 
+def kernel_name(key: str) -> str:
+    """A traced kernel's name without its parameter list and, for a
+    template (demangled with its return type in front), without ``void``:
+    ``void k_joint_sweeps<512, true>(Dims, ...)`` -> ``k_joint_sweeps<512, true>``."""
+    return key.split("(")[0].removeprefix("void ")
+
+
 def own_kernel(name: str) -> bool:
-    """A traced kernel of csrc/ (``k_...``; a template's name is demangled
-    with its return type in front)."""
-    return name.split("(")[0].split()[-1].startswith("k_")
+    """A traced kernel of csrc/ (``k_...``)."""
+    return kernel_name(name).startswith("k_")
 
 
 # ---------------------------------------------------------------------------
-# The sweep kernels' record (phase 12)
+# The sweep kernels' record (phase 13)
 # ---------------------------------------------------------------------------
 
-SWEEP_KERNELS = ("k_sweeps", "k_primal", "k_contact_acc")
+# The kernels whose ptxas usage the record prints: the tiled sweep kernels
+# and the two collide kernels of K1, K3 and K5.
+RECORD_KERNELS = ("k_sweeps", "k_primal", "k_joint_sweeps", "k_filter_cull", "k_collide")
 
-# The parent commit's sweep kernels (one thread per body in the primal pass,
-# two launches per sweep), as PERF.md section 6 records them from one H100
-# 80GB HBM3 at 700 W; printed where no archive of that commit is at hand.
-PARENT_RECORDED = {"k1_settled_ms": 1.246, "k1_sheets_ms": 3.626, "k4_ms": {"20": 1.158},
-                   "k6_ms": 0.408}
+# The last recorded times of these calls (this script's own event times, as
+# PERF.md section 6 records them from one H100 80GB HBM3 at 700 W); printed
+# beside this run's where no archive of the parent commit is at hand.
+PARENT_RECORDED = {"k1_settled_ms": 0.823, "k1_sheets_ms": 0.910, "k4_ms": {"20": 0.760},
+                   "k6_ms": 0.210}
 PARENT_DIR = os.path.join("_archive", "parent")
 
-# (scene, N, DC, logical block, DJ, DS, colours, sweeps of its usual step)
-SWEEP_SCENES = (("Stress1000", 1024, 12, None, 0, 0, 1, 20),
-                ("7^3 pile", 384, 12, None, 0, 0, 1, 20),
-                ("Stress2048", 2048, 12, None, 0, 0, 1, 20),
-                ("RodJointed", 128, 16, None, 2, 0, 2, 20),
-                ("SoftGrid", 128, 16, None, 4, 0, 1, 20),
-                ("20 sheets", 2048, 32, None, 4, 0, 1, 20),
-                ("Stack", 128, 16, None, 0, 0, 1, 10))
+# (scene, N, DC, logical block, DJ, DS, sweeps of its usual step)
+SWEEP_SCENES = (("Stress1000", 1024, 12, None, 0, 0, 20),
+                ("7^3 pile", 384, 12, None, 0, 0, 20),
+                ("Stress2048", 2048, 12, None, 0, 0, 20),
+                ("RodJointed", 128, 16, None, 2, 0, 20),
+                ("SoftGrid", 128, 16, None, 4, 0, 20),
+                ("20 sheets", 2048, 32, None, 4, 0, 20),
+                ("Stack", 128, 16, None, 0, 0, 10))
 
 
 def time_sweeps(root: str, routes: bool = False) -> dict:
@@ -1126,16 +1277,16 @@ def sweep_record(card, lib, smoke_times) -> dict:
     from avbd3d_tpu_torch import kernels, solver_cuda
 
     usage = {k: v for k, v in kernels.ptxas_usage(lib.log).items()
-             if k.split("<")[0] in SWEEP_KERNELS}
-    if {k.split("<")[0] for k in usage} != set(SWEEP_KERNELS):
-        fail(f"the build log names no ptxas usage for some of {SWEEP_KERNELS}: {sorted(usage)}")
+             if k.split("<")[0] in RECORD_KERNELS}
+    if {k.split("<")[0] for k in usage} != set(RECORD_KERNELS):
+        fail(f"the build log names no ptxas usage for some of {RECORD_KERNELS}: {sorted(usage)}")
     for name, u in sorted(usage.items()):
         print(f"ptxas {name}: {u['registers']} registers, {u['spill_bytes']} spill bytes")
-    for name, n, dc, blk, dj, ds, colors, its in SWEEP_SCENES:
+    for name, n, dc, blk, dj, ds, its in SWEEP_SCENES:
         plan = solver_cuda.sweep_plan(n, dc, blk, dj, ds)
         print(f"sweep plan {name} (N = {n}, DC = {dc}): route {plan.route}, tile {plan.tile}, "
               f"{plan.threads} threads, {plan.smem_bytes} B shared, cluster {plan.cluster}; "
-              f"{solver_cuda.step_kernel_count(plan, its, its, dj, ds, colors)} kernels per K1 "
+              f"{solver_cuda.step_kernel_count(plan, its, dj, ds)} kernels per K1 "
               f"step of {its} sweeps")
     plan6 = solver_cuda.sweep_plan(5120, 16, 1024)
     print(f"sweep plan Stress4096 (N = 5120, DC = 16, logical blocks of 1024): route "
@@ -1159,6 +1310,19 @@ def sweep_record(card, lib, smoke_times) -> dict:
         for label, get in rows:
             print(f"[{card}] {label}: parent {get(runs[0]):.4f} / {get(runs[3]):.4f} ms, "
                   f"change {get(runs[1]):.4f} / {get(runs[2]):.4f} ms (one run, in turns)")
+        # The same calls as CUDA-event time and as the kernels' own time in a
+        # trace, with the kernels by name (time_sweeps' ``traced``).
+        for label in runs[1]["traced"]:
+            t = [r["traced"].get(label) for r in runs]
+            if None in t:
+                continue
+            print(f"[{card}] {label}: parent {t[0]['ms']:.4f} / {t[3]['ms']:.4f} ms, "
+                  f"{t[0]['device_us']:.1f} / {t[3]['device_us']:.1f} us on the card; change "
+                  f"{t[1]['ms']:.4f} / {t[2]['ms']:.4f} ms, {t[1]['device_us']:.1f} / "
+                  f"{t[2]['device_us']:.1f} us on the card (one run, in turns)")
+            for who, r in (("parent", t[0]), ("change", t[1])):
+                print(f"    {who} kernels, us and launches a call: " + ", ".join(
+                    f"{k} {us:.1f} x{r['launches'][k]:g}" for k, us in r["kernels"].items()))
         for key, r in runs[1]["routes"].items():
             print(f"[{card}] routes, {key}: " + json.dumps(r))
         return {"usage": usage, "ab": runs}
@@ -1166,6 +1330,180 @@ def sweep_record(card, lib, smoke_times) -> dict:
         print(f"[{card}] {label}: change {get(smoke_times):.4f} ms; parent {get(PARENT_RECORDED):.3f} "
               f"ms as recorded in PERF.md (no tree of the parent commit in {PARENT_DIR})")
     return {"usage": usage, "ab": None}
+
+
+# ---------------------------------------------------------------------------
+# The race gate (phase 12): every resident route, repeated and delayed
+# ---------------------------------------------------------------------------
+
+RACE_REPS = 50
+# The race build's delay: odd thread blocks of the resident kernels sleep
+# this long before each read of other blocks' poses and each pose write
+# (csrc/step_kernel.cu AVBD_RACE_DELAY), several times a sweep's own length
+# on the small worlds, so that a missing barrier changes the bits.
+RACE_DELAY_NS = 20000
+
+
+def race_routes(states: dict) -> list:
+    """(label, kernel call) for every resident route: K1's cluster route at
+    clusters of 4, 12 and 16 blocks, K6 with 5 clusters, and K1's joint
+    route at RodJointed, SoftGrid (one cluster each) and the 20 sheets (a
+    cooperative launch), RodJointed also forced onto the grid barrier.
+    ``states``: this run's worlds and operands."""
+    import dataclasses
+
+    from avbd3d_tpu_torch import kernels, load_scene, solver, solver_cuda, solver_grid
+
+    routes = []
+
+    def k1(label, args, plan=None):
+        want = solver_cuda.sweep_plan(args[4].n, args[0].other.shape[0], None,
+                                      args[10].dj if args[10] is not None else 0,
+                                      args[11].ds if args[11] is not None else 0)
+        plan = plan or want
+        old, rest = args[0], args[1:]
+
+        def call():
+            new, body, diag, rows = kernels.launch_step(solver_cuda.cache_to_args(old), *rest,
+                                                        plan=plan)
+            return [*new, *body, diag] + [r for r in rows if r is not None]
+        routes.append((f"K1 {label} ({plan.route}, {plan.cluster or args[4].n // plan.tile} "
+                       f"blocks of {plan.tile} bodies)", call))
+
+    sc = load_scene("Stack", device="cuda")
+    k1("Stack step 60", k1_inputs(solver.run_steps(sc.world, sc.params, sc.cap, 60), sc))
+    k1("7^3 pile step 200", states["pile"])
+    a1 = states["Stress1000 settled"]
+    threads, spt, smem = solver_cuda._tile_shape(64, 12)
+    k1("Stress1000 settled, 64-body tiles", a1, solver_cuda.SweepPlan(64, threads, spt, smem, 16))
+    a6 = states["k6"]
+    routes.append((f"K6 Stress4096 settled ({a6[4].n // (a6[1] * 128)} clusters)",
+                   lambda: list(solver_grid.iterblock_grid(*a6))))
+    for name in ("RodJointed step 30", "SoftGrid step 5", "20 sheets step 100"):
+        k1(name, states[name])
+    rod = states["RodJointed step 30"]
+    plan = solver_cuda.sweep_plan(rod[4].n, rod[0].other.shape[0], None, rod[10].dj)
+    k1("RodJointed step 30, forced", rod, dataclasses.replace(plan, cluster=0, grid=1))
+    return routes
+
+
+def race_phase(card, states: dict) -> dict:
+    """Each resident route RACE_REPS times on one input, every output
+    bit-identical each time; then the same calls through a build whose odd
+    blocks sleep before pose reads and writes, bit-identical again; then
+    compute-sanitizer's racecheck and synccheck (sanitizer_checks)."""
+    from avbd3d_tpu_torch import kernels
+
+    routes = race_routes(states)
+    firsts = []
+    for label, call in routes:
+        first = call()
+        differ = 0
+        for _ in range(RACE_REPS):
+            differ += sum(not same_bits(a, b) for a, b in zip(first, call()))
+        sync()
+        if differ:
+            fail(f"race gate, {label}: {differ} outputs changed over {RACE_REPS} repetitions")
+        firsts.append(first)
+        print(f"race gate, {label}: {RACE_REPS} repetitions bit-identical ({len(first)} outputs)")
+    lib = kernels.build(defines=(f"AVBD_RACE_DELAY={RACE_DELAY_NS}",))
+    print(f"race build ({RACE_DELAY_NS} ns delays in odd blocks) in {lib.build_seconds:.1f} s")
+    with kernels.using(lib):
+        for (label, call), first in zip(routes, firsts):
+            got = call()
+            sync()
+            bad = [k for k, (a, b) in enumerate(zip(first, got)) if not same_bits(a, b)]
+            if bad:
+                fail(f"race gate, {label}: the delayed build differs in outputs {bad}")
+            print(f"race gate, {label}: delayed build bit-identical")
+    return {"routes": len(routes), "sanitizer": sanitizer_checks()}
+
+
+SANITIZE_SCRIPT = """
+import dataclasses, sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as cs
+from avbd3d_tpu_torch import kernels, load_scene, solver, solver_cuda
+target = sys.argv[1]
+sc = load_scene("Stack" if "Stack" in target else "RodJointed", device="cuda")
+w = solver.run_steps(sc.world, sc.params, sc.cap, 3)
+a = cs.k1_inputs(w, sc)
+if target.startswith("K3"):
+    solver_cuda.collide_and_init(*a[:5], a[7])
+elif "grid" in target:
+    plan = solver_cuda.sweep_plan(a[4].n, a[0].other.shape[0], None, a[10].dj)
+    kernels.launch_step(solver_cuda.cache_to_args(a[0]), *a[1:],
+                        plan=dataclasses.replace(plan, cluster=0, grid=1))
+else:
+    solver_cuda.step_kernel(*a)
+torch.cuda.synchronize()
+"""
+
+# (target, the kernels compute-sanitizer instruments): the collide kernels
+# on their own (a plain launch, the tool's control), then each resident
+# kernel on a small world, on the cluster and on the grid barrier.
+SANITIZE_TARGETS = (("K3 Stack", "k_filter_cull|k_collide"), ("K1 Stack", "k_sweeps"),
+                    ("K1 RodJointed", "k_joint_sweeps"),
+                    ("K1 RodJointed, grid barrier", "k_joint_sweeps"))
+
+
+def sanitizer_checks() -> dict:
+    """compute-sanitizer's racecheck (shared-memory hazards) and synccheck
+    (barrier use) on SANITIZE_TARGETS, only the named kernels instrumented.
+    A hazard or barrier error it reports fails the run.  Where the tool is
+    missing, or the program under it cannot use the card (the tool does not
+    run on every machine), that is printed with the tool's first error and
+    no verdict is claimed."""
+    import shutil
+
+    from avbd3d_tpu_torch import kernels
+
+    tool = shutil.which("compute-sanitizer")
+    if tool is None:
+        try:
+            cand = os.path.join(os.path.dirname(kernels._nvcc()), "compute-sanitizer")
+        except RuntimeError:
+            cand = ""
+        tool = cand if os.path.exists(cand) else None
+    if tool is None:
+        print("compute-sanitizer: skipped, not on PATH nor beside nvcc")
+        return {"skipped": "not found"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    verdicts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "sanitize_one.py")
+        with open(script, "w") as f:
+            f.write(SANITIZE_SCRIPT.format(root=here))
+        for check in ("racecheck", "synccheck"):
+            for target, names in SANITIZE_TARGETS:
+                key = f"{check}, {target}"
+                try:
+                    run = subprocess.run([tool, "--tool", check, "--kernel-regex", f"kns={names}",
+                                          sys.executable, script, target], cwd=here,
+                                         capture_output=True, text=True, timeout=240)
+                except subprocess.TimeoutExpired:
+                    verdicts[key] = "timed out after 240 s: no verdict"
+                    print(f"compute-sanitizer {key}: {verdicts[key]}")
+                    continue
+                lines = (run.stdout + run.stderr).splitlines()
+                own = [ln.strip("= ").strip() for ln in lines if ln.startswith("=========")]
+                found = [ln for ln in own if "SUMMARY" not in ln and (
+                    "hazard" in ln.lower() or "race" in ln.lower() or "barrier" in ln.lower())]
+                summary = [ln for ln in own if "SUMMARY" in ln]
+                errors = [ln for ln in own if ln.startswith(("Error", "Program hit", "Invalid"))]
+                if found:
+                    fail(f"compute-sanitizer {key}: {found[:5]}")
+                if run.returncode != 0:
+                    # The program under the tool failed to use the card.
+                    verdicts[key] = (f"could not run here (exit {run.returncode}): "
+                                     + " | ".join((errors or own or lines)[:1] + summary[-1:]))
+                elif summary and any(int(w) for ln in summary for w in ln.split() if w.isdigit()):
+                    fail(f"compute-sanitizer {key}: {summary}")
+                else:
+                    verdicts[key] = summary[-1] if summary else "exit 0, no summary"
+                print(f"compute-sanitizer {key}: {verdicts[key]}")
+    return verdicts
 
 
 # ---------------------------------------------------------------------------
@@ -1240,13 +1578,30 @@ def k1_bound(args, outs) -> tuple:
 
 def sweep_extra(plan, sweeps: dict, rows: bool = False) -> dict:
     """The sweep route of a kernel entry and the ptxas usage of the tiled
-    kernel it runs (the instance compiled for the plan's block size)."""
-    kernel = "k_contact_acc" if rows else ("k_sweeps" if plan.cluster else "k_primal")
-    ceiling = min(int(k.split("<")[1][:-1]) for k in sweeps["usage"]
-                  if k.startswith(kernel + "<") and int(k.split("<")[1][:-1]) >= plan.threads)
-    u = sweeps["usage"][f"{kernel}<{ceiling}>"]
-    return {"sweep_route": plan.route, "sweep_kernel": f"{kernel}<{ceiling}>",
+    kernel it runs (the instance compiled for the plan's block size; with
+    joint or spring rows the resident joint kernel with the plan's
+    barrier)."""
+    if rows:
+        name = (f"k_joint_sweeps<{512 if plan.threads <= 512 else 1024}, "
+                f"{'true' if plan.cluster else 'false'}>")
+    else:
+        kernel = "k_sweeps" if plan.cluster else "k_primal"
+        ceiling = min(int(k.split("<")[1][:-1]) for k in sweeps["usage"]
+                      if k.startswith(kernel + "<") and int(k.split("<")[1][:-1]) >= plan.threads)
+        name = f"{kernel}<{ceiling}>"
+    u = sweeps["usage"][name]
+    return {"sweep_route": plan.route, "sweep_kernel": name,
             "registers": u["registers"], "spill_bytes": u["spill_bytes"]}
+
+
+def collide_extra(sweeps: dict) -> dict:
+    """The collide's kernels (K1's collide half, K3, K5: k_filter_cull and
+    k_collide) with their ptxas usage; ``registers`` /
+    ``spill_bytes`` are the largest of them."""
+    usage = {k: u for k, u in sweeps["usage"].items()
+             if k.split("<")[0] in ("k_filter_cull", "k_collide")}
+    return {"collide_kernels": usage, "registers": max(u["registers"] for u in usage.values()),
+            "spill_bytes": max(u["spill_bytes"] for u in usage.values())}
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
@@ -1380,7 +1735,7 @@ def main() -> int:
 
     # ---- 3. kernel vs plain ----
     k1_err = max(compare_k1(k1_inputs(saved[k], scene), k) for k in ("landing", "settled"))
-    k1_small_err = small_cluster_worlds()
+    k1_small_err, pile_args = small_cluster_worlds()
     init = scene.world
     init = init.replace(bp=build_bp_cache(init.bodies, init.exclusions, cap.max_degree,
                                           p.bp_margin))
@@ -1427,6 +1782,8 @@ def main() -> int:
         "Stress2048 settled": (w2048, p2048),
         "Stress4096 settled": (grid["settled"], grid["params"])})
     traced = app_phase(card, scene, saved["landing"], w)
+    race = race_phase(card, {"pile": pile_args, "Stress1000 settled": k1_inputs(w, scene),
+                             "k6": grid["k6_args"], **jointed["states"]})
     sweeps = sweep_record(card, lib, {"k1_settled_ms": k1_ms, "k1_sheets_ms": jointed["ms"],
                                       "k4_ms": {"20": prof["ms4"]}, "k6_ms": grid["k6_ms"]})
 
@@ -1468,24 +1825,32 @@ def main() -> int:
                          "max_abs_err": k1_2048_err,
                          **sweep_extra(solver_cuda.sweep_plan(2048, 12), sweeps)},
                      joint_branch={
-                         "note": "dj/ds > 0: colour sub-passes with joint and spring rows; "
-                                 "20 SoftGrid sheets, N = 2048, 3600 soft joints",
+                         "note": "dj/ds > 0: every sweep and colour sub-pass in one resident "
+                                 "launch; 20 SoftGrid sheets, N = 2048, 3600 soft joints, a "
+                                 "cooperative launch of 128 blocks (RodJointed and SoftGrid: "
+                                 "one cluster of 4, compared too)",
                          "launches": jointed["launches"], "max_abs_err": jointed["err"],
                          "ms": jointed["ms"], "plain_ms": jointed["plain_ms"],
                          "bound_ms": jb_bnd[0], "bound_by": jb_bnd[1],
+                         "kernels_per_step": sum(c for _us, c in jointed["trace"].values()),
+                         "device_us_per_step": sum(us for us, _c in jointed["trace"].values()),
                          **sweep_extra(solver_cuda.sweep_plan(2048, 32, None, 4), sweeps,
-                                       rows=True)}),
+                                       rows=True),
+                         "cluster_route": sweep_extra(solver_cuda.sweep_plan(128, 16, None, 2),
+                                                      sweeps, rows=True)},
+                     **{"collide": collide_extra(sweeps)}),
         kernel_entry("control_lanes", csrc + "control_lanes.cu", "avbd3d_tpu/solver_tpu.py:262",
                      launches["control_lanes"], k2_err, k2_ms, k2_plain_ms, k2_bnd),
         kernel_entry("collide_and_init", csrc + "step_kernel.cu", "avbd3d_tpu/solver_tpu.py:152",
                      prof["launches"]["collide_and_init"], prof["err3"], prof["ms3"],
-                     prof["plain3"], k3_bnd),
+                     prof["plain3"], k3_bnd, **collide_extra(sweeps)),
         kernel_entry("solve_loop", csrc + "step_kernel.cu", "avbd3d_tpu/solver_tpu.py:922",
                      prof["launches"]["solve_loop"], prof["err4"], prof["ms4"], prof["plain4"],
                      k4_bnd, **sweep_extra(solver_cuda.sweep_plan(1024, 12), sweeps)),
         kernel_entry("collide_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1355",
                      grid["launches"]["collide_grid"], grid["k5_err"], grid["k5_ms"],
-                     grid["k5_plain_ms"], grid["k5_bound"]),
+                     grid["k5_plain_ms"], grid["k5_bound"], **collide_extra(sweeps),
+                     device_us={k: us for k, (us, _c) in grid["k5_trace"].items()}),
         kernel_entry("iterblock_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1614",
                      grid["launches"]["iterblock_grid"], grid["k6_err"], grid["k6_ms"],
                      grid["k6_plain_ms"], grid["k6_bound"],
@@ -1497,6 +1862,8 @@ def main() -> int:
                          "ms": probe["grid"][0], "plain_ms": probe["grid"][1],
                          "bound_ms": probe["grid"][2][0], "bound_by": probe["grid"][2][1]}),
     ]}
+    print(f"race gate: {race['routes']} resident routes, {RACE_REPS} repetitions each and the "
+          f"delayed build bit-identical; compute-sanitizer: {json.dumps(race['sanitizer'])}")
     print(f"[{card}] settled Stress1000 trace: device {traced['device_us_per_step']:.1f} us/step, "
           f"busy share {100 * traced['busy']:.1f}%, {traced['launches_per_step']:.1f} launches/step, "
           f"{traced['own_per_step']:.1f} of them the port's")

@@ -5,6 +5,7 @@ machine with an NVIDIA GPU) each CUDA kernel against its plain version.
 No JAX here; the comparisons with the reference are test_torch_parity_*.py.
 """
 
+import dataclasses
 import os
 import re
 import shutil
@@ -446,9 +447,13 @@ def test_cuda_step_kernel_at_2048_takes_launch_route():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene, steps", [("SoftGrid", 5), ("RodJointed", 30)])
-def test_cuda_joint_branch_matches_plain_bitwise(scene, steps):
-    """The joint branch (launch route; tiled ``k_contact_acc``): body
-    outputs, cache and joint duals equal to the plain version's."""
+@pytest.mark.parametrize("route", ["cluster", "grid"])
+def test_cuda_joint_branch_matches_plain_bitwise(scene, steps, route):
+    """The joint branch runs all its sweeps in one resident launch: one
+    cluster (what ``sweep_plan`` gives a 128-body world) or a cooperative
+    launch with a grid barrier (forced here).  Body outputs, cache and joint
+    duals equal the plain version's, and a second launch gives the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     kernels.build()
@@ -456,16 +461,54 @@ def test_cuda_joint_branch_matches_plain_bitwise(scene, steps):
     w = run_steps(sc.world, sc.params, sc.cap, steps)
     w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
                                     sc.params.bp_margin))
-    assert solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0], None,
-                                  w.joints.dj, 0).route == "launches"
-    bp = w.bp
-    args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
-            sc.params, 20, 4, w.joints, None, sc.cap.joint_colors)
-    plain = solver_cuda.step_kernel_plain(*args)
-    ck, bk, dk, rk = solver_cuda.step_kernel(*args)
+    bp, j, n, dc = w.bp, w.joints, w.bodies.n, w.contacts.other.shape[0]
+    plan = solver_cuda.sweep_plan(n, dc, None, j.dj)
+    assert (plan.route, plan.cluster) == ("cluster", n // 32)
+    if route == "grid":
+        plan = dataclasses.replace(plan, cluster=0, grid=1)
+    args = (bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat, sc.params, 20, 4, j,
+            None, sc.cap.joint_colors)
+    plain = solver_cuda.step_kernel_plain(w.contacts, *args)
+
+    def launch():
+        new, body, diag, rows = kernels.launch_step(solver_cuda.cache_to_args(w.contacts), *args,
+                                                    plan=plan)
+        return solver_cuda.args_to_cache(new), body, diag, rows
+
+    got, again = launch(), launch()
     torch.cuda.synchronize()
-    assert_step_equal(plain, (ck, bk, dk))
-    assert torch.equal(plain[3][0], rk[0]) and torch.equal(plain[3][1], rk[1])
+    assert_step_equal(plain, got[:3])
+    assert torch.equal(plain[3][0], got[3][0]) and torch.equal(plain[3][1], got[3][1])
+    assert_step_equal(got, again[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["cluster", "grid"])
+def test_cuda_joint_branch_with_narrow_cache_matches_plain(route):
+    """A welded rod with a cache of width 1, whose joint row terms take
+    more shared memory than its contact partials: on both barriers the
+    resident launch equals the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from test_torch_sweep_plan import narrow_cache_rod
+
+    kernels.build()
+    w, p, cap = narrow_cache_rod("cuda")
+    w = run_steps(w, p, cap, 20)
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, cap.max_degree, p.bp_margin))
+    bp, j, n, dc = w.bp, w.joints, w.bodies.n, w.contacts.other.shape[0]
+    plan = solver_cuda.sweep_plan(n, dc, None, j.dj)
+    assert (dc, j.dj, plan.route) == (1, 2, "cluster") and int(w.contacts.count.sum()) > 0
+    if route == "grid":
+        plan = dataclasses.replace(plan, cluster=0, grid=1)
+    args = (bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat, p, 20, 4, j, None,
+            cap.joint_colors)
+    plain = solver_cuda.step_kernel_plain(w.contacts, *args)
+    new, body, diag, rows = kernels.launch_step(solver_cuda.cache_to_args(w.contacts), *args,
+                                                plan=plan)
+    torch.cuda.synchronize()
+    assert_step_equal(plain, (solver_cuda.args_to_cache(new), body, diag))
+    assert torch.equal(plain[3][0], rows[0]) and torch.equal(plain[3][1], rows[1])
 
 
 @pytest.mark.cuda
@@ -506,3 +549,42 @@ def test_cuda_cluster_launch_that_cannot_run_raises(cuda_stress):
     for plan in (forced_plan(64, 12, 512), forced_plan(32, 12, 1024)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernels.launch_step(*args, plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# The joint route refused without rows, and the cache compaction, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_grid_route_refused_without_rows(cuda_stress):
+    """A cooperative joint launch on a contact-only world is an error."""
+    sc, w = cuda_stress
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    bp = w.bp
+    plan = solver_cuda.sweep_plan(1024, 12, None, 2)
+    assert plan.route == "grid"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.launch_step(solver_cuda.cache_to_args(w.contacts), bp.nb, bp.key, bp.thr,
+                            w.bodies, bp.anchor, bp.anchor_quat, sc.params, 20, 4, plan=plan)
+
+
+@pytest.mark.cuda
+def test_cuda_compacted_cache_matches_full_width_bit_exact():
+    """tests/test_torch_cache_compaction.py through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from test_torch_cache_compaction import check_culled_equals_full_width
+
+    kernels.build()
+    check_culled_equals_full_width("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_compaction_overflow_is_counted_not_silent():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from test_torch_cache_compaction import check_overflow_counted
+
+    kernels.build()
+    check_overflow_counted("cuda")

@@ -90,3 +90,16 @@ def test_grid_forced_on_a_fused_scene_and_xla_not_ported():
         tsolver.select_path(sc.world, sc.cap.replace(backend="xla"))
     with pytest.raises(ValueError):
         tsolver.select_path(sc.world, sc.cap.replace(backend="tpu"))
+
+
+@pytest.mark.parametrize("name,path", [("Stress1000", "fused"), ("Stress4096", "grid")])
+def test_bp_window_not_ported(name, path):
+    """The reference's swept broadphase (``cap.bp_window > 0``, its
+    solver.py:377-380) is not ported: select_path raises on a fused and on
+    a grid scene, and bp_window == 0 dispatches as before."""
+    sc = tscenes.load_scene(name, "cpu")
+    assert sc.cap.bp_window == 0 and tsolver.select_path(sc.world, sc.cap) == path
+    with pytest.raises(NotImplementedError, match="bp_window"):
+        tsolver.select_path(sc.world, sc.cap.replace(bp_window=4))
+    with pytest.raises(NotImplementedError, match="bp_window"):
+        tsolver.step(sc.world, sc.params, sc.cap.replace(bp_window=1))

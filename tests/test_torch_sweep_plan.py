@@ -14,7 +14,9 @@ bit, and a tree-shaped fold does not.
 import pytest
 import torch
 
-from avbd3d_tpu_torch import cm, kernels, load_scene, run_steps, solver_cuda
+from avbd3d_tpu_torch import SceneBuilder, cm, kernels, load_scene, run_steps, solver_cuda
+from avbd3d_tpu_torch.config import SolverParams
+from avbd3d_tpu_torch.convert import world_from_arrays
 from avbd3d_tpu_torch.ops import replicated as rep
 from avbd3d_tpu_torch.solver_cuda import SweepPlan, step_kernel_count, sweep_plan
 from avbd3d_tpu_torch.solver_grid import pick_gb
@@ -27,10 +29,13 @@ SHAPES = {
     "Stress2048": ((2048, 12, None, 0, 0), ("launches", 32, 384, 0)),
     "Stress4096 blk 1024": ((5120, 16, 1024, 0, 0), ("cluster", 64, 1024, 16)),
     "grid tier blk 2048": ((6144, 16, 2048, 0, 0), ("launches", 32, 512, 0)),
-    "RodJointed": ((128, 16, None, 2, 0), ("launches", 32, 512, 0)),
-    "SoftGrid": ((128, 16, None, 4, 0), ("launches", 32, 512, 0)),
-    "spring world": ((128, 16, None, 0, 1), ("launches", 32, 512, 0)),
-    "20 sheets": ((2048, 32, None, 4, 0), ("launches", 32, 1024, 0)),
+    "RodJointed": ((128, 16, None, 2, 0), ("cluster", 32, 512, 4)),
+    "SoftGrid": ((128, 16, None, 4, 0), ("cluster", 32, 512, 4)),
+    "spring world": ((128, 16, None, 0, 1), ("cluster", 32, 512, 4)),
+    "20 sheets": ((2048, 32, None, 4, 0), ("grid", 16, 512, 0)),
+    "jointed 2048, DC 16": ((2048, 16, None, 2, 0), ("grid", 32, 512, 0)),
+    "jointed 512, DC 32": ((512, 32, None, 4, 0), ("grid", 16, 512, 0)),
+    "narrow-cache rod": ((128, 1, None, 2, 0), ("cluster", 32, 32, 4)),
     "Ground": ((128, 16, None, 0, 0), ("cluster", 32, 512, 4)),
     "Stack": ((128, 16, None, 0, 0), ("cluster", 32, 512, 4)),
     "7^3 pile": ((384, 12, None, 0, 0), ("cluster", 32, 384, 12)),
@@ -48,15 +53,27 @@ def test_sweep_plan_limits_and_route(label):
     assert plan.smem_bytes <= solver_cuda.MAX_SMEM_BYTES
     assert 0 <= plan.cluster <= solver_cuda.MAX_CLUSTER
     # A block's threads are tile x lanes, its lanes cover the DC slots, and
-    # its shared memory holds every partial and the folded force / torque.
+    # its shared memory holds every partial (or, where they are more, a
+    # sub-pass's joint and spring terms) and the folded force / torque.
     assert plan.threads % plan.tile == 0
     lanes = plan.threads // plan.tile
     assert lanes * plan.slots_per_thread >= dc > lanes * (plan.slots_per_thread - 1)
-    assert plan.smem_bytes == 4 * (solver_cuda.N_PARTIALS * dc + 6) * plan.tile
+    per_body = max(solver_cuda.N_PARTIALS * dc, solver_cuda.ROW_TERMS * (dj + ds))
+    assert plan.smem_bytes == 4 * (per_body + 6) * plan.tile
     # Tiles cover the world in whole groups, clusters cover a logical block.
     assert n % 128 == 0 and 128 % plan.tile == 0 and n % plan.tile == 0
+    rows = dj > 0 or ds > 0
     if plan.cluster:
-        assert plan.tile * plan.cluster == blk and dj == 0 and ds == 0
+        assert plan.tile * plan.cluster == blk
+    # Worlds with rows: resident sweeps with 128 registers a thread (at most
+    # 512 threads a block), one cluster or a grid barrier over blocks that
+    # are all resident (one per SM at most); the grid barrier for them only.
+    assert plan.grid in (0, 1) and not (plan.grid and plan.cluster)
+    if rows:
+        assert plan.route in ("cluster", "grid") and plan.threads <= 512
+        assert n // plan.tile <= solver_cuda.H100_SMS
+    else:
+        assert plan.grid == 0
     assert (plan.route, plan.tile, plan.threads, plan.cluster) == (route, tile, threads, cluster)
 
 
@@ -65,10 +82,43 @@ def test_sweep_plan_of_loaded_scenes(scene):
     """The plan as ``step_kernel`` derives it from a loaded world."""
     w = load_scene(scene, device="cpu").world
     plan = sweep_plan(w.bodies.n, w.contacts.other.shape[0], None, w.joints.dj, w.springs.ds)
-    # Clusters for contact-only worlds whose 32-body tiles fit one cluster.
+    # One cluster for a world whose 32-body tiles fit one (with or without
+    # rows); above that, launches per half-sweep for contact-only worlds and
+    # the cooperative route for worlds with joint or spring rows.
     rows = w.joints.dj > 0 or w.springs.ds > 0
-    assert plan.route == ("launches" if rows or w.bodies.n > 512 else "cluster")
+    assert plan.route == ("cluster" if w.bodies.n <= 512 else "grid" if rows else "launches")
     assert plan == sweep_plan(*SHAPES[scene][0])
+
+
+def narrow_cache_rod(device):
+    """A rod of four segments hard-welded below a static top segment, and a
+    cube resting on a slab, with a contact cache of width 1 (D = 8, DC = 1,
+    two joint slots a body, two colours); chip_smoke.py builds the same
+    world."""
+    sb = SceneBuilder()
+    sb.add_body((40, 1, 40), 0.0, 0.5, (0, -0.5, 0))
+    sb.add_body((1, 1, 1), 1.0, 0.5, (3.0, 0.55, 0.0))
+    prev = None
+    for i in range(5):
+        cur = sb.add_body((0.25, 1, 0.25), 0.0 if i == 0 else 1.0, 0.5, (0, 6.0 - i, 0))
+        if prev is not None:
+            sb.add_joint(prev, cur, (0, -0.5, 0), (0, 0.5, 0))
+        prev = cur
+    arrays, p, cap, _ = sb.build(SolverParams(iterations=20), max_degree=8, cache_degree=1)
+    return world_from_arrays(arrays, device), p, cap
+
+
+def test_sweep_plan_of_narrow_cache_jointed_world():
+    """A welded rod with a contact cache of width 1: its two joint slots'
+    row terms (2 x 27 a body) outnumber the contact partials (30), and they
+    size the block's shared memory instead of refusing the world."""
+    w, _p, cap = narrow_cache_rod("cpu")
+    dc, dj = w.contacts.other.shape[0], w.joints.dj
+    assert (dc, dj, w.springs.ds, cap.joint_colors) == (1, 2, 0, 2)
+    assert solver_cuda.ROW_TERMS * dj > solver_cuda.N_PARTIALS * dc
+    plan = sweep_plan(w.bodies.n, dc, None, dj, w.springs.ds)
+    assert plan == sweep_plan(*SHAPES["narrow-cache rod"][0])
+    assert plan.smem_bytes == 4 * (solver_cuda.ROW_TERMS * dj + 6) * plan.tile
 
 
 def test_sweep_plan_grid_blocks():
@@ -87,6 +137,9 @@ def test_sweep_plan_grid_blocks():
     ((5120, 16, 2048), "does not divide"),
     ((1024, 12, 96), "does not divide"),
     ((2048, 64), "shared memory"),
+    ((4352, 16, None, 2, 0), "cannot all be resident"),
+    ((2304, 32, None, 4, 0), "cannot all be resident"),
+    ((128, 16, None, 80, 0), "joint and spring slots"),
 ])
 def test_sweep_plan_rejects(args, match):
     with pytest.raises(ValueError, match=match):
@@ -95,16 +148,22 @@ def test_sweep_plan_rejects(args, match):
 
 @pytest.mark.parametrize("label, kw, want", [
     # filter, collide, predict, one resident launch, final body, final reduce
-    ("Stack", dict(n_main=10, iters_end=10), 6),
-    ("512 bodies, 5 sweeps", dict(n_main=5, iters_end=5), 6),
-    ("512 bodies", dict(n_main=130, iters_end=130), 8),
+    ("Stack", dict(iters_end=10), 6),
+    ("512 bodies, 5 sweeps", dict(iters_end=5), 6),
+    ("512 bodies", dict(iters_end=130), 8),
     # the same with k_geom and two launches per sweep
-    ("Stress1000", dict(n_main=20, iters_end=20), 46),
-    ("Stress2048", dict(n_main=20, iters_end=21), 48),
-    # decay + 6 + (contact terms, sub-passes, dual) per sweep + joint dual + tracker
-    ("RodJointed", dict(n_main=20, iters_end=20, dj=2, n_colors=2), 108),
-    ("SoftGrid", dict(n_main=20, iters_end=20, dj=4, n_colors=1), 88),
-    ("spring world", dict(n_main=10, iters_end=10, ds=1, n_colors=3), 37),
+    ("Stress1000", dict(iters_end=20), 46),
+    ("Stress2048", dict(iters_end=21), 48),
+    # filter, collide, predict, one resident launch (the rows' decay, the
+    # geometry and every sweep with its colour sub-passes), final body,
+    # final reduce, and the joint tracker where there are joints: 7 against
+    # the 108 / 88 / 37 of one launch per sub-pass
+    ("RodJointed", dict(iters_end=20, dj=2), 7),
+    ("SoftGrid", dict(iters_end=20, dj=4), 7),
+    ("20 sheets", dict(iters_end=20, dj=4), 7),
+    ("RodJointed, 130 sweeps", dict(iters_end=130, dj=2), 9),
+    ("narrow-cache rod", dict(iters_end=20, dj=2), 7),
+    ("spring world", dict(iters_end=10, ds=1), 6),
 ])
 def test_step_kernel_count(label, kw, want):
     plan = sweep_plan(*SHAPES[label.split(",")[0]][0])
@@ -112,9 +171,11 @@ def test_step_kernel_count(label, kw, want):
 
 
 def test_plan_argument_order():
-    """The 5 ints the entry points take, in ``struct SweepPlan`` order."""
+    """The 6 ints the entry points take, in ``struct SweepPlan`` order."""
     arg = kernels._plan_arg(SweepPlan(64, 768, 1, 93696, 16))
-    assert list(arg) == [64, 768, 1, 93696, 16]
+    assert list(arg) == [64, 768, 1, 93696, 16, 0]
+    arg = kernels._plan_arg(sweep_plan(2048, 32, None, 4))
+    assert list(arg) == [16, 512, 1, 61824, 0, 1]
 
 
 def test_ptxas_usage_parses_template_kernels():
@@ -127,10 +188,20 @@ ptxas info    : Compiling entry function '_Z6k_once4DimsPKiPKfPh' for 'sm_90a'
 ptxas info    : Function properties for _Z6k_once4DimsPKiPKfPh
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 14 registers
+ptxas info    : Compiling entry function '_Z14k_joint_sweepsILi1024ELb0EEv4Dims5Cache6Bodies4Work9JointRows7KParamsi8IterPlaniPfS7_' for 'sm_90a'
+ptxas info    : Function properties for _Z14k_joint_sweepsILi1024ELb0EEv4Dims5Cache6Bodies4Work9JointRows7KParamsi8IterPlaniPfS7_
+    96 bytes stack frame, 100 bytes spill stores, 120 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 96 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z9k_collideILi4EEv4Dims5CacheS0_6Bodies4Work7KParams' for 'sm_90a'
+ptxas info    : Function properties for _Z9k_collideILi4EEv4Dims5CacheS0_6Bodies4Work7KParams
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers
 """
     assert kernels.ptxas_usage(log) == {
         "k_sweeps<768>": {"registers": 85, "spill_bytes": 48},
         "k_once": {"registers": 14, "spill_bytes": 0},
+        "k_joint_sweeps<1024, false>": {"registers": 64, "spill_bytes": 220},
+        "k_collide<4>": {"registers": 96, "spill_bytes": 0},
     }
 
 
@@ -214,3 +285,73 @@ def test_tree_fold_changes_the_bits(settled, monkeypatch):
             assert float((fold_tree(part) - total).abs().max()) <= 1e-5 * float(part.abs().max())
     assert differs["Pyramid"] > 0
     assert int((settled["Pyramid"][0].contacts.count > 0).sum(0).max()) >= 3
+
+
+# ---------------------------------------------------------------------------
+# The filter kernel's ordered compaction (k_filter_cull, one warp per body)
+# ---------------------------------------------------------------------------
+
+def popc(x):
+    """__popc of each 32-bit word held in an int64 tensor."""
+    return sum((x >> k) & 1 for k in range(32))
+
+
+def serial_compaction(keep, dc):
+    """The serial filter's counter: a kept slot d goes to nbc[run] while
+    run < dc, then run += 1; the rest of nbc is -1.  ``keep`` (D, N) bool.
+    Returns (nbc (DC, N) int64 holding the kept slot's d, kept count per
+    body, dropped count per body)."""
+    d, n = keep.shape
+    nbc = torch.full((dc, n), -1, dtype=torch.int64)
+    run = [0] * n
+    for i in range(n):
+        for s in range(d):
+            if keep[s, i]:
+                if run[i] < dc:
+                    nbc[run[i], i] = s
+                run[i] += 1
+    run = torch.tensor(run)
+    return nbc, run, torch.clamp(run - dc, min=0)
+
+
+def warp_compaction(keep, dc):
+    """The kernel's warp form: lane l of chunk c holds slot 32 c + l; the
+    chunk's ballot is a 32-bit mask, a kept lane lands at the running count
+    plus __popc(ballot & lanemask_lt), and the running count grows by
+    __popc(ballot).  The dropped count is one per warp."""
+    d, n = keep.shape
+    nbc = torch.full((dc, n), -1, dtype=torch.int64)
+    lanes = torch.arange(32, dtype=torch.int64)
+    below = (torch.ones(32, dtype=torch.int64) << lanes) - 1          # lanemask_lt
+    run = torch.zeros(n, dtype=torch.int64)
+    for d0 in range(0, d, 32):
+        slot = d0 + lanes                                              # (32,)
+        k = torch.zeros((32, n), dtype=torch.bool)
+        live = slot < d
+        k[live] = keep[slot[live]]
+        ballot = (k.to(torch.int64) << lanes[:, None]).sum(0)         # (N,)
+        at = run[None, :] + popc(ballot[None, :] & below[:, None])    # (32, N)
+        write = k & (at < dc)
+        cols = torch.arange(n).expand(32, n)
+        nbc[at[write], cols[write]] = slot[:, None].expand(32, n)[write]
+        run = run + popc(ballot)
+    return nbc, run, torch.clamp(run - dc, min=0)
+
+
+@pytest.mark.parametrize("d, dc, p_keep", [(24, 12, 0.3), (28, 16, 0.5), (32, 32, 0.6),
+                                           (32, 12, 0.9), (40, 16, 0.4), (70, 24, 0.35),
+                                           (64, 8, 0.7)])
+def test_warp_compaction_is_the_serial_order(d, dc, p_keep):
+    """Random keep masks, chunked for D > 32: the ballot and prefix popcount
+    put every kept slot where the serial counter puts it, and the kept and
+    dropped counts are the serial ones, including bodies whose kept slots
+    overflow the cache."""
+    g = torch.Generator().manual_seed(d * 1000 + dc)
+    keep = torch.rand((d, 256), generator=g) < p_keep
+    keep[:, :4] = True                                  # overflowing bodies
+    keep[:, 4:8] = False                                # empty bodies
+    want = serial_compaction(keep, dc)
+    got = warp_compaction(keep, dc)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert int(want[2].max()) > 0 or d <= dc
