@@ -16,6 +16,24 @@
 #include <math.h>
 
 #define F(x) ((float)(x))
+#define FULL_MASK 0xffffffffu
+
+// A build for the race check only (kernels.build with the define
+// AVBD_RACE_DELAY=ns): odd thread blocks sleep this many ns before each read
+// of other blocks' data and before each write that other blocks read (K1's
+// resident sweeps: poses; K2 and K7: per-body values, partials, the ticket),
+// so that a missing barrier or fence shows as different bits rather than
+// hiding behind the blocks' usual timing.  Never defined on the main path.
+#ifdef AVBD_RACE_DELAY
+#define RACE_DELAY()                                   \
+  do {                                                 \
+    if (blockIdx.x & 1) __nanosleep(AVBD_RACE_DELAY);  \
+  } while (0)
+#else
+#define RACE_DELAY() \
+  do {               \
+  } while (0)
+#endif
 
 // Host-computed float parameters.  The order is the contract with
 // avbd3d_tpu_torch/kernels.py (_PARAM_NAMES); avbd_n_params() reports the

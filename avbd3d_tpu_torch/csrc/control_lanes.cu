@@ -5,22 +5,169 @@
 // step-control scalars (diagnostics lanes 11-15) on the current state, run on
 // every contact-free (ballistic) step.
 //
-// What bounds it on the H100: nothing but latency.  The work is two
-// reductions over N <= 2048 bodies and a (24, N) slot scan (~100 KB read), so
-// a single launch costs a few microseconds however it is written.  Design: one
-// block of 1024 threads striding over the bodies, tree reductions in shared
-// memory (deterministic order), no atomics and no second launch for the mean.
+// What bounds it on the H100: latency.  The work is a (D, N) slot scan
+// (~100 KB read at N = 1024, D = 24; ~40 float operations a slot) and two
+// reductions over N <= 2048 bodies, microseconds below a launch's own cost;
+// what is left is each slot's dependent chain (two gathers, the partner's
+// world halves and travel).  Design: one launch spread over the card.  Pass 1
+// takes a warp per body and a lane per candidate slot (lanes stride over the
+// slots when D > 32): each lane computes its slot's AABB gap and near test in
+// the plain version's order, the warp takes fminf of the valid gaps and
+// __any_sync of near, and lane 0 adds the body's own terms (the gate speed
+// with the fall-freeze test, the displacement from the anchor, moved, the
+// rotation chord and the raw deviation, which needs no mean) and stores the
+// body's displacement and chord for pass 2.  Each block folds its 8 bodies
+// in body order into 8 partials: min gap, gate, near speed, raw deviation,
+// moved count and the three displacement sums.  The last block to finish (a
+// ticket taken after a __threadfence) folds every block's partials, warp k
+// quantity k, each lane over the blocks lane, lane + 32, ... in index order
+// and then a fixed shuffle tree, computes the mean displacement t and runs
+// pass 2 (|disp - t| + chord over every moved body, a max), writes the five
+// lanes and resets the ticket to 0.  Every sum is taken in one fixed order,
+// so a run gives the same bits every time; min and max are exact in any
+// order, so lanes 0, 1, 2 and 4 equal the plain version's
+// (ops/broadphase.control_lanes) bit for bit, and only lane 3 (bp_dev_mm,
+// through t) rounds otherwise than torch.sum.  No float atomics.
+// control_lanes_block (avbd_common.cuh), K1's one-block form in
+// k_final_reduce, is not used here.
 #include "avbd_common.cuh"
 
-__global__ void __launch_bounds__(CTRL_THREADS) k_control(CtrlIn in, KParams p, float* out) {
-  __shared__ float sh[8 * CTRL_THREADS];
-  control_lanes_block(in, p, out, sh);
+#define LANES_WARPS 8
+#define LANE_PARTS 8  // min gap, gate, near speed, dev_raw, nm, s0, s1, s2
+
+// op 0 min, 1 max, 2 sum: the fold of partial k.
+__device__ __forceinline__ int part_op(int k) { return k == 0 ? 0 : (k < 4 ? 1 : 2); }
+
+__device__ __forceinline__ float fold(int op, float a, float b) {
+  return op == 0 ? fminf(a, b) : (op == 1 ? fmaxf(a, b) : a + b);
+}
+
+// part: LANE_PARTS floats per block; dv: per body (disp.x, disp.y, disp.z,
+// chord), chord -1 for a body that has not moved; ticket: 0 at launch, 0
+// after; out: the 5 lanes.
+__global__ void __launch_bounds__(LANES_WARPS * 32)
+k_control_lanes(CtrlIn in, KParams p, float* part, float4* dv, unsigned int* ticket,
+                float* out) {
+  __shared__ float sh[LANE_PARTS][LANES_WARPS];
+  __shared__ float sh_fold[LANE_PARTS];
+  __shared__ float sh_dev[LANES_WARPS];
+  __shared__ bool sh_last;
+  const int n = in.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * LANES_WARPS + warp;
+  if (i < n) {  // the whole warp or none of it
+    V3 pos = ld3(in.pos, i, n);
+    Q4 q = ld4(in.quat, i, n);
+    V3 wh = world_halves(q, half_of(in.size, i, n));
+    float travel_i = travel_of(in, i, p);
+    float min_gap = F(1.0e9);
+    bool near = false;
+    for (int d0 = 0; d0 < in.d; d0 += 32) {
+      const int d = d0 + lane;
+      const int idx = d < in.d ? in.nb[d * n + i] : -1;
+      if (idx < 0) continue;
+      V3 pp = ld3(in.pos, idx, n);
+      V3 pwh = world_halves(ld4(in.quat, idx, n), half_of(in.size, idx, n));
+      float gap = fmaxf(fmaxf(fabsf(pp.x - pos.x) - (wh.x + pwh.x),
+                              fabsf(pp.y - pos.y) - (wh.y + pwh.y)),
+                        fabsf(pp.z - pos.z) - (wh.z + pwh.z));
+      min_gap = fminf(min_gap, gap);
+      float reach = (travel_i + travel_of(in, idx, p)) + p.reach_const;
+      near = near || (gap - reach <= p.collision_margin);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      min_gap = fminf(min_gap, __shfl_xor_sync(FULL_MASK, min_gap, off));
+    near = __any_sync(FULL_MASK, near);
+    if (lane == 0) {
+      V3 lv = ld3(in.lv, i, n);
+      float speed_sq = lv.x * lv.x + lv.y * lv.y + lv.z * lv.z;
+      bool dyn = in.inv_mass[i] > F(0.0);
+      bool alive = dyn && (p.has_fall_freeze == F(0.0) || pos.y >= p.fall_freeze_y);
+      float v2 = alive ? speed_sq : F(0.0);
+      V3 disp = vsub(pos, ld3(in.anchor, i, n));
+      float disp2 = disp.x * disp.x + disp.y * disp.y + disp.z * disp.z;
+      bool moved = dyn || disp2 > F(0.0);
+      float mf = moved ? F(1.0) : F(0.0);
+      Q4 qa = ld4(in.anchor_q, i, n);
+      Q4 dq = qmul(q, Q4{-qa.x, -qa.y, -qa.z, qa.w});
+      float svec = sqrtf(dq.x * dq.x + dq.y * dq.y + dq.z * dq.z);
+      float chord = F(2.0) * fminf(svec, F(1.0)) * fmaxf(in.radius[i], F(0.0));
+      RACE_DELAY();
+      dv[i] = make_float4(disp.x, disp.y, disp.z, moved ? chord : F(-1.0));
+      __threadfence();
+      sh[0][warp] = min_gap;
+      sh[1][warp] = v2;
+      sh[2][warp] = near ? v2 : F(0.0);
+      sh[3][warp] = moved ? sqrtf(disp2) + chord : F(0.0);
+      sh[4][warp] = mf;
+      sh[5][warp] = disp.x * mf;
+      sh[6][warp] = disp.y * mf;
+      sh[7][warp] = disp.z * mf;
+    }
+  } else if (lane == 0) {
+    const float none[LANE_PARTS] = {F(1.0e9), 0, 0, 0, 0, 0, 0, 0};
+    for (int k = 0; k < LANE_PARTS; ++k) sh[k][warp] = none[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < LANE_PARTS) {  // one thread a partial, bodies in order
+    const int k = threadIdx.x, op = part_op(k);
+    float v = sh[k][0];
+    for (int w = 1; w < LANES_WARPS; ++w) v = fold(op, v, sh[k][w]);
+    RACE_DELAY();
+    part[blockIdx.x * LANE_PARTS + k] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    RACE_DELAY();
+    sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  // The last block: every block's partials and dv are visible (each fenced
+  // before its ticket); read them from L2, past this SM's L1.
+  __threadfence();
+  if (warp < LANE_PARTS) {
+    const int k = warp, op = part_op(k);
+    float v = k == 0 ? F(1.0e9) : F(0.0);
+    for (int b = lane; b < (int)gridDim.x; b += 32)
+      v = fold(op, v, __ldcg(part + b * LANE_PARTS + k));
+    for (int off = 16; off > 0; off >>= 1) v = fold(op, v, __shfl_xor_sync(FULL_MASK, v, off));
+    if (lane == 0) sh_fold[k] = v;
+  }
+  __syncthreads();
+  float nmc = fmaxf(sh_fold[4], F(1.0));
+  V3 t = v3(sh_fold[5] / nmc, sh_fold[6] / nmc, sh_fold[7] / nmc);
+  float dev_mm = F(0.0);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float4 v = __ldcg(dv + j);
+    if (v.w >= F(0.0)) {  // moved
+      V3 e = v3(v.x - t.x, v.y - t.y, v.z - t.z);
+      dev_mm = fmaxf(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + v.w);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
+  if (lane == 0) sh_dev[warp] = dev_mm;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < LANES_WARPS; ++w) dev_mm = fmaxf(dev_mm, sh_dev[w]);
+    out[0] = sh_fold[1];
+    out[1] = sh_fold[2];
+    out[2] = sh_fold[0];
+    out[3] = dev_mm;
+    out[4] = sh_fold[3];
+    *ticket = 0u;
+  }
 }
 
 extern "C" {
 
 // ptrs: nb, pos, quat, size, radius, linvel, angvel, inv_mass, anchor,
-// anchor_quat, out (5 floats).  Returns the CUDA error code of the launch.
+// anchor_quat, out (5 floats), then scratch: the partials (LANE_PARTS floats
+// per block of LANES_WARPS bodies), dv (4
+// floats per body, 16-byte aligned) and the ticket (1 unsigned int, 0 before
+// the launch and after it).  Returns the CUDA error code of the launch.
 int avbd_control_lanes(void** ptrs, const float* params, int n, int d, void* stream) {
   CtrlIn in;
   in.nb = (const int*)ptrs[0];
@@ -36,7 +183,9 @@ int avbd_control_lanes(void** ptrs, const float* params, int n, int d, void* str
   in.n = n;
   in.d = d;
   KParams p = *(const KParams*)params;
-  k_control<<<1, CTRL_THREADS, 0, (cudaStream_t)stream>>>(in, p, (float*)ptrs[10]);
+  const int blocks = (n + LANES_WARPS - 1) / LANES_WARPS;
+  k_control_lanes<<<blocks, LANES_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      in, p, (float*)ptrs[11], (float4*)ptrs[12], (unsigned int*)ptrs[13], (float*)ptrs[10]);
   return (int)cudaGetLastError();
 }
 

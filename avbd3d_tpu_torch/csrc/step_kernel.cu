@@ -80,22 +80,6 @@
 
 namespace cg = cooperative_groups;
 
-// A build for the race check only (kernels.build with the define
-// AVBD_RACE_DELAY=ns): odd thread blocks of the resident kernels sleep this
-// many ns before each read of other blocks' poses and before each pose
-// write, so that a missing barrier shows as different bits rather than
-// hiding behind the blocks' usual timing.  Never defined on the main path.
-#ifdef AVBD_RACE_DELAY
-#define RACE_DELAY()                                   \
-  do {                                                 \
-    if (blockIdx.x & 1) __nanosleep(AVBD_RACE_DELAY);  \
-  } while (0)
-#else
-#define RACE_DELAY() \
-  do {               \
-  } while (0)
-#endif
-
 // ---------------------------------------------------------------------------
 // Narrowphase: collide_pairs_cm for one pair (ops/narrowphase_cm.py), by a
 // group of W lanes (COLLIDE_LANES below).  Every statement is
@@ -104,8 +88,6 @@ namespace cg = cooperative_groups;
 // and each arg-max scan becomes a lane-local scan and a group reduction
 // that picks the serial scan's index.
 // ---------------------------------------------------------------------------
-
-#define FULL_MASK 0xffffffffu
 
 // Lane of a thread within its group of W lanes, and the group's first lane
 // in the warp.

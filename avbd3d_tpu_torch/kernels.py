@@ -11,15 +11,18 @@ float operation rounds as the plain PyTorch versions' ops do (the integer
 outputs of the step kernel then match them exactly; csrc/avbd_common.cuh).
 
 Kernels allocate nothing: the launch functions here allocate outputs and
-scratch with ``torch.empty``, check device, dtype, shape and contiguity of
-every operand, launch on the current stream and raise if the C entry point
-returns a CUDA error.
+scratch with ``torch.empty`` (K2's and K7's scratch, which the kernel hands
+between its own blocks, is held per stream: ``_scratch``), check device,
+dtype, shape and contiguity of every operand, launch on the current stream
+and raise if the C entry point returns a CUDA error.  The parameter block
+of a SolverParams is built once (``_fparams``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -253,8 +256,24 @@ def param_block(params) -> list:
     return [vals[k] for k in _PARAM_NAMES]
 
 
-def _fparams(params):
+def probe_reach_const(params) -> float:
+    """K7's reach constant: its plain version writes 4 * dt * dt * |g|, the
+    control lanes' (KParams.reach_const) 4 * dt**2 * |g|; the two can
+    differ in the last bit before rounding to float32, so the probe's
+    parameter block holds its own."""
+    g_len = float(sum(x * x for x in params.gravity) ** 0.5)
+    return 4.0 * params.dt * params.dt * g_len
+
+
+@functools.lru_cache(maxsize=8)
+def _fparams(params, probe: bool = False):
+    """The parameter block of ``params`` as the ctypes float array the entry
+    points take (``probe``: K7's, with ``probe_reach_const``).  A
+    SolverParams is frozen, so its block is built once and kept; the cache
+    holds the blocks of the last 8 (params, probe) pairs."""
     vals = param_block(params)
+    if probe:
+        vals[_PARAM_NAMES.index("reach_const")] = probe_reach_const(params)
     return (ctypes.c_float * len(vals))(*vals)
 
 
@@ -279,6 +298,32 @@ def _ptrs(tensors):
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+_SCRATCH = {}   # (device index, stream handle, name) -> tensor
+
+# Bodies a block of K2 and K7 takes (LANES_WARPS, PROBE_WARPS: a warp a body)
+# and K2's partials a block (LANE_PARTS), as control_lanes.cu and bp_probe.cu
+# define them; they size the scratch.
+_WARP_BODIES = 8
+_LANE_PARTS = 8
+
+
+def _blocks(n: int) -> int:
+    return -(-n // _WARP_BODIES)
+
+
+def _scratch(dev, stream: int, name: str, numel: int, dtype):
+    """A buffer a kernel passes between its own blocks within one launch
+    (per-block partials, a second pass's per-body values, the ticket by
+    which the last block finds itself, 0 before and after every launch).
+    Held per (device, stream), where launches run in order, and grown
+    when a larger world comes; zeroed when made."""
+    key = (dev.index, stream, name)
+    t = _SCRATCH.get(key)
+    if t is None or t.numel() < numel:
+        t = _SCRATCH[key] = torch.zeros(numel, dtype=dtype, device=dev)
+    return t
 
 
 def _raise_on(code, what):
@@ -457,9 +502,14 @@ def launch_control(nb, b, anchor, anchor_quat, params):
                                       "inv_mass"))
     ins += [_check(anchor, "anchor", (3, g, 128), f32, dev),
             _check(anchor_quat, "anchor_quat", (4, g, 128), f32, dev)]
+    n = g * 128
     out = torch.empty((5,), dtype=f32, device=dev)
-    code = lib.cdll.avbd_control_lanes(_ptrs(ins + [out]), _fparams(params), g * 128, d,
-                                       _stream(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "lanes_part", _LANE_PARTS * _blocks(n), f32),
+               _scratch(dev, stream, "lanes_dv", 4 * n, f32),
+               _scratch(dev, stream, "lanes_ticket", 1, torch.int32)]
+    code = lib.cdll.avbd_control_lanes(_ptrs(ins + [out] + scratch), _fparams(params), n, d,
+                                       ctypes.c_void_p(stream))
     _raise_on(code, "control-lanes kernel launch")
     return out
 
@@ -472,21 +522,16 @@ def launch_bp_probe(nb, b, params):
     d, g, _ = nb.shape
     ins = [_check(nb, "nb", (d, g, 128), torch.int32, dev)]
     ins += _body_operands(b, g, dev, ("pos", "quat", "size", "radius", "linvel", "angvel"))
+    n = g * 128
     min_sep = torch.empty((), dtype=torch.float32, device=dev)
     n_slots = torch.empty((), dtype=torch.int32, device=dev)
     near = torch.empty((g, 128), dtype=torch.bool, device=dev)
-    scratch = [torch.empty((g,), dtype=torch.float32, device=dev),
-               torch.empty((g,), dtype=torch.int32, device=dev)]
-    # The probe's reach constant is written 4 * dt * dt * |g| in its plain
-    # version (the control lanes' is 4 * dt**2 * |g|, KParams.reach_const);
-    # the two can differ in the last bit before rounding to float32, so the
-    # kernel is handed the probe's own.
-    vals = param_block(params)
-    g_len = float(sum(x * x for x in params.gravity) ** 0.5)
-    vals[_PARAM_NAMES.index("reach_const")] = 4.0 * params.dt * params.dt * g_len
-    fparams = (ctypes.c_float * len(vals))(*vals)
-    code = lib.cdll.avbd_bp_probe(_ptrs(ins + [min_sep, n_slots, near] + scratch), fparams,
-                                  g * 128, d, _stream(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "probe_min", _blocks(n), torch.float32),
+               _scratch(dev, stream, "probe_cnt", _blocks(n), torch.int32),
+               _scratch(dev, stream, "probe_ticket", 1, torch.int32)]
+    code = lib.cdll.avbd_bp_probe(_ptrs(ins + [min_sep, n_slots, near] + scratch),
+                                  _fparams(params, probe=True), n, d, ctypes.c_void_p(stream))
     _raise_on(code, "broadphase probe kernel launch")
     return min_sep, n_slots, near
 

@@ -23,13 +23,15 @@ K3 (``collide_and_init``) and K4 (``solve_loop``) replace
 (utils/profile_cuda.py); their plain versions are ``collide_half`` and
 ``solve_loop_plain``.
 
-K2 (csrc/control_lanes.cu) replaces ``control_lanes_tpu``
+K2 (csrc/control_lanes.cu, one launch of ``k_control_lanes``: a warp per
+body, the last block folds) replaces ``control_lanes_tpu``
 (solver_tpu.py:261-273); its plain version is ``control_lanes_plain``
 (``ops.broadphase.control_lanes`` on a Bodies container).
 
-K7 (csrc/bp_probe.cu) replaces ``bp_probe_tpu`` (solver_tpu.py:206-225),
-the probe behind the refined stale-Hessian gate (``solver.stale_lhs_ok``);
-its plain version is ``bp_probe_plain`` (``ops.broadphase.bp_probe``).
+K7 (csrc/bp_probe.cu, one launch of ``k_probe``: a warp per body, the last
+block folds) replaces ``bp_probe_tpu`` (solver_tpu.py:206-225), the probe
+behind the refined stale-Hessian gate (``solver.stale_lhs_ok``); its plain
+version is ``bp_probe_plain`` (``ops.broadphase.bp_probe``).
 
 Each wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``launches`` on each wrapper

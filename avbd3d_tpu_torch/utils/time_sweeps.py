@@ -1,5 +1,5 @@
-"""Times of the sweep and collide kernels (K1, K3, K4, K5, K6) of one source
-tree, on the card.
+"""Times of the sweep, collide, control-lanes and probe kernels (K1-K7) of
+one source tree, on the card.
 
     python avbd3d_tpu_torch/utils/time_sweeps.py [--root DIR] [--routes]
 
@@ -20,7 +20,13 @@ launches, the card's name and power limit beside them, one JSON line last:
                   kernel name) for K1's joint
                   branch at RodJointed (step 30), SoftGrid (step 5) and the
                   20 sheets (step 300), K5 at settled Stress4096, and K3 and
-                  K1 contact-only at settled Stress1000
+                  K1 contact-only at settled Stress1000; over 100 calls, K2
+                  at Stress1000's initial (rain-in) and settled states and
+                  Stress2048's initial state, and K7 at settled Stress1000
+                  and settled Stress4096
+  k2_lanes_differ K2 against its plain version at those three states: the
+                  lanes whose bits differ (lane 3, the deviation from the
+                  mean displacement, sums over the world in another order)
 
 ``--routes`` (a tree whose launch functions take a sweep plan) also times
 K1 at Stress1000 and at Stack (N = 128) and K6 at Stress4096 with the plan
@@ -54,6 +60,7 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     from avbd3d_tpu_torch import kernels, load_scene, solver, solver_cuda, solver_grid
+    from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
     from avbd3d_tpu_torch.utils import profile_phases
 
     if not torch.cuda.is_available():
@@ -80,9 +87,31 @@ def main(argv=None) -> int:
         out["traced"][label] = {"ms": ms, "device_us": sum(by_name.values()),
                                 "kernels": by_name, "launches": counts}
 
+    def with_cache(world, scene):
+        """``world`` with fresh candidate lists (an initial state's)."""
+        return world.replace(bp=build_bp_cache(world.bodies, world.exclusions,
+                                               scene.cap.max_degree, scene.params.bp_margin))
+
+    def lanes(label, world, params):
+        """K2 at ``world``: timed and traced over 100 calls, and the lanes
+        whose bits differ from the plain version's."""
+        b, bp = world.bodies, world.bp
+        args = (bp.nb, b, bp.anchor, bp.anchor_quat, params)
+        traced(f"K2, {label}", lambda: solver_cuda.control_lanes(*args), 100)
+        got, want = solver_cuda.control_lanes(*args), solver_cuda.control_lanes_plain(*args)
+        differ = (got.view(torch.int32) != want.view(torch.int32)).nonzero().flatten()
+        out.setdefault("k2_lanes_differ", {})[label] = differ.tolist()
+
+    def probe(label, world, params):
+        traced(f"K7, {label}", lambda: solver_cuda.bp_probe(world.bp.nb, world.bodies, params),
+               100)
+
     sc = load_scene("Stress1000", device="cuda")
     p = sc.params
+    lanes("Stress1000 initial", with_cache(sc.world, sc), p)
     w = solver.run_steps(sc.world, p, sc.cap, 700)
+    lanes("Stress1000 settled", w, p)
+    probe("Stress1000 settled", w, p)
     a1 = cs.k1_inputs(w, sc)
     out["k1_settled_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a1), 20)
     traced("K1 contact-only, settled Stress1000", lambda: solver_cuda.step_kernel(*a1))
@@ -96,6 +125,7 @@ def main(argv=None) -> int:
             lambda: solver_cuda.solve_loop(contacts, w.bodies, pi), 20)
 
     s2 = load_scene("Stress2048", device="cuda")
+    lanes("Stress2048 initial", with_cache(s2.world, s2), s2.params)
     w2 = solver.run_steps(s2.world, s2.params, s2.cap, 600)
     a2 = cs.k1_inputs(w2, s2)
     out["k1_2048_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a2), 20)
@@ -112,6 +142,7 @@ def main(argv=None) -> int:
 
     s4 = load_scene("Stress4096", device="cuda")
     w4 = solver.run_steps(s4.world, s4.params, s4.cap, 1000)
+    probe("Stress4096 settled", w4, s4.params)
     wi = cs.grid_inputs(w4, s4)
     a5 = cs.k5_args(wi, s4)
     traced("K5, settled Stress4096", lambda: solver_grid.collide_grid(*a5))

@@ -13,13 +13,17 @@
    PEN_LIMIT at every step after the landing cascade, poses finite.
 3. Kernel vs plain on the card: K1 for one step from a landing state and a
    settled state (Stress1000 takes one launch per half-sweep), K1 on its
-   cluster-resident route on Pyramid and a 7^3 pile, K2 on the initial and
-   the settled state.  Integer outputs must be identical and K1's floats
-   equal (difference 0) but for the control lanes' world-wide sums; the
-   tolerances of the others are stated at the checks.
+   cluster-resident route on Pyramid and a 7^3 pile, K2 on Stress1000's
+   initial and settled states, Stress2048's initial state and Stress1000's
+   initial state with every body static (nm = 0).  Integer outputs must be
+   identical and K1's floats equal (difference 0) but for the control
+   lanes' world-wide sums; K2's lanes 0, 1, 2 and 4 bit-identical, its lane
+   3 within 1e-5; the tolerances of the others are stated at the checks.
 4. Times: steps/s of the falling window (steps 0-300) and of a settled block
    (steps 700-1000) with the kernels, steps/s of the plain path over a few
-   settled steps, and each kernel's time beside its plain version's.
+   settled steps, and each kernel's time beside its plain version's; K2 at
+   three states also traced, held to one kernel a call, its own time
+   printed.
 5. Grid tier: Stress4096 (16^3 cubes + ground, N = 5120, G = 40, D = 28,
    DC = 16, x-major order) for 1000 steps, the reference's validated window,
    counters reset before and read after.  Checks: every step took the grid
@@ -63,9 +67,11 @@
    step used.  Checks: refined is True wherever unrefined is; wherever
    ``min_sep > collision_margin`` with every candidate probed the step
    finds zero contacts.  Then K7 against its plain version at the landing
-   and settled Stress1000 states, the settled Stress2048 state and the
-   settled Stress4096 state (``n_slots`` and ``near`` identical,
-   ``min_sep`` bit for bit), and its time.
+   and settled Stress1000 states, the settled Stress2048 and Stress4096
+   states, the 20 sheets (D = 32), fresh lists of 40 slots at settled
+   Stress1000 and Ground (no slots) (``n_slots`` and ``near`` identical,
+   ``min_sep`` bit for bit), and its times at settled Stress1000 and
+   Stress4096, traced and held to one kernel a call.
 11. The application layer on the card: the headless CLI as a subprocess
    (20 traced Stress1000 steps; ``--bench``), a checkpoint saved at the
    landing state and resumed for 50 steps bitwise equal to the
@@ -75,16 +81,17 @@
    count is held to the sweep plan's own.
 12. The race gate: every resident route (K1's cluster route at clusters of
    4, 12 and 16 blocks, K6 with 5 clusters, K1's joint route at RodJointed,
-   SoftGrid and the 20 sheets, RodJointed also on the grid barrier) run
-   RACE_REPS times on one input with every output bit-identical, then
-   through a build whose odd blocks sleep before their pose reads and
-   writes, bit-identical again; compute-sanitizer's racecheck and synccheck
-   on the collide kernels (the tool's control) and on each resident kernel
-   of Stack and RodJointed, cluster and grid barrier, where the tool runs
-   (else the reason).
+   SoftGrid and the 20 sheets, RodJointed also on the grid barrier) and K7
+   and K2 (whose last block folds every block's partials) run RACE_REPS
+   times on one input with every output bit-identical, then through a
+   build whose odd blocks sleep before their pose reads and writes (K7,
+   K2: before their partials' write and the ticket), bit-identical again;
+   compute-sanitizer's racecheck and synccheck on the collide kernels (the
+   tool's control) and on each resident kernel of Stack and RodJointed,
+   cluster and grid barrier, where the tool runs (else the reason).
 13. The sweep kernels' record: the route ``solver_cuda.sweep_plan`` gives
    each scene and the kernels a step of it queues, ptxas registers and spill
-   bytes of the tiled and the collide kernels, and K1 / K3 / K4 / K5 / K6
+   bytes of the tiled, the collide, K7's and K2's kernels, and K1-K7
    timed by utils/time_sweeps.py (CUDA events, and the kernels' own time in
    a trace) in this tree and, where an archive of the parent commit lies in
    ``_archive/parent`` (git-ignored), in that tree too, in turns within
@@ -283,22 +290,57 @@ def small_cluster_worlds():
 
 
 def compare_k2(world, params, label: str) -> float:
-    """K2 kernel vs plain: min/max lanes are exact in any order; the anchor
-    deviation lane uses block-wide sums, so all lanes are held to a 1e-5
-    relative (1e-6 absolute) tolerance."""
+    """K2 kernel vs plain: lanes 0, 1, 2 and 4 (gate speed^2, near speed^2,
+    min candidate gap, raw anchor deviation) are mins and maxes of values
+    both sides compute in the same statement order, exact in any order, so
+    they must be bit-identical; lane 3 (the deviation from the mean
+    displacement) goes through world-wide sums taken in another order than
+    torch.sum's and is held to 1e-5 relative, 1e-6 absolute.  Returns the
+    largest difference (that of lane 3)."""
     from avbd3d_tpu_torch import solver_cuda
 
     b, bp = world.bodies, world.bp
     lp = solver_cuda.control_lanes_plain(bp.nb, b, bp.anchor, bp.anchor_quat, params)
     lk = solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, params)
     sync()
-    err = float((lp - lk).abs().max())
-    tol = (1e-6 + 1e-5 * lp.abs()).min()
-    if bool(((lp - lk).abs() > 1e-6 + 1e-5 * lp.abs()).any()):
-        fail(f"K2 {label}: plain {lp.tolist()} vs kernel {lk.tolist()}")
-    print(f"K2 vs plain ({label}): lanes {[round(x, 6) for x in lk.tolist()]}, "
-          f"max abs err {err:.3e} (tol >= {float(tol):.1e})")
+    exact = [0, 1, 2, 4]
+    if not same_bits(lp[exact], lk[exact]):
+        fail(f"K2 {label}: lanes 0, 1, 2, 4 differ in bits: plain {lp.tolist()} vs kernel "
+             f"{lk.tolist()}")
+    err = float((lp[3] - lk[3]).abs())
+    if err > 1e-6 + 1e-5 * float(lp[3].abs()):
+        fail(f"K2 {label}: lane 3 plain {float(lp[3])!r} vs kernel {float(lk[3])!r}")
+    print(f"K2 vs plain ({label}, N = {b.n}, D = {bp.nb.shape[0]}): lanes "
+          f"{[round(x, 6) for x in lk.tolist()]}, lanes 0, 1, 2, 4 bit-identical, lane 3 "
+          f"abs err {err:.3e}")
     return err
+
+
+def one_kernel_times(card, what, kernel, call, plain, reps=100) -> dict:
+    """``call`` (one wrapper call) timed with CUDA events over ``reps``
+    calls back to back, then traced: the port's kernels in the trace must be
+    ``kernel``, once a call.  ``plain``: the plain version, timed beside it.
+    Returns {"ms", "plain_ms", "device_us" (the kernel's own time a call)}."""
+    ms = event_ms(call, reps)
+    plain_ms = event_ms(plain, 20)
+    t = trace_kernels(call, reps)
+    # The profiler may drop an event of the many (a count of 0.99 a call),
+    # so the count a call is rounded and the time taken per traced launch.
+    if set(t) != {kernel} or round(t[kernel][1]) != 1:
+        fail(f"{what}: the trace shows {t}, expected one {kernel} a call")
+    us = t[kernel][0] / t[kernel][1]
+    print(f"[{card}] {what}: {ms:.4f} ms a call back to back (CUDA events, {reps} calls), plain "
+          f"{plain_ms:.4f} ms; on the card {us:.2f} us a call, one kernel ({kernel}; trace of "
+          f"{reps} calls)")
+    return {"ms": ms, "plain_ms": plain_ms, "device_us": us}
+
+
+def unmoved_world(world):
+    """``world`` (whose candidate lists are anchored at its poses) with every
+    body static: no body has moved, so K2's moved count is 0 and it takes
+    max(nm, 1); the slots stay those of the dynamic world."""
+    b = world.bodies
+    return world.replace(bodies=b.replace(inv_mass=b.inv_mass * 0.0))
 
 
 def reset_counts():
@@ -1009,7 +1051,7 @@ def compare_k7(world, params, label: str):
         fail(f"K7 {label}: n_slots {int(np_)} vs {int(nk)}")
     if not torch.equal(nearp, neark):
         fail(f"K7 {label}: near differs at {int((nearp != neark).sum())} bodies")
-    if not torch.equal(sp, sk):
+    if not same_bits(sp, sk):
         fail(f"K7 {label}: min_sep {float(sp)!r} vs {float(sk)!r}")
     print(f"K7 vs plain ({label}, N = {b.n}, D = {nb.shape[0]}): n_slots {int(nk)}, near "
           f"{int(neark.sum())} bodies, min_sep {float(sk):.6f}: all identical")
@@ -1021,7 +1063,6 @@ def probe_phase(card, scene, states) -> dict:
     import torch
 
     from avbd3d_tpu_torch import load_scene, solver, solver_cuda
-    from avbd3d_tpu_torch.utils import profile_phases
 
     p, cap = scene.params, scene.cap
     w = load_scene("Stress1000", device="cuda").world
@@ -1067,29 +1108,19 @@ def probe_phase(card, scene, states) -> dict:
     for label in ("Stress1000 settled", "Stress4096 settled"):
         wd, pr = states[label]
         nb, b = wd.bp.nb, wd.bodies
-        ms = event_ms(lambda: solver_cuda.bp_probe(nb, b, pr), 100)
-        plain_ms = event_ms(lambda: solver_cuda.bp_probe_plain(nb, b, pr), 20)
+        times[label] = one_kernel_times(
+            card, f"broadphase probe kernel (K7, {label}, N = {b.n}, D = {nb.shape[0]})",
+            "k_probe", lambda: solver_cuda.bp_probe(nb, b, pr),
+            lambda: solver_cuda.bp_probe_plain(nb, b, pr))
         outs = solver_cuda.bp_probe(nb, b, pr)
-        bnd = bound(nbytes(nb, [getattr(b, f) for f in ("pos", "quat", "size", "radius", "linvel",
-                                                        "angvel")], outs),
-                    int(outs[1]) * OPS_PROBE_SLOT)
-        times[label] = (ms, plain_ms, bnd)
-        # The wrapper's calls back to back are paced by the host (five
-        # allocations, the parameter block, ctypes); a trace of the same
-        # calls gives the two kernels' own time on the card.
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(100):
-                solver_cuda.bp_probe(nb, b, pr)
-            sync()
-        dev_us = {e.key.split("(")[0]: profile_phases.device_time_us(e) / e.count
-                  for e in prof.key_averages() if e.key.startswith("k_probe")}
-        print(f"[{card}] broadphase probe kernel (K7, {label}, N = {b.n}, D = {nb.shape[0]}): "
-              f"{ms:.4f} ms per call back to back, plain {plain_ms:.4f} ms, bound {bnd[0]:.7f} "
-              f"ms ({bnd[1]}); on the card alone (trace of 100 calls): "
-              + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(dev_us.items())))
-    ms, plain_ms, bnd = times["Stress1000 settled"]
-    return {"launches": launches["bp_probe"], "err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound": bnd, "grid": times["Stress4096 settled"]}
+        times[label]["bound"] = bound(
+            nbytes(nb, [getattr(b, f) for f in ("pos", "quat", "size", "radius", "linvel",
+                                                "angvel")], outs),
+            int(outs[1]) * OPS_PROBE_SLOT)
+        print(f"    bound {times[label]['bound'][0]:.7f} ms ({times[label]['bound'][1]})")
+    t = times["Stress1000 settled"]
+    return {"launches": launches["bp_probe"], "err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound": t["bound"], "device_us": t["device_us"], "grid": times["Stress4096 settled"]}
 
 
 def leaves(world):
@@ -1237,15 +1268,24 @@ def own_kernel(name: str) -> bool:
 # The sweep kernels' record (phase 13)
 # ---------------------------------------------------------------------------
 
-# The kernels whose ptxas usage the record prints: the tiled sweep kernels
-# and the two collide kernels of K1, K3 and K5.
-RECORD_KERNELS = ("k_sweeps", "k_primal", "k_joint_sweeps", "k_filter_cull", "k_collide")
+# The kernels whose ptxas usage the record prints: the tiled sweep kernels,
+# the two collide kernels of K1, K3 and K5, K7's and K2's.
+RECORD_KERNELS = ("k_sweeps", "k_primal", "k_joint_sweeps", "k_filter_cull", "k_collide",
+                  "k_probe", "k_control_lanes")
 
 # The last recorded times of these calls (this script's own event times, as
 # PERF.md section 6 records them from one H100 80GB HBM3 at 700 W); printed
 # beside this run's where no archive of the parent commit is at hand.
 PARENT_RECORDED = {"k1_settled_ms": 0.823, "k1_sheets_ms": 0.910, "k4_ms": {"20": 0.760},
                    "k6_ms": 0.210}
+# K2's and K7's parent (one block of 1024 threads; two kernels) as
+# utils/time_sweeps.py traced them before their redesign, as PERF.md section
+# 6 records it: CUDA-event ms a call and the kernels' own us a call.
+PARENT_TRACED = {"K2, Stress1000 initial": {"ms": 0.0700, "device_us": 29.88},
+                 "K2, Stress1000 settled": {"ms": 0.0898, "device_us": 32.22},
+                 "K2, Stress2048 initial": {"ms": 0.1047, "device_us": 54.52},
+                 "K7, Stress1000 settled": {"ms": 0.0911, "device_us": 19.42},
+                 "K7, Stress4096 settled": {"ms": 0.0726, "device_us": 23.58}}
 PARENT_DIR = os.path.join("_archive", "parent")
 
 # (scene, N, DC, logical block, DJ, DS, sweeps of its usual step)
@@ -1323,6 +1363,9 @@ def sweep_record(card, lib, smoke_times) -> dict:
             for who, r in (("parent", t[0]), ("change", t[1])):
                 print(f"    {who} kernels, us and launches a call: " + ", ".join(
                     f"{k} {us:.1f} x{r['launches'][k]:g}" for k, us in r["kernels"].items()))
+        for who, r in (("parent", runs[0]), ("change", runs[1])):
+            print(f"[{card}] K2's lanes whose bits differ from the plain version ({who}): "
+                  + json.dumps(r.get("k2_lanes_differ")))
         for key, r in runs[1]["routes"].items():
             print(f"[{card}] routes, {key}: " + json.dumps(r))
         return {"usage": usage, "ab": runs}
@@ -1340,7 +1383,10 @@ RACE_REPS = 50
 # The race build's delay: odd thread blocks of the resident kernels sleep
 # this long before each read of other blocks' poses and each pose write
 # (csrc/step_kernel.cu AVBD_RACE_DELAY), several times a sweep's own length
-# on the small worlds, so that a missing barrier changes the bits.
+# on the small worlds, so that a missing barrier changes the bits; those of
+# K7 and K2 before they write their partials and before they take the
+# ticket (csrc/bp_probe.cu, control_lanes.cu), several times the kernels'
+# own length, so that a fold that does not wait for every block shows.
 RACE_DELAY_NS = 20000
 
 
@@ -1348,8 +1394,10 @@ def race_routes(states: dict) -> list:
     """(label, kernel call) for every resident route: K1's cluster route at
     clusters of 4, 12 and 16 blocks, K6 with 5 clusters, and K1's joint
     route at RodJointed, SoftGrid (one cluster each) and the 20 sheets (a
-    cooperative launch), RodJointed also forced onto the grid barrier.
-    ``states``: this run's worlds and operands."""
+    cooperative launch), RodJointed also forced onto the grid barrier; and
+    K7 and K2, whose blocks hand partials to the last one.  ``states``: this
+    run's worlds and operands ("probe" and "lanes": {label: (world,
+    params)} for K7 and K2)."""
     import dataclasses
 
     from avbd3d_tpu_torch import kernels, load_scene, solver, solver_cuda, solver_grid
@@ -1384,6 +1432,15 @@ def race_routes(states: dict) -> list:
     rod = states["RodJointed step 30"]
     plan = solver_cuda.sweep_plan(rod[4].n, rod[0].other.shape[0], None, rod[10].dj)
     k1("RodJointed step 30, forced", rod, dataclasses.replace(plan, cluster=0, grid=1))
+    # K7 and K2: one launch each, whose last block folds every block's
+    # partials after a ticket.
+    for label, (w, p) in states["probe"].items():
+        routes.append((f"K7 {label} (the last block folds)",
+                       lambda w=w, p=p: list(solver_cuda.bp_probe(w.bp.nb, w.bodies, p))))
+    for label, (w, p) in states["lanes"].items():
+        routes.append((f"K2 {label} (the last block folds and runs the deviation pass)",
+                       lambda w=w, p=p: [solver_cuda.control_lanes(w.bp.nb, w.bodies, w.bp.anchor,
+                                                                   w.bp.anchor_quat, p)]))
     return routes
 
 
@@ -1604,6 +1661,20 @@ def collide_extra(sweeps: dict) -> dict:
             "spill_bytes": max(u["spill_bytes"] for u in usage.values())}
 
 
+def parent_traced(sweeps: dict, label: str) -> dict | None:
+    """The parent tree's CUDA-event ms and kernels' own us a call of
+    time_sweeps' traced ``label`` from this run's two parent runs, or None
+    where no archive of the parent commit is at hand (the recorded
+    PARENT_TRACED values are then printed as text only, never in the
+    ``kernels`` line)."""
+    if sweeps["ab"] is None:
+        return None
+    runs = sweeps["ab"]
+    return {"ms": [runs[k]["traced"][label]["ms"] for k in (0, 3)],
+            "device_us": [runs[k]["traced"][label]["device_us"] for k in (0, 3)],
+            "origin": f"this run, {PARENT_DIR}"}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1739,7 +1810,13 @@ def main() -> int:
     init = scene.world
     init = init.replace(bp=build_bp_cache(init.bodies, init.exclusions, cap.max_degree,
                                           p.bp_margin))
-    k2_err = max(compare_k2(init, p, "initial"), compare_k2(w, p, "settled"))
+    s2048 = load_scene("Stress2048", device="cuda")
+    init2048 = s2048.world.replace(bp=build_bp_cache(
+        s2048.world.bodies, s2048.world.exclusions, s2048.cap.max_degree, s2048.params.bp_margin))
+    k2_states = {"Stress1000 initial": (init, p), "Stress1000 settled": (w, p),
+                 "Stress2048 initial": (init2048, s2048.params),
+                 "Stress1000 initial, every body static (nm = 0)": (unmoved_world(init), p)}
+    k2_err = max(compare_k2(wd, pr, label) for label, (wd, pr) in k2_states.items())
 
     # ---- 4. times ----
     fall_sps = 300 / t_fall
@@ -1764,28 +1841,52 @@ def main() -> int:
     a1 = k1_inputs(w, scene)
     k1_ms = event_ms(lambda: solver_cuda.step_kernel(*a1), 20)
     k1_plain_ms = event_ms(lambda: solver_cuda.step_kernel_plain(*a1), 3)
-    b, bp = w.bodies, w.bp
-    k2_ms = event_ms(lambda: solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, p), 100)
-    k2_plain_ms = event_ms(
-        lambda: solver_cuda.control_lanes_plain(bp.nb, b, bp.anchor, bp.anchor_quat, p), 20)
     print(f"[{card}] step kernel (settled, {a1[8]} iterations): {k1_ms:.3f} ms, "
           f"plain {k1_plain_ms:.3f} ms")
-    print(f"[{card}] control-lanes kernel: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
+    k2_times = {}
+    for label in ("Stress1000 settled", "Stress1000 initial", "Stress2048 initial"):
+        wd, pr = k2_states[label]
+        a2 = (wd.bp.nb, wd.bodies, wd.bp.anchor, wd.bp.anchor_quat, pr)
+        k2_times[label] = one_kernel_times(
+            card, f"control-lanes kernel (K2, {label})", "k_control_lanes",
+            lambda: solver_cuda.control_lanes(*a2), lambda: solver_cuda.control_lanes_plain(*a2))
+    k2_ms, k2_plain_ms = (k2_times["Stress1000 settled"][k] for k in ("ms", "plain_ms"))
+    b, bp = w.bodies, w.bp
 
     grid = grid_phase(card)
     low_drop_gate()
     w2048, p2048, k1_2048_err = stress2048_phase(card)
     jointed = jointed_phases(card)
     prof = profiler_phase(w, scene, card)
+    wide = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, 40, p.bp_margin))
+    ground = load_scene("Ground", device="cuda")
+    if (jointed["state"].bp.nb.shape[0], wide.bp.nb.shape[0]) != (32, 40):
+        fail(f"K7's caches: the sheets' D = {jointed['state'].bp.nb.shape[0]}, the wide "
+             f"lists' D = {wide.bp.nb.shape[0]}; expected 32 and 40")
     probe = probe_phase(card, scene, {
         "Stress1000 landing": (saved["landing"], p), "Stress1000 settled": (w, p),
         "Stress2048 settled": (w2048, p2048),
-        "Stress4096 settled": (grid["settled"], grid["params"])})
+        "Stress4096 settled": (grid["settled"], grid["params"]),
+        "20 sheets step 100": (jointed["state"], jointed["scene"].params),
+        "Stress1000 settled, fresh lists of 40 slots": (wide, p),
+        "Ground, no slots": (ground.world, ground.params)})
     traced = app_phase(card, scene, saved["landing"], w)
     race = race_phase(card, {"pile": pile_args, "Stress1000 settled": k1_inputs(w, scene),
-                             "k6": grid["k6_args"], **jointed["states"]})
+                             "k6": grid["k6_args"], **jointed["states"],
+                             "probe": {"Stress1000 settled": (w, p),
+                                       "Stress4096 settled": (grid["settled"], grid["params"])},
+                             "lanes": {k: k2_states[k] for k in ("Stress1000 settled",
+                                                                 "Stress2048 initial")}})
     sweeps = sweep_record(card, lib, {"k1_settled_ms": k1_ms, "k1_sheets_ms": jointed["ms"],
                                       "k4_ms": {"20": prof["ms4"]}, "k6_ms": grid["k6_ms"]})
+
+    for label, t in [*((f"K2, {k}", v) for k, v in k2_times.items()),
+                     ("K7, Stress1000 settled", probe), ("K7, Stress4096 settled", probe["grid"])]:
+        par = parent_traced(sweeps, label) or {**PARENT_TRACED[label],
+                                               "origin": "as PERF.md section 6 records it"}
+        print(f"[{card}] {label}: parent {par['ms']} ms a call, {par['device_us']} us on the card "
+              f"({par['origin']}); change {t['ms']:.4f} ms, {t['device_us']:.2f} us on the card "
+              f"in one kernel")
 
     k1_bnd = k1_bound(a1, solver_cuda.step_kernel(*a1))
     jb_bnd = k1_bound(jointed["args"], solver_cuda.step_kernel(*jointed["args"]))
@@ -1840,7 +1941,13 @@ def main() -> int:
                                                       sweeps, rows=True)},
                      **{"collide": collide_extra(sweeps)}),
         kernel_entry("control_lanes", csrc + "control_lanes.cu", "avbd3d_tpu/solver_tpu.py:262",
-                     launches["control_lanes"], k2_err, k2_ms, k2_plain_ms, k2_bnd),
+                     launches["control_lanes"], k2_err, k2_ms, k2_plain_ms, k2_bnd,
+                     kernel="k_control_lanes", kernels_per_call=1,
+                     device_us={k: t["device_us"] for k, t in k2_times.items()},
+                     ms_by_state={k: t["ms"] for k, t in k2_times.items()},
+                     parent=None if sweeps["ab"] is None else {
+                         k: parent_traced(sweeps, f"K2, {k}") for k in k2_times},
+                     **sweeps["usage"]["k_control_lanes"]),
         kernel_entry("collide_and_init", csrc + "step_kernel.cu", "avbd3d_tpu/solver_tpu.py:152",
                      prof["launches"]["collide_and_init"], prof["err3"], prof["ms3"],
                      prof["plain3"], k3_bnd, **collide_extra(sweeps)),
@@ -1857,10 +1964,16 @@ def main() -> int:
                      **sweep_extra(solver_cuda.sweep_plan(5120, 16, 1024), sweeps)),
         kernel_entry("bp_probe", csrc + "bp_probe.cu", "avbd3d_tpu/solver_tpu.py:207",
                      probe["launches"], probe["err"], probe["ms"], probe["plain_ms"],
-                     probe["bound"], stress4096={
+                     probe["bound"], kernel="k_probe", kernels_per_call=1,
+                     device_us=probe["device_us"],
+                     parent=parent_traced(sweeps, "K7, Stress1000 settled"),
+                     **sweeps["usage"]["k_probe"], stress4096={
                          "note": "the settled Stress4096 state, N = 5120, D = 28",
-                         "ms": probe["grid"][0], "plain_ms": probe["grid"][1],
-                         "bound_ms": probe["grid"][2][0], "bound_by": probe["grid"][2][1]}),
+                         "ms": probe["grid"]["ms"], "plain_ms": probe["grid"]["plain_ms"],
+                         "device_us": probe["grid"]["device_us"],
+                         "parent": parent_traced(sweeps, "K7, Stress4096 settled"),
+                         "bound_ms": probe["grid"]["bound"][0],
+                         "bound_by": probe["grid"]["bound"][1]}),
     ]}
     print(f"race gate: {race['routes']} resident routes, {RACE_REPS} repetitions each and the "
           f"delayed build bit-identical; compute-sanitizer: {json.dumps(race['sanitizer'])}")
