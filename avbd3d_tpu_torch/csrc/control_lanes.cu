@@ -30,6 +30,11 @@
 // through t) rounds otherwise than torch.sum.  No float atomics.
 // control_lanes_block (avbd_common.cuh), K1's one-block form in
 // k_final_reduce, is not used here.
+//
+// A batch of B worlds (parallel.batched) is one launch with grid.y = B:
+// block (x, y) does world y's block x on world y's slices of every operand,
+// partials, dv, ticket and output, so each world's lanes are the bits one
+// launch on that world alone gives.
 #include "avbd_common.cuh"
 
 #define LANES_WARPS 8
@@ -42,12 +47,33 @@ __device__ __forceinline__ float fold(int op, float a, float b) {
   return op == 0 ? fminf(a, b) : (op == 1 ? fmaxf(a, b) : a + b);
 }
 
+// World w's operands in a batch whose worlds lie one after another.
+__device__ __forceinline__ CtrlIn ctrl_world(CtrlIn in, int w) {
+  const size_t n = in.n, off = (size_t)w * n;
+  in.nb += off * in.d;
+  in.pos += off * 3;
+  in.quat += off * 4;
+  in.size += off * 3;
+  in.radius += off;
+  in.lv += off * 3;
+  in.av += off * 3;
+  in.inv_mass += off;
+  in.anchor += off * 3;
+  in.anchor_q += off * 4;
+  return in;
+}
+
 // part: LANE_PARTS floats per block; dv: per body (disp.x, disp.y, disp.z,
 // chord), chord -1 for a body that has not moved; ticket: 0 at launch, 0
-// after; out: the 5 lanes.
+// after; out: the 5 lanes.  Each of these per world (blockIdx.y).
 __global__ void __launch_bounds__(LANES_WARPS * 32)
-k_control_lanes(CtrlIn in, KParams p, float* part, float4* dv, unsigned int* ticket,
+k_control_lanes(CtrlIn in_all, KParams p, float* part, float4* dv, unsigned int* ticket,
                 float* out) {
+  const CtrlIn in = ctrl_world(in_all, blockIdx.y);
+  part += (size_t)blockIdx.y * gridDim.x * LANE_PARTS;
+  dv += (size_t)blockIdx.y * in.n;
+  ticket += blockIdx.y;
+  out += blockIdx.y * 5;
   __shared__ float sh[LANE_PARTS][LANES_WARPS];
   __shared__ float sh_fold[LANE_PARTS];
   __shared__ float sh_dev[LANES_WARPS];
@@ -167,8 +193,10 @@ extern "C" {
 // anchor_quat, out (5 floats), then scratch: the partials (LANE_PARTS floats
 // per block of LANES_WARPS bodies), dv (4
 // floats per body, 16-byte aligned) and the ticket (1 unsigned int, 0 before
-// the launch and after it).  Returns the CUDA error code of the launch.
-int avbd_control_lanes(void** ptrs, const float* params, int n, int d, void* stream) {
+// the launch and after it); each of them for ``batch`` worlds one after
+// another.  Returns the CUDA error code of the launch.
+int avbd_control_lanes(void** ptrs, const float* params, int n, int d, int batch,
+                       void* stream) {
   CtrlIn in;
   in.nb = (const int*)ptrs[0];
   in.pos = (const float*)ptrs[1];
@@ -184,7 +212,7 @@ int avbd_control_lanes(void** ptrs, const float* params, int n, int d, void* str
   in.d = d;
   KParams p = *(const KParams*)params;
   const int blocks = (n + LANES_WARPS - 1) / LANES_WARPS;
-  k_control_lanes<<<blocks, LANES_WARPS * 32, 0, (cudaStream_t)stream>>>(
+  k_control_lanes<<<dim3(blocks, batch), LANES_WARPS * 32, 0, (cudaStream_t)stream>>>(
       in, p, (float*)ptrs[11], (float4*)ptrs[12], (unsigned int*)ptrs[13], (float*)ptrs[10]);
   return (int)cudaGetLastError();
 }

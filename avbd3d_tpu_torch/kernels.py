@@ -133,7 +133,7 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
                                      ci, ci, ci, ci, ci, ctypes.POINTER(ci), vp]
     cdll.avbd_solve_loop.restype = ci
     cdll.avbd_control_lanes.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
-                                        ci, ci, vp]
+                                        ci, ci, ci, vp]
     cdll.avbd_control_lanes.restype = ci
     cdll.avbd_bp_probe.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_float),
                                    ci, ci, vp]
@@ -331,12 +331,14 @@ def _raise_on(code, what):
         raise RuntimeError(f"{what}: CUDA error {code}")
 
 
-def _body_operands(b, n_groups, device, names):
+def _body_operands(b, n_groups, device, names, lead=()):
+    """The body fields ``names`` of ``b``, checked; ``lead``: a leading
+    batch shape."""
     f32 = torch.float32
     shapes = {"pos": (3,), "quat": (4,), "size": (3,), "radius": (), "linvel": (3,),
               "angvel": (3,), "prev_linvel": (3,), "mass": (), "inv_mass": (),
               "friction": (), "inertia": (3,), "inv_inertia": (3,)}
-    return [_check(getattr(b, k), k, shapes[k] + (n_groups, 128), f32, device)
+    return [_check(getattr(b, k), k, lead + shapes[k] + (n_groups, 128), f32, device)
             for k in names]
 
 
@@ -492,24 +494,27 @@ def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int, *, pla
 
 
 def launch_control(nb, b, anchor, anchor_quat, params):
-    """Run the control-lanes kernel; returns the (5,) float32 lanes."""
+    """Run the control-lanes kernel; returns the (5,) float32 lanes, or
+    (B, 5) for a batch of B worlds (every operand with a leading B)."""
     lib = _lib()
     dev = _cuda_device(b)
-    d, g, _ = nb.shape
+    lead = tuple(nb.shape[:-3])
+    batch = lead[0] if lead else 1
+    d, g, _ = nb.shape[-3:]
     f32 = torch.float32
-    ins = [_check(nb, "nb", (d, g, 128), torch.int32, dev)]
+    ins = [_check(nb, "nb", lead + (d, g, 128), torch.int32, dev)]
     ins += _body_operands(b, g, dev, ("pos", "quat", "size", "radius", "linvel", "angvel",
-                                      "inv_mass"))
-    ins += [_check(anchor, "anchor", (3, g, 128), f32, dev),
-            _check(anchor_quat, "anchor_quat", (4, g, 128), f32, dev)]
+                                      "inv_mass"), lead)
+    ins += [_check(anchor, "anchor", lead + (3, g, 128), f32, dev),
+            _check(anchor_quat, "anchor_quat", lead + (4, g, 128), f32, dev)]
     n = g * 128
-    out = torch.empty((5,), dtype=f32, device=dev)
+    out = torch.empty(lead + (5,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = [_scratch(dev, stream, "lanes_part", _LANE_PARTS * _blocks(n), f32),
-               _scratch(dev, stream, "lanes_dv", 4 * n, f32),
-               _scratch(dev, stream, "lanes_ticket", 1, torch.int32)]
+    scratch = [_scratch(dev, stream, "lanes_part", batch * _LANE_PARTS * _blocks(n), f32),
+               _scratch(dev, stream, "lanes_dv", batch * 4 * n, f32),
+               _scratch(dev, stream, "lanes_ticket", batch, torch.int32)]
     code = lib.cdll.avbd_control_lanes(_ptrs(ins + [out] + scratch), _fparams(params), n, d,
-                                       ctypes.c_void_p(stream))
+                                       batch, ctypes.c_void_p(stream))
     _raise_on(code, "control-lanes kernel launch")
     return out
 

@@ -1,10 +1,11 @@
 """Batched 3D math: quaternion ops in row form and the component-form
 guarded LDL solves.
 
-Row form (``(..., 3)`` vectors, ``(..., 4)`` quats stored ``(x, y, z, w)``)
-serves the ballistic step's predict/finalize; component form (tuples of
-tensors) serves the contact step.  Same formulas, epsilons and operation
-order as ``avbd3d_tpu.maths`` (the reference).
+Row form (``(..., 3)`` vectors, ``(..., 4)`` quats stored ``(x, y, z, w)``,
+``(..., 3, 3)`` matrices) serves predict/finalize and the portable step's
+assembly and ``solve66``; component form (tuples of tensors) serves the
+fused step's plain version.  Same formulas, epsilons and operation order as
+``avbd3d_tpu.maths`` (the reference).
 """
 
 from __future__ import annotations
@@ -56,6 +57,77 @@ def quat_vec_doubled(q):
     """2 * vector part, sign-corrected so w >= 0 (solver.cpp:365-369)."""
     sign = torch.where(q[..., 3] < 0.0, -1.0, 1.0)
     return 2.0 * q[..., :3] * sign[..., None]
+
+
+def _solve3_cols(a, b):
+    """The LDL^T solve of ``a`` (..., 3, 3) for every column of ``b``
+    (..., 3, k): one factorization, each column substituted with the
+    statements of ``solve3``, so each gives solve3's bits."""
+    c0, c1, c2 = a[..., :, 0], a[..., :, 1], a[..., :, 2]
+    d0 = c0[..., 0]
+    bad0 = torch.abs(d0) < _PIVOT_EPS
+    d0s = torch.where(bad0, 1.0, d0)
+    l10 = c0[..., 1] / d0s
+    l20 = c0[..., 2] / d0s
+    c1p = c1 - c0 * l10[..., None]
+    d1 = c1p[..., 1]
+    bad1 = torch.abs(d1) < _PIVOT_EPS
+    d1s = torch.where(bad1, 1.0, d1)
+    l21 = c1p[..., 2] / d1s
+    c2p = c2 - c0 * l20[..., None] - c1p * l21[..., None]
+    d2 = c2p[..., 2]
+    bad2 = torch.abs(d2) < _PIVOT_EPS
+    d2s = torch.where(bad2, 1.0, d2)
+
+    d0s, d1s, d2s, l10, l20, l21 = (x[..., None] for x in (d0s, d1s, d2s, l10, l20, l21))
+    y0 = b[..., 0, :]
+    y1 = b[..., 1, :] - l10 * y0
+    y2 = b[..., 2, :] - l20 * y0 - l21 * y1
+    z0 = y0 / d0s
+    z1 = y1 / d1s
+    z2 = y2 / d2s
+    x2 = z2
+    x1 = z1 - l21 * x2
+    x0 = z0 - l10 * x1 - l20 * x2
+    x = torch.stack([x0, x1, x2], dim=-2)
+    return torch.where((bad0 | bad1 | bad2)[..., None, None], 0.0, x)
+
+
+def solve3(a, b):
+    """Row-form 3x3 LDL^T solve (maths.h:104), column-wise as the
+    reference: returns the zero vector wherever a pivot falls below
+    FLT_EPSILON.  ``a`` (..., 3, 3), ``b`` (..., 3) -> (..., 3)."""
+    return _solve3_cols(a, b[..., None])[..., 0]
+
+
+def mat_vec(a, v):
+    """(..., 3, 3) @ (..., 3), the sums written out in k order (as the
+    reference's einsum sums), so that a batched call gives the same bits."""
+    return a[..., 0] * v[..., None, 0] + a[..., 1] * v[..., None, 1] + a[..., 2] * v[..., None, 2]
+
+
+def mat_mul(a, b):
+    """(..., 3, 3) @ (..., 3, 3), the sums written out in k order."""
+    return (a[..., :, 0, None] * b[..., None, 0, :] + a[..., :, 1, None] * b[..., None, 1, :]
+            + a[..., :, 2, None] * b[..., None, 2, :])
+
+
+def solve33_matrix(a, b):
+    """Solve A X = B for (..., 3, 3) B, column by column."""
+    return _solve3_cols(a, b)
+
+
+def solve66(a_ll, a_la, a_al, a_aa, b_l, b_a):
+    """Row-form 6x6 block solve by the Schur complement on the angular
+    block (structure of solver.cpp:68-83): AinvB = A_ll^-1 A_la, x0 =
+    A_ll^-1 b_l, S = A_aa - A_al AinvB, y = S^-1 (b_a - A_al x0), x = x0 -
+    AinvB y.  Returns (x_linear, y_angular), each (..., 3)."""
+    cols = _solve3_cols(a_ll, torch.cat([a_la, b_l[..., None]], dim=-1))
+    ainv_b, x0 = cols[..., :3], cols[..., 3]
+    schur = a_aa - mat_mul(a_al, ainv_b)
+    rhs_s = b_a - mat_vec(a_al, x0)
+    y = solve3(schur, rhs_s)
+    return x0 - mat_vec(ainv_b, y), y
 
 
 def solve3_sym_cm(a, b):

@@ -5,6 +5,13 @@ docstring explains the AABB-gap ranking, the unique int32 selection keys and
 the symmetric filter).  Torch ops throughout; ``control_lanes`` here is the
 plain version of the control-lanes kernel (csrc/control_lanes.cu).
 
+The reference's seams are keyword arguments with identity defaults:
+``gather`` (partner reads), ``own_iota`` / ``n_total`` (global ids of this
+shard's rows and the global body count) and ``comm`` (``comm.LOCAL_COMM``;
+world-wide reductions and the column tables' all-gather on a body-sharded
+world).  With the defaults every function computes exactly what it did
+without them.
+
 Integer outputs (slots, keys, thresholds, counts) are identical to the
 reference's for identical poses: the gap expression, its quantization
 ``(gap + range) * (q_max / range)`` and the int32 truncation run in the same
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import cm
+from ..comm import LOCAL_COMM
 
 INT32_MIN = -(2**31) + 1
 INT32_MAX = 2**31 - 1
@@ -72,29 +80,35 @@ class BroadphaseCache:
         return dataclasses.replace(self, **kw)
 
 
-def build_bp_cache(b, exclusions, degree: int, margin: float) -> BroadphaseCache:
+def build_bp_cache(b, exclusions, degree: int, margin: float,
+                   comm=LOCAL_COMM) -> BroadphaseCache:
     """Fresh candidate lists anchored at the current poses."""
     half = tuple(b.size[k] * 0.5 for k in range(3))
     nb, key, thr, cand, slack = candidate_lists(
-        b.pos, b.quat, half, b.radius, b.dynamic, exclusions, degree, margin)
-    dropped = cand - torch.sum((nb >= 0).to(torch.int32)).to(torch.int32)
+        b.pos, b.quat, half, b.radius, b.dynamic, exclusions, degree, margin, comm=comm)
+    dropped = cand - comm.psum(torch.sum((nb >= 0).to(torch.int32)).to(torch.int32))
     return BroadphaseCache(anchor=b.pos, anchor_quat=b.quat, nb=nb, key=key,
                            thr=thr, cand=cand, slack=slack, dropped=dropped)
 
 
 def refresh_scalar(bp: BroadphaseCache, dv, b, exclusions, degree: int,
-                   margin: float):
+                   margin: float, comm=LOCAL_COMM):
     """Scalar-gated refresh (broadphase.py:215-228 of the reference) on the
     step's host copy ``dv`` (diagnostics lanes 0-15, then bp.slack): the
     anchor deviations of lanes 14/15 against the cache's reuse bounds,
     compared in float32 as JAX compares them.  Returns (cache, refreshed)."""
+    return refresh_or_reuse(bp, refresh_due(dv, margin), b, exclusions, degree, margin, comm)
+
+
+def refresh_due(dv, margin: float) -> bool:
+    """The reuse bounds broken (``refresh_scalar``'s predicate) on a host
+    copy ``dv`` (diagnostics lanes 0-15, then bp.slack)."""
     f32 = np.float32
-    need = bool((f32(dv[14]) > f32(0.5 * margin))
-                | (f32(dv[15]) > f32(dv[16]) + f32(margin)))
-    return refresh_or_reuse(bp, need, b, exclusions, degree, margin)
+    return bool((f32(dv[14]) > f32(0.5 * margin)) | (f32(dv[15]) > f32(dv[16]) + f32(margin)))
 
 
-def anchor_deviation(pos_cg, quat_cg, radius_g, dynamic_g, anchor, anchor_quat):
+def anchor_deviation(pos_cg, quat_cg, radius_g, dynamic_g, anchor, anchor_quat,
+                     comm=LOCAL_COMM):
     """The cached lists' two reuse bounds (the reference's BroadphaseCache
     docstring): over moved bodies, the largest surface motion since the
     anchor poses net of the mean displacement (|disp - t| + chord), and the
@@ -104,12 +118,12 @@ def anchor_deviation(pos_cg, quat_cg, radius_g, dynamic_g, anchor, anchor_quat):
     moved = dynamic_g | (disp2 > 0.0)
     chord = _rot_chord(tuple(quat_cg), tuple(anchor_quat), radius_g)
     mf = moved.to(torch.float32)
-    nm = torch.clamp(torch.sum(mf), min=1.0)
-    t = [torch.sum(d * mf) / nm for d in disp]
+    nm = torch.clamp(comm.psum(torch.sum(mf)), min=1.0)
+    t = [comm.psum(torch.sum(d * mf)) / nm for d in disp]
     e = [disp[k] - t[k] for k in range(3)]
     dev = torch.sqrt(e[0] * e[0] + e[1] * e[1] + e[2] * e[2]) + chord
-    dev_mm = torch.max(torch.where(moved, dev, 0.0))
-    dev_raw = torch.max(torch.where(moved, torch.sqrt(disp2) + chord, 0.0))
+    dev_mm = comm.pmax(torch.max(torch.where(moved, dev, 0.0)))
+    dev_raw = comm.pmax(torch.max(torch.where(moved, torch.sqrt(disp2) + chord, 0.0)))
     return dev_mm, dev_raw
 
 
@@ -124,14 +138,14 @@ def refresh_needed(bp: BroadphaseCache, b, margin: float):
 
 
 def refresh_or_reuse(bp: BroadphaseCache, need: bool, b, exclusions, degree: int,
-                     margin: float):
+                     margin: float, comm=LOCAL_COMM):
     """Rebuild the candidate lists when ``need`` (the predicate, read on the
     host) says the cached superset no longer holds.  Returns (cache, need)."""
-    return (build_bp_cache(b, exclusions, degree, margin) if need else bp), need
+    return (build_bp_cache(b, exclusions, degree, margin, comm) if need else bp), need
 
 
 def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
-                    exclusions, degree: int, margin: float = 0.0):
+                    exclusions, degree: int, margin: float = 0.0, comm=LOCAL_COMM):
     """Per-body candidate slots, deepest-gap first, as unique int32 keys.
 
     Returns nb (D, G, 128), key (D, G, 128), thr (G, 128), the directed
@@ -140,16 +154,27 @@ def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
     multiple of 128 rows <= ``BLOCK_ROWS`` that divides N), so every
     intermediate is (block, N), never (N, N); the key constants are global,
     so the blocks give the whole-matrix result (reference
-    broadphase.py:231-387)."""
+    broadphase.py:231-387).
+
+    On a body-sharded world (``comm``) the inputs are this shard's rows: the
+    column tables are all-gathered to the global body set, row ids are
+    offset to global ids, the two scalars are all-reduced, and nb / key /
+    thr stay this shard's rows, exactly the rows one device would give."""
     g = radius_g.shape[0]
-    n = g * 128
+    n_rows = g * 128
+    row0 = comm.row0(n_rows)
+    n = n_rows * comm.n_shards
     dev = radius_g.device
     wh_cg = world_halves(tuple(quat_cg[k] for k in range(4)), half_cg)
-    px, py, pz = (pos_cg[k].reshape(n) for k in range(3))
-    wh = [wh_cg[k].reshape(n) for k in range(3)]
-    radius = radius_g.reshape(n)
-    dynamic = dynamic_g.reshape(n)
-    excl = [exclusions[e].reshape(n) for e in range(exclusions.shape[0])]
+    px, py, pz = (comm.all_gather_g(pos_cg[k]).reshape(n) for k in range(3))
+    wh = [comm.all_gather_g(wh_cg[k]).reshape(n) for k in range(3)]
+    radius = comm.all_gather_g(radius_g).reshape(n)
+    dynamic = comm.all_gather_g(dynamic_g).reshape(n)
+    px_r, py_r, pz_r = (pos_cg[k].reshape(n_rows) for k in range(3))
+    wh_r = [wh_cg[k].reshape(n_rows) for k in range(3)]
+    radius_r = radius_g.reshape(n_rows)
+    dynamic_r = dynamic_g.reshape(n_rows)
+    excl = [exclusions[e].reshape(n_rows) for e in range(exclusions.shape[0])]
 
     q_max = (2**31 - 1) // n - 1
     max_wh = torch.maximum(torch.maximum(wh[0].max(), wh[1].max()), wh[2].max())
@@ -161,17 +186,17 @@ def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
 
     def row_block(r0: int, rows: int):
         sl = slice(r0, r0 + rows)
-        rsum = radius[sl, None] + radius[None, :] + margin
-        ii = torch.arange(r0, r0 + rows, dtype=torch.int32, device=dev)[:, None]
+        rsum = radius_r[sl, None] + radius[None, :] + margin
+        ii = torch.arange(row0 + r0, row0 + r0 + rows, dtype=torch.int32, device=dev)[:, None]
         gap = torch.maximum(
             torch.maximum(
-                torch.abs(px[sl, None] - px[None, :]) - (wh[0][sl, None] + wh[0][None, :]),
-                torch.abs(py[sl, None] - py[None, :]) - (wh[1][sl, None] + wh[1][None, :]),
+                torch.abs(px_r[sl, None] - px[None, :]) - (wh_r[0][sl, None] + wh[0][None, :]),
+                torch.abs(py_r[sl, None] - py[None, :]) - (wh_r[1][sl, None] + wh[1][None, :]),
             ),
-            torch.abs(pz[sl, None] - pz[None, :]) - (wh[2][sl, None] + wh[2][None, :]),
+            torch.abs(pz_r[sl, None] - pz[None, :]) - (wh_r[2][sl, None] + wh[2][None, :]),
         ) - margin
         # rsum > margin rejects padding bodies (sentinel negative radius).
-        mask = (gap <= 0.0) & (rsum > margin) & (ii != jj) & dynamic[sl, None]
+        mask = (gap <= 0.0) & (rsum > margin) & (ii != jj) & dynamic_r[sl, None]
         for e in excl:
             mask &= jj != e[sl, None]
         cand = torch.sum(mask.to(torch.int32)).to(torch.int32)
@@ -187,16 +212,16 @@ def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
         last = vals[:, degree - 1]
         thr = torch.where(last > INT32_MIN, -last, INT32_MAX)
 
-        slack_mask = (dynamic[sl, None] & ~dynamic[None, :] & (rsum > margin)
+        slack_mask = (dynamic_r[sl, None] & ~dynamic[None, :] & (rsum > margin)
                       & (gap > 0.0) & (ii != jj))
         slack = torch.min(torch.where(slack_mask, gap, 1.0e9))
         return nb, key_slot, thr, cand, slack
 
-    if n <= BLOCK_ROWS:
-        nb, key_slot, thr, cand, slack = row_block(0, n)
+    if n_rows <= BLOCK_ROWS:
+        nb, key_slot, thr, cand, slack = row_block(0, n_rows)
     else:
         block = 128 * max(bg for bg in range(1, BLOCK_ROWS // 128 + 1) if g % bg == 0)
-        parts = [row_block(r0, block) for r0 in range(0, n, block)]
+        parts = [row_block(r0, block) for r0 in range(0, n_rows, block)]
         nb, key_slot, thr = (torch.cat([p[i] for p in parts]) for i in range(3))
         cand = torch.stack([p[3] for p in parts]).sum().to(torch.int32)
         slack = torch.stack([p[4] for p in parts]).min()
@@ -204,19 +229,24 @@ def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
         nb.T.contiguous().reshape(degree, g, 128),
         key_slot.T.contiguous().reshape(degree, g, 128),
         thr.reshape(g, 128).contiguous(),
-        cand,
-        slack,
+        comm.psum(cand),
+        comm.pmin(slack),
     )
 
 
-def symmetric_filter(nb, key, thr, dynamic_g):
+def symmetric_filter(nb, key, thr, dynamic_g, gather=gather, own_iota=None, n_total=None):
     """Drop directed slots whose dynamic partner did not keep the pair.
-    Returns (filtered nb, kept directed-slot count () int32)."""
+    ``own_iota`` (G, 128): global ids of the rows (default 0..N-1);
+    ``n_total``: the global body count the keys were packed with (default
+    N).  Returns (filtered nb, kept directed-slot count () int32)."""
     d, g, _ = nb.shape
-    n = g * 128
+    n = g * 128 if n_total is None else n_total
     valid = nb >= 0
     idx = torch.where(valid, nb, 0)
-    own = torch.arange(n, dtype=torch.int32, device=nb.device).reshape(1, g, 128)
+    if own_iota is None:
+        own = torch.arange(g * 128, dtype=torch.int32, device=nb.device).reshape(1, g, 128)
+    else:
+        own = own_iota[None]
     q = torch.div(key, n, rounding_mode="floor")
     key_rev = q * n + own
     partner_kept_me = key_rev <= gather(thr, idx)
@@ -278,9 +308,11 @@ def bp_probe(nb, pos_cg, quat_cg, half_cg, radius_g, linvel_cg, angvel_cg,
 
 
 def control_lanes(nb, pos_cg, quat_cg, half_cg, radius_g, linvel_cg,
-                  angvel_cg, dynamic_g, anchor, anchor_quat, params):
+                  angvel_cg, dynamic_g, anchor, anchor_quat, params,
+                  gather=gather, comm=LOCAL_COMM):
     """The five step-control scalars (diagnostics lanes 11-15) on
-    end-of-step state; plain version of the control-lanes kernel.
+    end-of-step state; plain version of the control-lanes kernel, and the
+    form a body-sharded world uses (``gather`` / ``comm``).
 
     Returns a (5,) f32 tensor: gate_speed_sq, near_speed_sq, min_cand_gap,
     bp_dev_mm, bp_dev_raw (semantics in state.Diagnostics)."""
@@ -297,7 +329,7 @@ def control_lanes(nb, pos_cg, quat_cg, half_cg, radius_g, linvel_cg,
         ),
         torch.abs(ppos[2] - pos_cg[2][None]) - (wh[2][None] + pwh[2]),
     )
-    min_gap = torch.min(torch.where(valid, gap, 1.0e9))
+    min_gap = comm.pmin(torch.min(torch.where(valid, gap, 1.0e9)))
 
     g_len = float(sum(x * x for x in params.gravity) ** 0.5)
     lv, av = linvel_cg, angvel_cg
@@ -313,8 +345,19 @@ def control_lanes(nb, pos_cg, quat_cg, half_cg, radius_g, linvel_cg,
     if params.fall_freeze_y > -1.0e8:
         alive = alive & (pos_cg[1] >= params.fall_freeze_y)
     v2 = torch.where(alive, speed_sq, 0.0)
-    gate_speed_sq = torch.max(v2)
-    near_speed_sq = torch.max(torch.where(near, v2, 0.0))
+    gate_speed_sq = comm.pmax(torch.max(v2))
+    near_speed_sq = comm.pmax(torch.max(torch.where(near, v2, 0.0)))
     dev_mm, dev_raw = anchor_deviation(pos_cg, quat_cg, radius_g, dynamic_g,
-                                       anchor, anchor_quat)
+                                       anchor, anchor_quat, comm)
     return torch.stack([gate_speed_sq, near_speed_sq, min_gap, dev_mm, dev_raw])
+
+
+def neighbor_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g, exclusions,
+                   degree: int):
+    """One-call broadphase: candidate lists (no margin) and the symmetric
+    filter.  Returns (neighbors (D, G, 128) int32, -1 empty; overflow ()
+    int32, the directed slots dropped)."""
+    nb, key, thr, cand, _slack = candidate_lists(
+        pos_cg, quat_cg, half_cg, radius_g, dynamic_g, exclusions, degree)
+    nb, kept = symmetric_filter(nb, key, thr, dynamic_g)
+    return nb, cand - kept

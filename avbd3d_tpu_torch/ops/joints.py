@@ -23,6 +23,7 @@ import torch
 
 from .. import cm
 from ..state import Joints
+from .broadphase import gather
 from .replicated import gather_comps
 
 _IDENT = (0.0, 0.0, 0.0, 1.0)
@@ -52,7 +53,7 @@ def joint_decay(joints: Joints, params) -> Joints:
     return joints.replace(lam=torch.where(valid, lam, 0.0), penalty=pen)
 
 
-def joint_geometry(j: Joints, pose):
+def joint_geometry(j: Joints, pose, gather=gather):
     """Slot geometry at the given poses (joint.cpp:68-106).  ``pose``:
     dict of 'pos' (3 comps) and 'quat' (4 comps), each (G, 128).  Returns
     the 6 C rows, the A/B and own-side world lever arms, and the masks."""
@@ -63,8 +64,8 @@ def joint_geometry(j: Joints, pose):
 
     own_pos = tuple(c[None] for c in pose["pos"])
     own_quat = tuple(c[None] for c in pose["quat"])
-    oth_pos = gather_comps(pose["pos"], idx)
-    oth_quat = gather_comps(pose["quat"], idx)
+    oth_pos = gather_comps(pose["pos"], idx, gather)
+    oth_quat = gather_comps(pose["quat"], idx, gather)
 
     anchor_a = tuple(j.anchor_a[k] for k in range(3))
     anchor_b = tuple(j.anchor_b[k] for k in range(3))

@@ -5,9 +5,12 @@ D neighbor slots shaped (D, G, 128); each active pair appears twice, once
 per endpoint, and all slot math runs in the canonical pair frame (A = lower
 body index) so both replicas produce bit-identical duals without any
 synchronisation.  Per-body aggregation is a sum over the slot axis, taken
-in slot order (``cm.dsum``).  Partner state is fetched by direct indexing
-(``broadphase.gather``); the reference's Mosaic select-gather has no
-counterpart here.
+in slot order (``cm.dsum``).  Partner state is fetched through the
+reference's ``gather(table, idx)`` seam, by default direct indexing
+(``broadphase.gather``; the reference's Mosaic select-gather has no
+counterpart here); a body-sharded world passes a gather that reads the
+all-gathered global table, and ``own_iota``, the global ids of its own rows
+(default 0..N-1).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ def body_iota(g: int, device):
     return torch.arange(g * 128, dtype=torch.int32, device=device).reshape(g, 128)
 
 
-def gather_comps(comps, idx):
+def gather_comps(comps, idx, gather=gather):
     return tuple(gather(c, idx) for c in comps)
 
 
@@ -37,35 +40,39 @@ def canonical_select(is_a, own, other):
     return torch.where(is_a, own, other), torch.where(is_a, other, own)
 
 
-def pair_frames(cache_other, body):
+def _own_iota(own_iota, g, device):
+    return body_iota(g, device) if own_iota is None else own_iota
+
+
+def pair_frames(cache_other, body, gather=gather, own_iota=None):
     """Gather partner poses and build the canonical A/B frames; every entry
     has the slot shape (D, G, 128)."""
     d, g, _ = cache_other.shape
     valid = cache_other >= 0
     idx = torch.where(valid, cache_other, 0)
-    is_a = body_iota(g, idx.device)[None] < idx
+    is_a = _own_iota(own_iota, g, idx.device)[None] < idx
     own_pos = tuple(c[None] for c in body["pos"])
     own_quat = tuple(c[None] for c in body["quat"])
-    oth_pos = gather_comps(body["pos"], idx)
-    oth_quat = gather_comps(body["quat"], idx)
+    oth_pos = gather_comps(body["pos"], idx, gather)
+    oth_quat = gather_comps(body["quat"], idx, gather)
     pa, pb = canonical_select(is_a, own_pos, oth_pos)
     qa, qb = canonical_select(is_a, own_quat, oth_quat)
     return {"valid": valid, "is_a": is_a, "idx": idx,
             "pa": pa, "qa": qa, "pb": pb, "qb": qb}
 
 
-def once_mask(other, dynf):
+def once_mask(other, dynf, gather=gather, own_iota=None):
     """(D, G, 128) mask counting each pair at one replica: the lower-index
     side, or the dynamic side when the partner is static (static bodies own
     no slots).  ``dynf``: (G, 128) float 1 for dynamic bodies."""
     valid = other >= 0
     idx = torch.where(valid, other, 0)
     other_dyn = gather(dynf, idx) > 0.5
-    iota = body_iota(dynf.shape[0], dynf.device)[None]
+    iota = _own_iota(own_iota, dynf.shape[0], dynf.device)[None]
     return valid & ((iota < idx) | ~other_dyn)
 
 
-def pair_constants(cache_other, body):
+def pair_constants(cache_other, body, gather=gather):
     """Friction mu = sqrt(muA muB) (manifold.cpp:73) and the normal-cap
     mass scale (manifold.cpp:199-204); symmetric in the two bodies."""
     valid = cache_other >= 0
@@ -100,15 +107,15 @@ def _face_axis_sep(delta, own_ax, own_half, par_ax, ph):
     return best
 
 
-def precull_near(dc: int, neighbors, body, params):
+def precull_near(dc: int, neighbors, body, params, gather=gather):
     """Compact the (D, G, 128) candidate slots, in candidate order, to the
     ``dc`` slots whose 6-face-axis separation is within the collision
     margin (+1e-4 guard).  Returns (neighbors (dc, G, 128), dropped ())."""
     valid = neighbors >= 0
     idx = torch.where(valid, neighbors, 0)
-    pp = gather_comps(body["pos"], idx)
-    pq = gather_comps(body["quat"], idx)
-    ph = gather_comps(body["half"], idx)
+    pp = gather_comps(body["pos"], idx, gather)
+    pq = gather_comps(body["quat"], idx, gather)
+    ph = gather_comps(body["half"], idx, gather)
     delta = tuple(pp[k] - body["pos"][k][None] for k in range(3))
     own_ax = [tuple(c[None] for c in ax) for ax in cm.q_axes(tuple(body["quat"]))]
     own_half = tuple(h[None] for h in body["half"])
@@ -132,7 +139,7 @@ def precull_near(dc: int, neighbors, body, params):
     return torch.stack(out), dropped
 
 
-def collide_and_init(old: Contacts, neighbors, body, params):
+def collide_and_init(old: Contacts, neighbors, body, params, gather=gather, own_iota=None):
     """Replicated narrowphase + warmstart transfer (manifold.cpp:71-175,
     solver.cpp:281-293).  Returns (Contacts, dropped-manifold count ())."""
     from .narrowphase_cm import collide_pairs_cm
@@ -141,13 +148,13 @@ def collide_and_init(old: Contacts, neighbors, body, params):
     d_cache = old.other.shape[0]
     dropped = torch.zeros((), dtype=torch.int32, device=neighbors.device)
     if d_cache < d_new:
-        neighbors, dropped = precull_near(d_cache, neighbors, body, params)
-    frames = pair_frames(neighbors, body)
+        neighbors, dropped = precull_near(d_cache, neighbors, body, params, gather)
+    frames = pair_frames(neighbors, body, gather, own_iota)
     valid = frames["valid"]
     is_a = frames["is_a"]
 
     own_half = tuple(c[None] for c in body["half"])
-    oth_half = gather_comps(body["half"], frames["idx"])
+    oth_half = gather_comps(body["half"], frames["idx"], gather)
     ha, hb = canonical_select(is_a, own_half, oth_half)
 
     geom = collide_pairs_cm(
@@ -318,10 +325,10 @@ def _contact_basis(normal):
 # and every accumulation order while launching a quarter of the ops.
 # ---------------------------------------------------------------------------
 
-def geometry_static(cache: Contacts, consts):
+def geometry_static(cache: Contacts, consts, own_iota=None):
     """Loop-invariant geometry: contact basis (three 3-tuples of (D, G,
     128)), canonical side flag, and the (4, D, G, 128) contact masks."""
-    g = body_iota(cache.other.shape[1], cache.other.device)[None]
+    g = _own_iota(own_iota, cache.other.shape[1], cache.other.device)[None]
     s = torch.arange(4, dtype=torch.int32, device=g.device).reshape(4, 1, 1, 1)
     return {
         "basis": _contact_basis((cache.normal[0], cache.normal[1], cache.normal[2])),
@@ -330,7 +337,7 @@ def geometry_static(cache: Contacts, consts):
     }
 
 
-def geometry_pose(cache: Contacts, static, body_pose, consts, partner=None):
+def geometry_pose(cache: Contacts, static, body_pose, consts, partner=None, gather=gather):
     """Pose-dependent geometry (manifold.cpp:184-196) at ``body_pose``
     ('pos' 3, 'quat' 4 tuples of (G, 128)): world lever arms ``rw_a``/
     ``rw_b`` (3-tuples) and raw separation/slips, each (4, D, G, 128).
@@ -340,8 +347,8 @@ def geometry_pose(cache: Contacts, static, body_pose, consts, partner=None):
     is_a = static["is_a"]
     n_unit, t1, t2 = static["basis"]
     if partner is None:
-        partner = {"pos": gather_comps(body_pose["pos"], idx),
-                   "quat": gather_comps(body_pose["quat"], idx)}
+        partner = {"pos": gather_comps(body_pose["pos"], idx, gather),
+                   "quat": gather_comps(body_pose["quat"], idx, gather)}
     own_pos = tuple(c[None] for c in body_pose["pos"])
     own_quat = tuple(c[None] for c in body_pose["quat"])
     pa, pb = canonical_select(is_a, own_pos, partner["pos"])
@@ -353,6 +360,13 @@ def geometry_pose(cache: Contacts, static, body_pose, consts, partner=None):
             "sep": cm.dot(delta, n_unit), "slip1": cm.dot(delta, t1),
             "slip2": cm.dot(delta, t2), "is_a": is_a,
             "slot_ok": static["slot_ok"]}
+
+
+def eval_geometry(cache: Contacts, body_pose, consts, gather=gather, own_iota=None):
+    """Full geometry evaluation (static + pose-dependent parts) at
+    ``body_pose``."""
+    return geometry_pose(cache, geometry_static(cache, consts, own_iota), body_pose, consts,
+                         gather=gather)
 
 
 def _rows(x4):
@@ -480,6 +494,13 @@ def body_matrix(geom, f, penalty, iiw_own):
     tot = cm.dsum(acc.transpose(0, 1))                    # (24, G, 128)
     return {"m_ll": list(tot[:6]), "m_la": list(tot[6:15]),
             "m_aa": list(tot[15:21]), "gyro": list(tot[21:24])}
+
+
+def body_system(geom, f, penalty, iiw_own):
+    """Forces and matrix in one call (the reference's per-iteration form)."""
+    out = dict(body_forces(geom, f))
+    out.update(body_matrix(geom, f, penalty, iiw_own))
+    return out
 
 
 def dual_update(rows, geom, penalty, beta, params):

@@ -14,6 +14,7 @@ import torch
 
 from .. import cm
 from ..state import Springs
+from .broadphase import gather
 from .replicated import gather_comps
 
 
@@ -25,7 +26,7 @@ def spring_decay(springs: Springs, params) -> Springs:
     return springs.replace(penalty=torch.minimum(pen, springs.rstiff))
 
 
-def spring_geometry(s: Springs, pose):
+def spring_geometry(s: Springs, pose, gather=gather):
     """computeConstraint and the Jacobian direction (spring.cpp:33-90) per
     slot, at the poses ``pose`` ('pos' 3 comps, 'quat' 4 comps, (G, 128))."""
     valid = s.other >= 0
@@ -35,8 +36,8 @@ def spring_geometry(s: Springs, pose):
 
     own_pos = tuple(c[None] for c in pose["pos"])
     own_quat = tuple(c[None] for c in pose["quat"])
-    oth_pos = gather_comps(pose["pos"], idx)
-    oth_quat = gather_comps(pose["quat"], idx)
+    oth_pos = gather_comps(pose["pos"], idx, gather)
+    oth_quat = gather_comps(pose["quat"], idx, gather)
 
     anchor_a = tuple(s.anchor_a[k] for k in range(3))
     anchor_b = tuple(s.anchor_b[k] for k in range(3))

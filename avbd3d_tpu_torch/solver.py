@@ -22,6 +22,18 @@ honoured:
   the refresh predicate (``refresh_needed``) and the unrefined speed gates
   (``stale_lhs_ok``); the step is ``solver_grid.step_grid``.  No ballistic
   path, as in the reference.
+- the portable path ("xla": ``cap.backend == "xla"``, and every scene
+  neither of the above covers, as the reference off the TPU): the same
+  copy, refresh and ballistic gate as the fused path, then ``_step_impl``,
+  the reference's whole step in torch ops: its phases around K1's plain
+  sweeps (``solver_cuda.sweeps``, with the step's seams and each sweep's
+  poses sanitized), and the control lanes from K2 (``attach_control``).
+  Its gates are taken on the host: the iteration plan
+  (``solver_cuda.iteration_plan``) is Python values, where the reference
+  computes both sides of ``lax.cond``.  ``gather`` / ``comm``
+  are the reference's seams for a body-sharded world (parallel.sharded);
+  ``parallel.batched`` runs the same body under ``torch.func.vmap`` with
+  the plan's per-world entries as tensors.
 """
 
 from __future__ import annotations
@@ -30,9 +42,15 @@ import numpy as np
 import torch
 
 from . import cm, solver_cuda, solver_grid
+from .comm import LOCAL_COMM
 from .config import Capacity, SolverParams
 from .maths import quat_conj, quat_mul, quat_normalize, quat_vec_doubled
-from .ops.broadphase import refresh_needed, refresh_or_reuse, refresh_scalar
+from .ops import replicated as rep
+from .ops.broadphase import control_lanes as control_lanes_math
+from .ops.broadphase import (gather, refresh_needed, refresh_or_reuse, refresh_scalar,
+                             symmetric_filter)
+from .ops.joints import joint_dual_ema, joint_geometry
+from .solver_cuda import body_tables
 from .state import World, make_diagnostics
 
 _F32 = np.float32
@@ -102,6 +120,28 @@ def stale_lhs_ok(b, bp, params: SolverParams, refine: bool = True):
     return ok_global | (torch.max(torch.where(near, v2, 0.0)) <= thresh)
 
 
+def attach_control(world: World, params: SolverParams, gather=gather, comm=LOCAL_COMM) -> World:
+    """The control block (lanes 11-15) on ``world``'s end-of-step state,
+    written into its diagnostics (the reference's attach_control).  One
+    shard: K2 (``solver_cuda.control_lanes``, its plain version on CPU
+    tensors), also for a batch of worlds (every leaf with a leading batch
+    axis: one launch).  A body-sharded world (``comm.n_shards > 1``) takes
+    the plain version with ``gather`` and the collectives; K2 folds over
+    one device's bodies only."""
+    b = world.bodies
+    if comm.n_shards == 1:
+        lanes = solver_cuda.control_lanes(world.bp.nb, b, world.bp.anchor,
+                                          world.bp.anchor_quat, params)
+    else:
+        lanes = control_lanes_math(
+            world.bp.nb, tuple(b.pos[k] for k in range(3)), tuple(b.quat[k] for k in range(4)),
+            tuple(b.size[k] * 0.5 for k in range(3)), b.radius,
+            tuple(b.linvel[k] for k in range(3)), tuple(b.angvel[k] for k in range(3)),
+            b.dynamic, world.bp.anchor, world.bp.anchor_quat, params, gather=gather, comm=comm)
+    vec = torch.cat([world.diagnostics.vec[..., :11], lanes], dim=-1)
+    return world.replace(diagnostics=world.diagnostics.replace(vec=vec))
+
+
 def predict(b, params: SolverParams):
     """Phase 3, inertial prediction (solver.cpp:299-337), on (N, 3) rows.
     Returns (linvel, angvel, inertial_pos, inertial_quat, pos_start,
@@ -138,14 +178,15 @@ def predict(b, params: SolverParams):
     return linvel, angvel, inertial_pos, inertial_quat, pos_start, inertial_quat, sanitized
 
 
-def finalize(world: World, b, contacts, pos_f, quat_f, pos0, quat0, linvel, angvel,
-             lam_c, sep_slots, once, overflow, sanitized, params: SolverParams,
-             degree_overflow=0) -> World:
-    """Phases 5+6 (solver.cpp:433-513; the reference's solver.py:234-317)
-    for a contact-only world: velocities, damping, sanitize, and
-    diagnostics lanes 0-10 with the control lanes 11-15 at CONTROL_RESET.
-    ``sep_slots`` (4, D, G, 128): raw separations at the final poses;
-    ``once`` (D, G, 128): one replica per pair, for counting."""
+def finalize(world: World, b, contacts, joints, springs, pos_f, quat_f, pos0, quat0,
+             linvel, angvel, lam_c, sep_slots, once, overflow, sanitized,
+             params: SolverParams, comm=LOCAL_COMM, degree_overflow=0) -> World:
+    """Phases 5+6 (solver.cpp:433-513; the reference's solver.py:234-317):
+    velocities, damping, sanitize, and diagnostics lanes 0-10 with the
+    control lanes 11-15 at CONTROL_RESET.  ``sep_slots`` (4, D, G, 128): raw
+    separations at the final poses; ``once`` (D, G, 128): one replica per
+    pair, for counting; ``comm``: on a body-sharded world the diagnostics
+    are all-reduced so that every shard carries the global values."""
     n, g, dt = b.n, b.g, params.dt
     dyn = b.dynamic
     dyn_n = dyn.reshape(n)
@@ -175,37 +216,148 @@ def finalize(world: World, b, contacts, pos_f, quat_f, pos0, quat0, linvel, angv
     max_lam_n = torch.max(torch.where(ok, torch.abs(lam_c[0::3]), 0.0))
     diag = make_diagnostics(
         b.pos.device,
-        max_penetration=torch.clamp(max_pen, min=0.0),
-        max_constraint_violation=torch.clamp(max_violation, min=0.0),
-        max_linear_speed=torch.clamp(lin_speed.max(), min=0.0),
-        max_angular_speed=torch.clamp(ang_speed.max(), min=0.0),
-        max_normal_impulse=torch.clamp(max_lam_n, min=0.0),
-        active_contacts=torch.sum(torch.where(once, contacts.count, 0)),
-        active_manifolds=torch.sum(once & (contacts.count > 0)),
-        dynamic_bodies=torch.sum(dyn_n),
+        max_penetration=comm.pmax(torch.clamp(max_pen, min=0.0)),
+        max_constraint_violation=comm.pmax(torch.clamp(max_violation, min=0.0)),
+        max_linear_speed=comm.pmax(torch.clamp(lin_speed.max(), min=0.0)),
+        max_angular_speed=comm.pmax(torch.clamp(ang_speed.max(), min=0.0)),
+        max_normal_impulse=comm.pmax(torch.clamp(max_lam_n, min=0.0)),
+        active_contacts=comm.psum(torch.sum(torch.where(once, contacts.count, 0))),
+        active_manifolds=comm.psum(torch.sum(once & (contacts.count > 0))),
+        dynamic_bodies=comm.psum(torch.sum(dyn_n)),
         pair_overflow=overflow,
-        degree_overflow=degree_overflow,
-        sanitized=sanitized,
+        degree_overflow=comm.psum(degree_overflow),
+        sanitized=comm.psum(sanitized),
     )
-    return world.replace(bodies=bodies, contacts=contacts,
+    return world.replace(bodies=bodies, contacts=contacts, joints=joints, springs=springs,
                          step_index=world.step_index + 1, diagnostics=diag)
 
 
-def _ballistic_step(world: World, params: SolverParams) -> World:
-    """Contact-free step: with zero constraint rows the primal fixed point
-    is the inertial target, so the iterative solve is skipped.  The caller
-    guarantees (control lane 13) that narrowphase yields no contacts."""
+def _ballistic_body(world: World, params: SolverParams) -> World:
+    """Contact-free step without its control lanes: with zero constraint
+    rows the primal fixed point is the inertial target, so the iterative
+    solve is skipped.  The caller guarantees (control lane 13) that
+    narrowphase yields no contacts."""
     b = world.bodies
     linvel, angvel, ipos, iquat, _ps, _qs, sanitized = predict(b, params)
     c = world.contacts
     sep = torch.zeros((4,) + c.other.shape, dtype=torch.float32, device=b.pos.device)
     once = torch.zeros(c.other.shape, dtype=torch.bool, device=b.pos.device)
-    out = finalize(world, b, c, ipos, iquat, b.pos_n3, b.quat_n4, linvel, angvel,
-                   c.lam, sep, once, 0, sanitized, params)
-    lanes = solver_cuda.control_lanes(out.bp.nb, out.bodies, out.bp.anchor,
-                                      out.bp.anchor_quat, params)
-    vec = torch.cat([out.diagnostics.vec[:11], lanes])
-    return out.replace(diagnostics=out.diagnostics.replace(vec=vec))
+    return finalize(world, b, c, world.joints, world.springs, ipos, iquat, b.pos_n3, b.quat_n4,
+                    linvel, angvel, c.lam, sep, once, 0, sanitized, params)
+
+
+def _ballistic_step(world: World, params: SolverParams) -> World:
+    """The ballistic fast path: ``_ballistic_body``, then K2."""
+    return attach_control(_ballistic_body(world, params), params)
+
+
+def _step_body(world: World, params: SolverParams, cap: Capacity, plan, gather=gather,
+               comm=LOCAL_COMM) -> World:
+    """Phases 1-6 of the portable step (the reference's solver.py:491-768)
+    on ``world.bp`` as given, one sweep per ``plan`` entry (alpha, do_dual,
+    rebuild, ramp, active), without the control lanes (``attach_control``).
+    The prediction and the sweeps are K1's plain ones
+    (``solver_cuda.predict_cm``, ``sweeps``) with this step's seams and each
+    sweep's poses sanitized, so that on one device the poses are the fused
+    step's; each plan entry is a Python
+    value or, under ``torch.func.vmap``, a per-world tensor, and ``active``
+    False freezes the world's carry (it has passed its own last
+    iteration)."""
+    b = world.bodies
+    n, g = b.n, b.g
+    dev = b.pos.device
+    tables = body_tables(b)
+    sharded = comm.n_shards > 1
+    own_iota = rep.body_iota(g, dev) + comm.row0(n) if sharded else None
+
+    # Phase 1: the symmetric filter of the (refreshed) candidate lists.
+    bp = world.bp
+    neighbors, kept = symmetric_filter(bp.nb, bp.key, bp.thr, b.dynamic, gather,
+                                       own_iota=own_iota,
+                                       n_total=n * comm.n_shards if sharded else None)
+    overflow = bp.cand - comm.psum(kept)
+
+    # Phase 2: narrowphase, warmstart and decay (solver.cpp:273-296).
+    contacts, man_dropped = rep.collide_and_init(world.contacts, neighbors, tables, params,
+                                                 gather, own_iota)
+    rows = solver_cuda.row_state(world.joints, world.springs, cap.joint_colors, params)
+    joints = rows.joints if rows is not None and rows.joints is not None else world.joints
+    springs = rows.springs if rows is not None and rows.springs is not None else world.springs
+    consts = rep.pair_constants(contacts.other, tables, gather)
+
+    # Phase 3: inertial prediction (solver.cpp:299-337), K1's.
+    linvel, angvel, ipos, iquat, pos_start, sanitized = solver_cuda.predict_cm(b, params)
+
+    def row_form(c):
+        return torch.stack(c, dim=-1).reshape(n, len(c))
+
+    # Phase 4: the iterative solve (solver.cpp:340-431).
+    pos, quat, lam_c, pen_c, stick, _geom, jout, sanitized = solver_cuda.sweeps(
+        params, contacts, b, consts, ipos, iquat, pos_start, iquat, contacts.lam,
+        contacts.penalty, contacts.stick, plan, rows=rows, gather=gather, own_iota=own_iota,
+        san=sanitized)
+
+    # The slow once-per-step joint dual tracker (ops/joints.joint_dual_ema).
+    if jout is not None:
+        lam_j, pen_j = jout
+        if params.joint_ema_rate > 0.0:
+            jgeom_f = joint_geometry(joints, {"pos": pos, "quat": quat}, gather)
+            lam_j = joint_dual_ema(jgeom_f, joints, lam_j, pen_j, params)
+        joints = joints.replace(lam=lam_j, penalty=pen_j)
+    contacts = contacts.replace(lam=lam_c, penalty=pen_c, stick=stick)
+
+    # Phases 5+6 on the final poses; each pair counted at one replica.
+    geom_f = rep.eval_geometry(contacts, {"pos": pos, "quat": quat}, consts, gather, own_iota)
+    once = rep.once_mask(contacts.other, b.dynamic.to(torch.float32), gather, own_iota)
+    return finalize(world, b, contacts, joints, springs, row_form(pos), row_form(quat),
+                    b.pos_n3, b.quat_n4, row_form(linvel), row_form(angvel), lam_c,
+                    geom_f["sep"], once, overflow, sanitized, params, comm=comm,
+                    degree_overflow=man_dropped)
+
+
+def plan_for(params: SolverParams, control, refreshed: bool):
+    """The portable step's sweep plan from the host copy ``control``: the
+    gates (``control_gates``), the calm / fresh / boost variant
+    (``solver_cuda.select_variant``), one (alpha, do_dual, rebuild, ramp,
+    active) per sweep."""
+    stale_ok, calm = control_gates(control, refreshed, params)
+    n_main, k = solver_cuda.select_variant(params, stale_ok, calm)
+    return [e + (True,) for e in solver_cuda.iteration_plan(params, n_main, k)]
+
+
+def _step_impl(world: World, params: SolverParams, cap: Capacity, gather=gather,
+               comm=LOCAL_COMM, refreshed=None, control=None) -> World:
+    """The portable whole step (the reference's _step_impl, solver.py:450-769).
+
+    ``refreshed`` None: make the step's one host read (``read_control``)
+    and run the scalar-gated broadphase refresh here, as the sharded path
+    needs; otherwise the caller (``step``) did both and passes the host copy
+    as ``control``.  ``gather`` / ``comm``: the seams of a body-sharded
+    world (parallel.sharded); every gate comes from all-reduced values, so
+    every shard takes the same branches."""
+    if refreshed is None:
+        control = read_control(world)
+        bp, refreshed = refresh_scalar(world.bp, control, world.bodies, world.exclusions,
+                                       cap.max_degree, params.bp_margin, comm)
+        world = world.replace(bp=bp)
+    out = _step_body(world, params, cap, plan_for(params, control, refreshed), gather, comm)
+    return attach_control(out, params, gather, comm)
+
+
+def ballistic_ok(params: SolverParams, world: World, control, refreshed: bool) -> bool:
+    """The ballistic fast path's gate (the reference's solver.py:397-411,
+    ``ballistic_able`` off the TPU): no joints or springs, the previous step
+    ended without contacts, its control block proves none at these poses
+    (lane 13), no refresh and no slot dropped by the refresh."""
+    return bool(
+        params.ballistic
+        and world.joints.dj == 0
+        and world.springs.ds == 0
+        and _F32(control[5]) == _F32(0.0)
+        and _F32(control[13]) > _F32(params.collision_margin)
+        and not refreshed
+        and control[17] == 0.0
+    )
 
 
 def select_path(world: World, cap: Capacity) -> str:
@@ -214,11 +366,13 @@ def select_path(world: World, cap: Capacity) -> str:
     ("fused"), a contact-only scene with N <= 16384 and G % 8 == 0 the grid
     tier ("grid"); "pallas" forces the fused path and "grid" the grid tier,
     each raising the reference's ValueError on a scene it does not cover;
-    "xla" (the portable ``_step_impl``) is not ported, so a jointed scene
-    above 2048 bodies raises as a contact-only one outside both tiers does.
-    Nor is the swept broadphase (the reference's refresh with
-    ``window=cap.bp_window``, solver.py:377-380): ``cap.bp_window > 0``
-    raises too, rather than stepping with the matrix broadphase."""
+    "xla" forces the portable path ("xla"), which "auto" also takes for
+    every scene neither covers (a jointed world above 2048 bodies, a
+    contact-only one above 16384 bodies or with G % 8 != 0), as the
+    reference does off the TPU.  The swept broadphase (the reference's
+    refresh with ``window=cap.bp_window``, solver.py:377-380) is not
+    ported: ``cap.bp_window > 0`` raises rather than stepping with the
+    matrix broadphase."""
     b = world.bodies
     supports_fused = b.n <= 2048
     supports_grid = (b.n <= 16384 and b.g % 8 == 0 and world.joints.dj == 0
@@ -227,7 +381,7 @@ def select_path(world: World, cap: Capacity) -> str:
         raise NotImplementedError(
             f"cap.bp_window={cap.bp_window} > 0 (the swept broadphase) is not ported")
     if cap.backend == "xla":
-        raise NotImplementedError("backend='xla' (the portable _step_impl) is not ported")
+        return "xla"
     if cap.backend == "pallas":
         if not supports_fused:
             raise ValueError(
@@ -247,9 +401,7 @@ def select_path(world: World, cap: Capacity) -> str:
         return "fused"
     if supports_grid:
         return "grid"
-    raise NotImplementedError(
-        f"n={b.n}, G={b.g}: the reference runs this scene on its XLA path, "
-        "which is not ported")
+    return "xla"
 
 
 def _grid_step(world: World, params: SolverParams, cap: Capacity) -> World:
@@ -271,18 +423,13 @@ def _grid_step(world: World, params: SolverParams, cap: Capacity) -> World:
 
 def step(world: World, params: SolverParams, cap: Capacity) -> World:
     """Advance one step (solver.step of the reference): fall-freeze, then
-    the grid tier or, on the fused path, the scalar-gated broadphase refresh
-    and the ballistic fast path (worlds without joints or springs only, as
-    the reference's ``ballistic_able``) or the fused step.
+    the grid tier or, on the fused and portable paths, the scalar-gated
+    broadphase refresh and the ballistic fast path (worlds without joints or
+    springs only, as the reference's ``ballistic_able``) or the fused step
+    (``solver_cuda.step_fused``) or the portable one (``_step_impl``).
     ``step.last_path`` names the path taken."""
     if params.fall_freeze_y > -1.0e8:
-        b = world.bodies
-        frozen = b.dynamic & (b.pos[1] < params.fall_freeze_y)
-        world = world.replace(bodies=b.replace(
-            linvel=torch.where(frozen[None], 0.0, b.linvel),
-            angvel=torch.where(frozen[None], 0.0, b.angvel),
-            inv_mass=torch.where(frozen, 0.0, b.inv_mass),
-        ))
+        world = freeze_fallen(world, params)
     step.last_path = select_path(world, cap)
     if step.last_path == "grid":
         return _grid_step(world, params, cap)
@@ -291,22 +438,27 @@ def step(world: World, params: SolverParams, cap: Capacity) -> World:
     bp, refreshed = refresh_scalar(world.bp, dv, world.bodies, world.exclusions,
                                    cap.max_degree, params.bp_margin)
     world = world.replace(bp=bp)
-
-    ballistic_ok = bool(
-        params.ballistic
-        and world.joints.dj == 0
-        and world.springs.ds == 0
-        and _F32(dv[5]) == _F32(0.0)
-        and _F32(dv[13]) > _F32(params.collision_margin)
-        and not refreshed
-        and dv[17] == 0.0
-    )
-    step.last_gates = {"refreshed": refreshed, "ballistic": ballistic_ok}
-    if ballistic_ok:
+    ballistic = ballistic_ok(params, world, dv, refreshed)
+    step.last_gates = {"refreshed": refreshed, "ballistic": ballistic}
+    if ballistic:
         return _ballistic_step(world, params)
     stale_ok, calm = control_gates(dv, refreshed, params)
     step.last_gates.update(stale_ok=stale_ok, calm=calm)
+    if step.last_path == "xla":
+        return _step_impl(world, params, cap, refreshed=refreshed, control=dv)
     return solver_cuda.step_fused(world, params, cap, stale_ok, calm)
+
+
+def freeze_fallen(world: World, params: SolverParams) -> World:
+    """The fall-freeze pre-pass (config.fall_freeze_y): bodies below it
+    become static with zeroed velocities."""
+    b = world.bodies
+    frozen = b.dynamic & (b.pos[1] < params.fall_freeze_y)
+    return world.replace(bodies=b.replace(
+        linvel=torch.where(frozen[None], 0.0, b.linvel),
+        angvel=torch.where(frozen[None], 0.0, b.angvel),
+        inv_mass=torch.where(frozen, 0.0, b.inv_mass),
+    ))
 
 
 step.host_reads = 0

@@ -56,7 +56,7 @@ from .maths import solve66_cm
 from .ops import replicated as rep
 from .ops.broadphase import bp_probe as bp_probe_math
 from .ops.broadphase import control_lanes as control_lanes_math
-from .ops.broadphase import symmetric_filter
+from .ops.broadphase import gather, symmetric_filter
 from .ops.joints import (joint_accumulate, joint_decay, joint_dual, joint_dual_ema,
                          joint_force, joint_geometry)
 from .ops.springs import spring_accumulate, spring_decay, spring_force, spring_geometry
@@ -299,26 +299,53 @@ def _add_rows(rhs_l, rhs_a, a_ll, a_la, a_aa, acc):
         a_la[k] = a_la[k] + acc["m_la"][k]
 
 
+def _and(a, b):
+    """``a & b`` for plan entries that are Python bools or bool tensors."""
+    if a is False or b is False:
+        return False
+    if a is True:
+        return b
+    return a if b is True else a & b
+
+
+def _sel(c, a, b):
+    """``torch.where(c, a, b)`` for a plan entry ``c``; a Python bool picks
+    a side without computing anything."""
+    if c is True:
+        return a
+    if c is False:
+        return b
+    return torch.where(c, a, b)
+
+
 def sweeps(params: SolverParams, cache: Contacts, b, consts, ip, iq, pos, quat,
-           lam, pen, stick, plan, partner=None, rows: RowState = None):
+           lam, pen, stick, plan, partner=None, rows: RowState = None, gather=gather,
+           own_iota=None, san=None):
     """The sweeps of phase 4 (solver.cpp:340-431), one per entry (alpha,
-    do_dual, rebuild, ramp) of ``plan``: contact rows and primal force at
-    the current geometry, the 6x6 Hessian (rebuilt where ``rebuild``, and
-    always on the first sweep: nothing carries in), then the primal solve
-    and relaxed pose update, then geometry at the new poses and the dual
-    update (penalty ramped where ``do_dual`` and ``ramp``).  Geometry starts
-    at ``pos``/``quat``.  ``partner(pos, quat)`` returns the slots' partner
-    poses for ``rep.geometry_pose`` (default: the current poses of all
-    bodies).
+    do_dual, rebuild, ramp[, active]) of ``plan``: contact rows and primal
+    force at the current geometry, the 6x6 Hessian (rebuilt where
+    ``rebuild``, and always on the first sweep: nothing carries in), then
+    the primal solve and relaxed pose update, then geometry at the new poses
+    and the dual update (penalty ramped where ``do_dual`` and ``ramp``).
+    Geometry starts at ``pos``/``quat``.  ``partner(pos, quat)`` returns the
+    slots' partner poses for ``rep.geometry_pose`` (default: the current
+    poses of all bodies, read through ``gather``).
 
     ``rows`` (a jointed world): contacts stay Jacobi at the sweep-start
     geometry, and the primal solve runs ``rows.n_colors`` Gauss-Seidel
     sub-passes, each evaluating the joint and spring rows at the newest
     poses, adding their terms after the contact and inertia terms, and
     moving only the bodies of its colour (_kernel_b_math 467-541); the joint
-    dual follows the contact dual (565-573).  Returns (pos, quat, lam, pen,
-    stick, geom, (j_lam, j_pen) or None) with ``geom`` the last dual pass's
-    geometry."""
+    dual follows the contact dual (565-573).
+
+    The portable step (``solver._step_body``) passes its seams (``gather``,
+    ``own_iota``: a body-sharded world), a ``san`` counter, with which each
+    sweep's poses are sanitized against the sweep's start (the reference's
+    _step_impl; K1 sanitizes once after the sweeps), and, under
+    ``torch.func.vmap``, plan entries that are per-world bool / float
+    tensors; ``active`` False keeps a world's carry (past its own last
+    sweep).  Returns (pos, quat, lam, pen, stick, geom, (j_lam, j_pen) or
+    None, san) with ``geom`` the last dual pass's geometry."""
     dt = params.dt
     inv_dt2 = 1.0 / (dt * dt)
     relax = params.relaxation
@@ -327,7 +354,7 @@ def sweeps(params: SolverParams, cache: Contacts, b, consts, ip, iq, pos, quat,
     inv_inertia = tuple(b.inv_inertia[k] for k in range(3))
     dyn = b.inv_mass > 0.0
     dynf = dyn.to(torch.float32)
-    static = rep.geometry_static(cache, consts)
+    static = rep.geometry_static(cache, consts, own_iota)
     joints = rows.joints if rows is not None else None
     springs = rows.springs if rows is not None else None
     ncol = rows.n_colors if rows is not None else 1
@@ -336,18 +363,27 @@ def sweeps(params: SolverParams, cache: Contacts, b, consts, ip, iq, pos, quat,
 
     def geom_at(p, q):
         return rep.geometry_pose(cache, static, {"pos": p, "quat": q}, consts,
-                                 None if partner is None else partner(p, q))
+                                 None if partner is None else partner(p, q), gather)
 
     geom = geom_at(pos, quat)
     mat = None
-    for alpha, do_dual, rebuild, ramp in plan:
-        alpha_t = torch.tensor(alpha, dtype=torch.float32, device=mass.device)
+    for entry in plan:
+        alpha, do_dual, rebuild, ramp = entry[:4]
+        active = entry[4] if len(entry) > 4 else True
+        carry = (pos, quat, lam, pen, stick, j_lam, j_pen, san)
+        alpha_t = torch.as_tensor(alpha, dtype=torch.float32, device=mass.device)
         rows_c = rep.eval_rows(geom, cache, consts, lam, pen, stick, alpha_t, params)
         f = rep.primal_force(rows_c, pen)
-        if rebuild or mat is None:
+
+        def fresh_mat():
             iiw = _world_inertia_comps(quat, inv_inertia)
             m = rep.body_matrix(geom, f, pen, iiw)
-            mat = m["m_ll"] + m["m_la"] + m["m_aa"] + m["gyro"]
+            return m["m_ll"] + m["m_la"] + m["m_aa"] + m["gyro"]
+
+        if mat is None or rebuild is True:
+            mat = fresh_mat()
+        elif rebuild is not False:
+            mat = [torch.where(rebuild, x, y) for x, y in zip(fresh_mat(), mat)]
         m_ll, m_la, m_aa, gyro = mat[:6], mat[6:15], mat[15:21], mat[21:24]
         forces = rep.body_forces(geom, f)
 
@@ -356,10 +392,10 @@ def sweeps(params: SolverParams, cache: Contacts, b, consts, ip, iq, pos, quat,
             cur = {"pos": cur_pos, "quat": cur_quat}
             accs = []
             if joints is not None:
-                jg = joint_geometry(joints, cur)
+                jg = joint_geometry(joints, cur, gather)
                 accs.append(joint_accumulate(jg, joint_force(jg, joints, j_lam, j_pen), j_pen))
             if springs is not None:
-                sg = spring_geometry(springs, cur)
+                sg = spring_geometry(springs, cur, gather)
                 accs.append(spring_accumulate(sg, spring_force(sg, rows.s_pen), rows.s_pen))
 
             iw = _world_inertia_comps(cur_quat, inertia)
@@ -401,56 +437,63 @@ def sweeps(params: SolverParams, cache: Contacts, b, consts, ip, iq, pos, quat,
             cur_pos = new_pos
             cur_quat = tuple(torch.where(applyb, nq[k], cur_quat[k]) for k in range(4))
         new_pos, nq = cur_pos, cur_quat
+        if san is not None:
+            new_pos, san = _san(new_pos, pos, san)
+            nq, san = _san(nq, quat, san)
 
         geom = geom_at(new_pos, nq)
         rows2 = rep.eval_rows(geom, cache, consts, rows_c["lam"], pen,
                               rows_c["stick"], alpha_t, params)
         lam2, pen2, stick2 = rep.dual_update(rows2, geom, pen, params.beta, params)
-        lam = lam2 if do_dual else rows2["lam"]
-        if do_dual and ramp:
-            pen = pen2
-        stick = stick2 if do_dual else rows2["stick"]
-        if joints is not None and do_dual:
+        lam = _sel(do_dual, lam2, rows2["lam"])
+        pen = _sel(_and(do_dual, ramp), pen2, pen)
+        stick = _sel(do_dual, stick2, rows2["stick"])
+        if joints is not None and do_dual is not False:
             # Joint rows are fresh in every sub-pass, so their ramp runs every
             # iteration (the reference's 565-573).
-            jg2 = joint_geometry(joints, {"pos": new_pos, "quat": nq})
-            j_lam, j_pen = joint_dual(jg2, joints, j_lam, j_pen, params.beta, params)
+            jg2 = joint_geometry(joints, {"pos": new_pos, "quat": nq}, gather)
+            j_lam2, j_pen2 = joint_dual(jg2, joints, j_lam, j_pen, params.beta, params)
+            j_lam, j_pen = _sel(do_dual, j_lam2, j_lam), _sel(do_dual, j_pen2, j_pen)
         pos, quat = new_pos, nq
+        if active is not True:
+            # Past this world's last sweep: keep its state (the geometry and
+            # the Hessian are no longer read).
+            new = (pos, quat, lam, pen, stick, j_lam, j_pen, san)
+            pos, quat, lam, pen, stick, j_lam, j_pen, san = (
+                None if x is None else
+                tuple(_sel(active, a, b) for a, b in zip(x, y)) if isinstance(x, tuple)
+                else _sel(active, x, y) for x, y in zip(new, carry))
     jout = (j_lam, j_pen) if joints is not None else None
-    return pos, quat, lam, pen, stick, geom, jout
+    return pos, quat, lam, pen, stick, geom, jout, san
 
 
-def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
-               k_rebuild: int, joints=None, springs=None, n_colors: int = 1):
-    """Phases 3-6 (the second half of K1; the reference's
-    ``_kernel_b_math``), with the joint and spring rows of ``joints`` /
-    ``springs`` (None or empty for a contact-only world) in ``n_colors``
-    sub-passes.
-
-    ``n_main``: main iterations; ``k_rebuild``: Hessian cadence.  Returns
-    (pos, quat, linvel, angvel, prev_linvel, prev_angvel, lam, penalty,
-    stick (f32), diag (8, 128) with lanes 0-8 filled, j_lam, j_pen, s_pen),
-    the last three None where the world has no joints / springs."""
-    dt = params.dt
+def iteration_plan(params: SolverParams, n_main: int, k: int):
+    """One (alpha, do_dual, rebuild, ramp) per iteration of a step with
+    ``n_main`` main iterations (and the post-stabilize one) at Hessian
+    cadence ``k``: rebuild at block heads, ramp at block tails and on the
+    last iteration (the folded form of the reference's solver.py:702-735)."""
     iters_end = n_main + (1 if params.post_stabilize else 0)
+    plan = []
+    for it in range(iters_end):
+        alpha = (1.0 if it < n_main else 0.0) if params.post_stabilize else params.alpha
+        plan.append((alpha, it < n_main, it % k == 0, (it % k == k - 1) or (it == iters_end - 1)))
+    return plan
+
+
+def predict_cm(b, params: SolverParams):
+    """Phase 3, inertial prediction (solver.cpp:299-337), in component
+    form: (linvel, angvel, inertial pos, inertial quat, the accel-weighted
+    start pos, sanitized count), the velocities sanitized (the angular one
+    clamped first)."""
+    dt = params.dt
     grav = params.gravity
     g_len = float(sum(x * x for x in grav) ** 0.5)
     ghat = tuple(x / g_len for x in grav) if g_len > 1e-5 else (0.0, 0.0, 0.0)
-    k_re = max(1, k_rebuild)
-
     pos0 = tuple(b.pos[k] for k in range(3))
     quat0 = tuple(b.quat[k] for k in range(4))
-    mass, inv_mass = b.mass, b.inv_mass
-    dyn = inv_mass > 0.0
+    dyn = b.inv_mass > 0.0
     dynf = dyn.to(torch.float32)
-    san = torch.zeros((), dtype=torch.float32, device=mass.device)
-
-    body = {"pos": pos0, "quat": quat0, "inv_mass": inv_mass,
-            "friction": b.friction}
-    consts = rep.pair_constants(cache.other, body)
-    rows = row_state(joints, springs, n_colors, params)
-
-    # ---- phase 3: prediction (solver.cpp:299-337) ----
+    san = torch.zeros((), dtype=torch.float32, device=b.mass.device)
     lv_in = tuple(b.linvel[k] for k in range(3))
     av_in = tuple(b.angvel[k] for k in range(3))
     plv = tuple(b.prev_linvel[k] for k in range(3))
@@ -480,21 +523,47 @@ def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
         aw = torch.clamp(cm.div(proj, g_len), 0.0, 1.0)
         aw = torch.where(torch.isfinite(aw), aw, 0.0)
     else:
-        aw = torch.zeros_like(mass)
+        aw = torch.zeros_like(b.mass)
     ps = tuple(pos0[k] + (lv[k] * dt + grav[k] * (aw * dt * dt)) * dynf
                for k in range(3))
     ps, san = _san(ps, pos0, san)
+    return lv, av, ip, iq, ps, san
+
+
+def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
+               k_rebuild: int, joints=None, springs=None, n_colors: int = 1):
+    """Phases 3-6 (the second half of K1; the reference's
+    ``_kernel_b_math``), with the joint and spring rows of ``joints`` /
+    ``springs`` (None or empty for a contact-only world) in ``n_colors``
+    sub-passes.
+
+    ``n_main``: main iterations; ``k_rebuild``: Hessian cadence.  Returns
+    (pos, quat, linvel, angvel, prev_linvel, prev_angvel, lam, penalty,
+    stick (f32), diag (8, 128) with lanes 0-8 filled, j_lam, j_pen, s_pen),
+    the last three None where the world has no joints / springs."""
+    dt = params.dt
+    k_re = max(1, k_rebuild)
+
+    pos0 = tuple(b.pos[k] for k in range(3))
+    quat0 = tuple(b.quat[k] for k in range(4))
+    mass, inv_mass = b.mass, b.inv_mass
+    dyn = inv_mass > 0.0
+    dynf = dyn.to(torch.float32)
+
+    body = {"pos": pos0, "quat": quat0, "inv_mass": inv_mass,
+            "friction": b.friction}
+    consts = rep.pair_constants(cache.other, body)
+    rows = row_state(joints, springs, n_colors, params)
+
+    # ---- phase 3: prediction (solver.cpp:299-337) ----
+    lv_in = tuple(b.linvel[k] for k in range(3))
+    av_in = tuple(b.angvel[k] for k in range(3))
+    plv = tuple(b.prev_linvel[k] for k in range(3))
+    lv, av, ip, iq, ps, san = predict_cm(b, params)
 
     # ---- phase 4: the iterative solve (solver.cpp:340-431) ----
-    plan = []
-    for it in range(iters_end):
-        if params.post_stabilize:
-            alpha_cur = 1.0 if it < n_main else 0.0
-        else:
-            alpha_cur = params.alpha
-        plan.append((alpha_cur, it < n_main, it % k_re == 0,
-                     (it % k_re == k_re - 1) or (it == iters_end - 1)))
-    pos, quat, lam, pen, stick, geom, jout = sweeps(
+    plan = iteration_plan(params, n_main, k_re)
+    pos, quat, lam, pen, stick, geom, jout, _ = sweeps(
         params, cache, b, consts, ip, iq, ps, iq, cache.lam, cache.penalty,
         cache.stick, plan, rows=rows)
 
@@ -661,16 +730,24 @@ solve_loop.launches = 0
 
 
 def control_lanes_plain(nb, b, anchor, anchor_quat, params: SolverParams):
-    """Plain version of K2 on the Bodies ``b``."""
-    return control_lanes_math(
-        nb, tuple(b.pos[k] for k in range(3)), tuple(b.quat[k] for k in range(4)),
-        tuple(b.size[k] * 0.5 for k in range(3)), b.radius,
-        tuple(b.linvel[k] for k in range(3)), tuple(b.angvel[k] for k in range(3)),
-        b.inv_mass > 0.0, anchor, anchor_quat, params)
+    """Plain version of K2 on the Bodies ``b``; with a leading batch axis on
+    every operand, each world's lanes (vmapped)."""
+
+    def lanes(nb, pos, quat, size, radius, linvel, angvel, inv_mass, anchor, anchor_quat):
+        return control_lanes_math(
+            nb, tuple(pos[k] for k in range(3)), tuple(quat[k] for k in range(4)),
+            tuple(size[k] * 0.5 for k in range(3)), radius,
+            tuple(linvel[k] for k in range(3)), tuple(angvel[k] for k in range(3)),
+            inv_mass > 0.0, anchor, anchor_quat, params)
+
+    ops = (nb, b.pos, b.quat, b.size, b.radius, b.linvel, b.angvel, b.inv_mass, anchor,
+           anchor_quat)
+    return torch.func.vmap(lanes)(*ops) if nb.dim() == 4 else lanes(*ops)
 
 
 def control_lanes(nb, b, anchor, anchor_quat, params: SolverParams):
-    """K2: the (5,) f32 control block (diagnostics lanes 11-15) on ``b``."""
+    """K2: the (5,) f32 control block (diagnostics lanes 11-15) on ``b``,
+    or (B, 5) for a batch of B worlds (one launch)."""
     if b.pos.device.type == "cpu":
         return control_lanes_plain(nb, b, anchor, anchor_quat, params)
     from . import kernels

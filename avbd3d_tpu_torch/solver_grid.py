@@ -133,7 +133,7 @@ def iterblock_grid_plain(params: SolverParams, gb: int, spec, contacts: Contacts
                 "quat": tuple(torch.where(same, gather(q[k], idx), lag_quat[k])
                               for k in range(4))}
 
-    p, q, lam, pen, stick, geom, _ = solver_cuda.sweeps(
+    p, q, lam, pen, stick, geom, _, _ = solver_cuda.sweeps(
         params, contacts, b, consts, tuple(ip[k] for k in range(3)),
         tuple(iq[k] for k in range(4)), start_pos, start_quat, lam, pen,
         stickf > 0.5, spec, partner)
@@ -206,6 +206,7 @@ def step_grid(world: World, params: SolverParams, cap: Capacity, stale_ok: bool,
     pos_f, sanitized = _sanitize(pos.reshape(3, n).T, pos0, sanitized)
     quat_f, sanitized = _sanitize(quat.reshape(4, n).T, quat0, sanitized)
     contacts = contacts.replace(lam=lam, penalty=pen, stick=stickf > 0.5)
-    return finalize(world, b, contacts, pos_f, quat_f, pos0, quat0, linvel, angvel,
+    return finalize(world, b, contacts, world.joints, world.springs, pos_f, quat_f, pos0,
+                    quat0, linvel, angvel,
                     lam, sep, once, overflow, sanitized, params,
                     degree_overflow=dropped)

@@ -96,6 +96,21 @@
    a trace) in this tree and, where an archive of the parent commit lies in
    ``_archive/parent`` (git-ignored), in that tree too, in turns within
    this one run.
+14. The portable path (``backend="xla"``) on Stress1000, 300 steps from step
+   0 through the landing: one host read and one K2 launch a step, no other
+   kernel, sanitized 0, overflow 0; one step from its landing state and
+   from the settled state on both paths: candidate lists and contact counts
+   identical, poses within the reference's backend bound (2e-3 m); its
+   ms/step and kernel launches a step.
+15. A jointed world above 2048 bodies (150 RodJointed chains, N = 3072,
+   the default 10 iterations) under ``"auto"``: the portable path, 200
+   steps, K2 once a step,
+   sanitized 0, degree overflow 0, RodJointed's weld gates at step 200.
+16. ``parallel.batched_step`` over 16 kicked Stress1000 worlds: 3 steps,
+   each world equal to its own single run, K2 once a batched step (one
+   launch for the whole batch) and no other kernel, K2's batched lanes
+   against its plain version; then 100 timed batched steps from the
+   landing state (world-steps/s, launches and host reads a step).
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -324,8 +339,16 @@ def one_kernel_times(card, what, kernel, call, plain, reps=100) -> dict:
     ms = event_ms(call, reps)
     plain_ms = event_ms(plain, 20)
     t = trace_kernels(call, reps)
-    # The profiler may drop an event of the many (a count of 0.99 a call),
-    # so the count a call is rounded and the time taken per traced launch.
+    # The profiler may drop events: one of the many (a count of 0.99 a
+    # call), so the count a call is rounded and the time taken per traced
+    # launch; or most of them on some runs (42 of 100 seen), so a trace that
+    # holds no other kernel and fewer launches than calls is taken again, up
+    # to twice, and then held as it is.
+    for _ in range(2):
+        if not set(t) <= {kernel} or (t and round(t[kernel][1]) >= 1):
+            break
+        print(f"{what}: the trace lost records ({t}); tracing again")
+        t = trace_kernels(call, reps)
     if set(t) != {kernel} or round(t[kernel][1]) != 1:
         fail(f"{what}: the trace shows {t}, expected one {kernel} a call")
     us = t[kernel][0] / t[kernel][1]
@@ -1252,6 +1275,361 @@ def app_phase(card, scene, landing, settled):
             "launches_per_step": r["launches"] / 50, "own_per_step": step_kernels / 50}
 
 
+# ---------------------------------------------------------------------------
+# The portable path (phases 14-16): backend="xla" on Stress1000, a jointed
+# world above 2048 bodies under "auto", and a batch of 16 worlds
+# ---------------------------------------------------------------------------
+
+# The reference's bound between two backends of the same solver
+# (tests/test_pallas_backend.py): one step from one state.
+BACKEND_BOUND = 2e-3
+BATCH = 16
+
+
+def device_launches(fn, reps: int) -> tuple:
+    """(kernels launched on the card, their device us) per call of ``fn``,
+    from a torch.profiler trace of ``reps`` calls (copies and memsets not
+    counted)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from avbd3d_tpu_torch.utils import profile_phases
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and profile_phases.device_time_us(e) > 0.0
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    return (sum(e.count for e in rows) / reps,
+            sum(profile_phases.device_time_us(e) for e in rows) / reps)
+
+
+def expect_only_k2(label, launches, n_steps):
+    """The portable path launches K2 once a step and no other kernel."""
+    want = dict.fromkeys(launches, 0)
+    want["control_lanes"] = n_steps
+    if launches != want:
+        fail(f"{label}: launch counts {launches}, expected {want}")
+
+
+def portable_phase(card, settled) -> dict:
+    """Phase 14: Stress1000 on the portable path (``backend="xla"``) from
+    step 0 through the landing, 300 steps, counters reset before and read
+    after: sanitized 0, pair and degree overflow 0, finite poses, one host
+    read and one K2 launch a step (the ballistic steps' lanes and
+    ``attach_control``'s), no other kernel.  Then one step from its landing
+    state (step 150) and from the fused path's settled state (step 700) on
+    both paths: candidate lists, contact counts and manifold counts
+    identical, poses within BACKEND_BOUND."""
+    import torch
+
+    from avbd3d_tpu_torch import load_scene, solver
+
+    scene = load_scene("Stress1000", device="cuda")
+    p, cap = scene.params, scene.cap.replace(backend="xla")
+    w = scene.world
+    reset_counts()
+    solver.step.host_reads = 0
+    gates = {"ballistic": 0, "full": 0, "refreshed": 0}
+    worst = torch.zeros(16, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    saved = {}
+    sync()
+    t0 = time.perf_counter()
+    for i in range(300):
+        w = solver.step(w, p, cap)
+        if solver.step.last_path != "xla":
+            fail(f"portable path: step {i + 1} took {solver.step.last_path}")
+        g = solver.step.last_gates
+        gates["ballistic" if g["ballistic"] else "full"] += 1
+        gates["refreshed"] += int(g["refreshed"])
+        worst = torch.maximum(worst, w.diagnostics.vec)
+        finite &= torch.isfinite(w.bodies.pos).all() & torch.isfinite(w.bodies.quat).all()
+        if i + 1 == 150:
+            saved["landing"] = w
+    sync()
+    t_run = time.perf_counter() - t0
+    launches, reads = read_counts(), solver.step.host_reads
+    expect_only_k2("portable path", launches, 300)
+    if reads != 300:
+        fail(f"portable path: {reads} host reads in 300 steps")
+    worst = worst.tolist()
+    if not bool(finite) or worst[8] != 0.0 or worst[9] + worst[10] != 0.0:
+        fail(f"portable path: finite {bool(finite)}, sanitized {worst[8]}, overflow pair "
+             f"{worst[9]} degree {worst[10]}")
+    d = w.diagnostics.as_dict()
+    print(f"[{card}] portable path (backend='xla'), Stress1000 steps 1-300: {t_run:.2f} s = "
+          f"{1000 * t_run / 300:.1f} ms/step; gates {gates}; K2 launches "
+          f"{launches['control_lanes']}, host reads {reads} (one a step); sanitized 0, "
+          f"overflow 0; max penetration {worst[0]:.6f} over the landing cascade; step 300: "
+          f"{int(d['active_manifolds'])} manifolds, max_pen {d['max_penetration']:.6f}")
+
+    worst_d = 0.0
+    for label, state in (("landing (portable step 150)", saved["landing"]),
+                         ("settled (fused step 700)", settled)):
+        wx = solver.step(state, p, cap)
+        wf = solver.step(state, p, scene.cap)
+        if solver.step.last_path != "fused":
+            fail(f"{label}: the fused step took {solver.step.last_path}")
+        same = (torch.equal(wx.bp.nb, wf.bp.nb) and torch.equal(wx.contacts.count, wf.contacts.count)
+                and torch.equal(wx.contacts.other, wf.contacts.other)
+                and torch.equal(wx.diagnostics.vec[5:7], wf.diagnostics.vec[5:7]))
+        dpos = float_diff(wx.bodies.pos, wf.bodies.pos)
+        worst_d = max(worst_d, dpos)
+        print(f"portable vs fused, one step from {label}: candidate lists and contact counts "
+              f"{'identical' if same else 'DIFFER'}; max |pos difference| {dpos:.3e} m "
+              f"(bound {BACKEND_BOUND})")
+        if not same or not dpos < BACKEND_BOUND:
+            fail(f"portable vs fused from {label}: identical {same}, |dpos| {dpos}")
+
+    landing = saved["landing"]
+    ms = event_ms(lambda: solver.step(landing, p, cap), 5)
+    per_step, device_us = device_launches(lambda: solver.step(landing, p, cap), 2)
+    print(f"[{card}] portable step at the landing state: {ms:.2f} ms a step, {per_step:.0f} "
+          f"kernel launches a step ({device_us:.0f} us on the card, "
+          f"{100 * device_us / (1000 * ms):.1f}% busy)")
+    return {"landing": landing, "launches": launches["control_lanes"], "steps": 300,
+            "ms_per_step": 1000 * t_run / 300, "landing_ms": ms, "launches_per_step": per_step,
+            "max_abs_err_vs_fused": worst_d}
+
+
+def chains_world(n_chains=150, segments=15, device="cuda"):
+    """``n_chains`` copies of RodJointed's chain (a static top segment and
+    14 hard-welded 0.25 x 1 x 0.25 segments below it) in a 15-wide grid at
+    1 m pitch: 2250 bodies, N = 3072, 2100 hard welds, 2 colours; built as
+    ``sheets_world`` is, with the default SolverParams: 10 iterations (20
+    on impact steps), half RodJointed's 20, so that the whole script stays
+    within its time limit on a slow host; the welds still close far inside
+    the gate (PERF.md)."""
+    from avbd3d_tpu_torch import SceneBuilder, SolverParams
+    from avbd3d_tpu_torch.convert import world_from_arrays
+
+    sb = SceneBuilder()
+    for c in range(n_chains):
+        x, z = float(c % 15), float(c // 15)
+        prev = None
+        for i in range(segments):
+            cur = sb.add_body((0.25, 1, 0.25), 0.0 if i == 0 else 1.0, 0.5, (x, 10.0 - i, z))
+            if prev is not None:
+                sb.add_joint(prev, cur, (0, -0.5, 0), (0, 0.5, 0))
+            prev = cur
+    arrays, p, cap, n_real = sb.build(SolverParams())
+    return world_from_arrays(arrays, device), p, cap, n_real
+
+
+def chains_phase(card) -> dict:
+    """Phase 15: a jointed world above 2048 bodies under ``"auto"`` takes
+    the portable path.  150 RodJointed chains, 200 steps, counters reset
+    before and read after: every step "xla", K2 once a step, sanitized 0,
+    degree overflow 0, finite poses, and RodJointed's weld gates at step
+    200 (static tops in place, every welded anchor gap < 0.02)."""
+    import numpy as np
+    import torch
+
+    from avbd3d_tpu_torch import solver
+
+    w, p, cap, n_real = chains_world()
+    shape = (n_real, w.bodies.n, w.joints.dj, int((w.joints.other >= 0).sum()) // 2,
+             cap.joint_colors)
+    if shape != (2250, 3072, 2, 2100, 2) or solver.select_path(w, cap) != "xla":
+        fail(f"chains: not N = 3072 / 2100 welds / 2 colours on the portable path: {shape}, "
+             f"{solver.select_path(w, cap)}")
+    top0 = w.bodies.pos_n3[0:n_real:15].clone()
+    reset_counts()
+    solver.step.host_reads = 0
+    worst = torch.zeros(16, device="cuda")
+    sync()
+    t0 = time.perf_counter()
+    for i in range(200):
+        w = solver.step(w, p, cap)
+        if solver.step.last_path != "xla":
+            fail(f"chains: step {i + 1} took {solver.step.last_path}")
+        worst = torch.maximum(worst, w.diagnostics.vec)
+    sync()
+    t_run = time.perf_counter() - t0
+    launches, reads = read_counts(), solver.step.host_reads
+    expect_only_k2("chains", launches, 200)
+    worst = worst.tolist()
+    finite = bool(torch.isfinite(w.bodies.pos).all() & torch.isfinite(w.bodies.quat).all())
+    if reads != 200 or not finite or worst[8] != 0.0 or worst[10] != 0.0:
+        fail(f"chains: host reads {reads}, finite {finite}, sanitized {worst[8]}, degree "
+             f"overflow {worst[10]}")
+    top_move = float((w.bodies.pos_n3[0:n_real:15] - top0).abs().max())
+    pos = w.bodies.pos_n3[:n_real].double().cpu().numpy()
+    quat = w.bodies.quat_n4[:n_real].double().cpu().numpy()
+
+    def anchors(local):
+        v = np.asarray(local, np.float64)
+        qv, qw = quat[:, :3], quat[:, 3:]
+        t = 2.0 * np.cross(qv, v)
+        return pos + v + qw * t + np.cross(qv, t)
+
+    below, above = anchors((0.0, -0.5, 0.0)), anchors((0.0, 0.5, 0.0))
+    link = np.arange(n_real).reshape(150, 15)
+    gaps = np.linalg.norm(below[link[:, :-1]] - above[link[:, 1:]], axis=-1)
+    if top_move > 1e-5 or not gaps.max() < 0.02:
+        fail(f"chains: static tops moved {top_move}, worst welded anchor gap {gaps.max()}")
+    d = w.diagnostics.as_dict()
+    print(f"[{card}] 150 RodJointed chains (N = 3072, 2100 hard welds) under 'auto' -> "
+          f"'xla': 200 steps in {t_run:.2f} s = {1000 * t_run / 200:.1f} ms/step; K2 launches "
+          f"{launches['control_lanes']}, host reads {reads}; sanitized 0, degree overflow 0; "
+          f"step 200: worst welded anchor gap {gaps.max():.2e}, static tops moved "
+          f"{top_move:.1e}, max_lin {d['max_linear_speed']:.2e}")
+    return {"launches": launches["control_lanes"], "ms_per_step": 1000 * t_run / 200,
+            "gap": float(gaps.max())}
+
+
+def kicked_batch(world, batch):
+    """``batch`` copies of ``world``, copy i with its dynamic bodies' x
+    velocity raised by 0.01 i m/s (tests/test_parallel.py's kick)."""
+    import torch
+
+    from avbd3d_tpu_torch.parallel import replicate_world
+
+    worlds = replicate_world(world, batch)
+    kick = torch.arange(batch, dtype=torch.float32, device="cuda") * 0.01
+    dyn = (world.bodies.inv_mass > 0).to(torch.float32)
+    vel = worlds.bodies.linvel.clone()
+    vel[:, 0] += kick[:, None, None] * dyn[None]
+    return worlds.replace(bodies=worlds.bodies.replace(linvel=vel))
+
+
+def compare_k2_batch(worlds, params, label: str) -> float:
+    """K2 on a batch (one launch, a world axis) against its plain version
+    (vmapped) on the same inputs, lane by lane as ``compare_k2`` holds one
+    world, and against one launch per world bit for bit.  Returns the
+    largest difference (lane 3's)."""
+    import torch
+
+    from avbd3d_tpu_torch import solver_cuda
+    from avbd3d_tpu_torch.parallel import world_at
+
+    b, bp = worlds.bodies, worlds.bp
+    lp = solver_cuda.control_lanes_plain(bp.nb, b, bp.anchor, bp.anchor_quat, params)
+    lk = solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, params)
+    ones = torch.stack([solver_cuda.control_lanes(wi.bp.nb, wi.bodies, wi.bp.anchor,
+                                                  wi.bp.anchor_quat, params)
+                        for wi in (world_at(worlds, i) for i in range(lk.shape[0]))])
+    sync()
+    exact = [0, 1, 2, 4]
+    if lk.shape != (BATCH, 5) or not same_bits(lp[:, exact], lk[:, exact]):
+        fail(f"K2 batch {label}: lanes 0, 1, 2, 4 differ in bits from the plain version")
+    err = float((lp[:, 3] - lk[:, 3]).abs().max())
+    if not bool(((lp[:, 3] - lk[:, 3]).abs() <= 1e-6 + 1e-5 * lp[:, 3].abs()).all()):
+        fail(f"K2 batch {label}: lane 3 plain {lp[:, 3].tolist()} vs kernel {lk[:, 3].tolist()}")
+    if not same_bits(lk, ones):
+        fail(f"K2 batch {label}: a world's lanes differ from its own launch")
+    print(f"K2 vs plain, a batch of {lk.shape[0]} worlds in one launch ({label}, N = "
+          f"{bp.nb.shape[-2] * 128}, D = {bp.nb.shape[-3]}): lanes 0, 1, 2, 4 bit-identical, "
+          f"lane 3 abs err {err:.3e}; every world bit-identical to its own launch")
+    return err
+
+
+def batched_phase(card, landing) -> dict:
+    """Phase 16: ``batched_step`` over BATCH Stress1000 worlds that differ
+    by a kick, counters reset before each run and read after.  From the
+    initial state, 3 steps, each world against its own single run on the
+    portable path: integers identical, control lanes within K2's lane
+    bounds, poses within the CPU tests' bound (rtol 1e-5, atol 1e-6); K2
+    launched once a batched step (the whole batch's lanes, after the vmapped
+    step) and no other kernel.  K2's batched lanes against its plain version
+    at the batch's shapes.  Then 100 batched steps from the kicked landing
+    state (step 150) timed: world-steps/s, kernel launches a step, host
+    reads a step (one), K2 launches (100)."""
+    import numpy as np
+    import torch
+
+    from avbd3d_tpu_torch import load_scene, solver
+    from avbd3d_tpu_torch.parallel import batched_step, world_at
+
+    scene = load_scene("Stress1000", device="cuda")
+    p, cap = scene.params, scene.cap.replace(backend="xla")
+    worlds = kicked_batch(scene.world, BATCH)
+    starts = [world_at(worlds, i) for i in range(BATCH)]
+    reset_counts()
+    for _ in range(3):
+        worlds = batched_step(worlds, p, cap)
+    sync()
+    expect_only_k2("batched_step, 3 steps", read_counts(), 3)
+
+    singles = []
+    for w in starts:
+        for _ in range(3):
+            w = solver.step(w, p, cap)
+        singles.append(w)
+    worst = 0.0
+    for i in range(BATCH):
+        wb, single = world_at(worlds, i), singles[i]
+        ints = all(torch.equal(getattr(wb.contacts, k), getattr(single.contacts, k))
+                   for k in ("other", "count", "feature")) and all(
+            torch.equal(getattr(wb.bp, k), getattr(single.bp, k)) for k in ("nb", "key", "thr"))
+        ints = ints and torch.equal(wb.diagnostics.vec[5:11], single.diagnostics.vec[5:11])
+        lanes = bool(torch.allclose(wb.diagnostics.vec[11:], single.diagnostics.vec[11:],
+                                    rtol=1e-5, atol=1e-6))
+        close = all(bool(torch.allclose(getattr(wb.bodies, k), getattr(single.bodies, k),
+                                        rtol=1e-5, atol=1e-6))
+                    for k in ("pos", "quat", "linvel", "angvel"))
+        d = float_diff(wb.bodies.pos, single.bodies.pos)
+        worst = max(worst, d)
+        if not (ints and lanes and close):
+            fail(f"batched world {i}: integers identical {ints}, control lanes within the "
+                 f"bound {lanes}, poses within the bound {close} (|dpos| {d})")
+    if np.allclose(world_at(worlds, 0).bodies.pos.cpu().numpy(),
+                   world_at(worlds, BATCH - 1).bodies.pos.cpu().numpy()):
+        fail("batched: the kick was lost")
+    print(f"batched_step, {BATCH} kicked Stress1000 worlds, 3 steps from the initial state: K2 "
+          f"launched 3 times (once a batched step), no other kernel; every world equals its own "
+          f"single run (integers identical, control lanes and poses within the bound, max "
+          f"|dpos| {worst:.2e})")
+    k2_err = compare_k2_batch(worlds, p, "3 steps from the kicked initial state")
+
+    worlds = kicked_batch(landing, BATCH)
+    worlds = batched_step(worlds, p, cap)
+    k2_err = max(k2_err, compare_k2_batch(worlds, p, "the kicked landing state"))
+    from avbd3d_tpu_torch import solver_cuda
+
+    bb, bbp = worlds.bodies, worlds.bp
+    a2 = (bbp.nb, bb, bbp.anchor, bbp.anchor_quat, p)
+    k2_times = one_kernel_times(
+        card, f"control-lanes kernel (K2, {BATCH} kicked Stress1000 worlds after the landing, "
+        "one launch)", "k_control_lanes", lambda: solver_cuda.control_lanes(*a2),
+        lambda: solver_cuda.control_lanes_plain(*a2))
+    k2_bnd = bound(nbytes(bbp.nb, [getattr(bb, f) for f in ("pos", "quat", "size", "radius",
+                                                             "linvel", "angvel", "inv_mass")],
+                          bbp.anchor, bbp.anchor_quat) + BATCH * 5 * 4,
+                   int((bbp.nb >= 0).sum()) * OPS_CTRL_SLOT)
+    reads0 = batched_step.host_reads
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        worlds = batched_step(worlds, p, cap)
+    sync()
+    t_run = time.perf_counter() - t0
+    launches = read_counts()
+    expect_only_k2("batched_step, 100 steps", launches, 100)
+    reads = (batched_step.host_reads - reads0) / 100
+    vec = worlds.diagnostics.vec
+    finite = bool(torch.isfinite(worlds.bodies.pos).all())
+    if reads != 1 or not finite or float(vec[:, 8].max()) != 0.0:
+        fail(f"batched: host reads a step {reads}, finite {finite}, sanitized "
+             f"{float(vec[:, 8].max())}")
+    per_step, device_us = device_launches(lambda: batched_step(worlds, p, cap), 2)
+    wsps = BATCH * 100 / t_run
+    print(f"[{card}] batched_step, {BATCH} kicked Stress1000 worlds from the landing state, "
+          f"100 steps: {t_run:.2f} s = {wsps:.1f} world-steps/s ({1000 * t_run / 100:.1f} ms a "
+          f"batched step); {per_step:.0f} kernel launches a step ({device_us:.0f} us on the "
+          f"card); K2 launches {launches['control_lanes']}; host reads a step {reads:.0f}; "
+          f"sanitized 0; manifolds per world at the end {int(vec[:, 6].min())}-"
+          f"{int(vec[:, 6].max())}")
+    return {"world_steps_per_s": wsps, "launches_per_step": per_step,
+            "ms_per_step": 1000 * t_run / 100, "max_abs_err": worst, "k2_err": k2_err,
+            "launches": 3 + launches["control_lanes"], "steps": 103, "k2": {
+                **k2_times, "bound_ms": k2_bnd[0], "bound_by": k2_bnd[1]}}
+
+
 def kernel_name(key: str) -> str:
     """A traced kernel's name without its parameter list and, for a
     template (demangled with its return type in front), without ``void``:
@@ -1871,6 +2249,9 @@ def main() -> int:
         "Stress1000 settled, fresh lists of 40 slots": (wide, p),
         "Ground, no slots": (ground.world, ground.params)})
     traced = app_phase(card, scene, saved["landing"], w)
+    portable = portable_phase(card, w)
+    chains = chains_phase(card)
+    batched = batched_phase(card, portable["landing"])
     race = race_phase(card, {"pile": pile_args, "Stress1000 settled": k1_inputs(w, scene),
                              "k6": grid["k6_args"], **jointed["states"],
                              "probe": {"Stress1000 settled": (w, p),
@@ -1941,8 +2322,22 @@ def main() -> int:
                                                       sweeps, rows=True)},
                      **{"collide": collide_extra(sweeps)}),
         kernel_entry("control_lanes", csrc + "control_lanes.cu", "avbd3d_tpu/solver_tpu.py:262",
-                     launches["control_lanes"], k2_err, k2_ms, k2_plain_ms, k2_bnd,
+                     launches["control_lanes"], max(k2_err, batched["k2_err"]), k2_ms,
+                     k2_plain_ms, k2_bnd,
                      kernel="k_control_lanes", kernels_per_call=1,
+                     paths={"fused path": "the ballistic steps (phase 2)",
+                            "portable path": {"launches": portable["launches"],
+                                              "steps": portable["steps"],
+                                              "note": "Stress1000 on backend='xla', phase 14: "
+                                                      "one launch a step"},
+                            "portable path, jointed N = 3072": {
+                                "launches": chains["launches"], "steps": 200},
+                            "batched_step": {
+                                "launches": batched["launches"], "steps": batched["steps"],
+                                "note": f"{BATCH} Stress1000 worlds, phase 16: one launch a "
+                                        "batched step (grid.y = worlds); times at the kicked "
+                                        "landing state",
+                                "max_abs_err": batched["k2_err"], **batched["k2"]}},
                      device_us={k: t["device_us"] for k, t in k2_times.items()},
                      ms_by_state={k: t["ms"] for k, t in k2_times.items()},
                      parent=None if sweeps["ab"] is None else {

@@ -284,8 +284,8 @@ def test_ballistic_gate_off_for_jointed_worlds():
 
 def test_jointed_dispatch():
     """Jointed worlds take the fused path up to 2048 bodies; above it the
-    reference runs its XLA path, which is not ported, and the grid tier is
-    contact-only."""
+    portable path, as the reference runs its XLA path there; the grid tier
+    is contact-only."""
     w = tscenes.load_scene("RodJointed", "cpu")
     assert tsolver.select_path(w.world, w.cap) == "fused"
     sb = tscenes.SceneBuilder()
@@ -295,8 +295,7 @@ def test_jointed_dispatch():
     arrays, _p, cap, _ = sb.build(tconfig.SolverParams())
     big = world_from_arrays(arrays, "cpu")
     assert big.bodies.g % 8 == 0 and big.joints.dj == 1
-    with pytest.raises(NotImplementedError, match="XLA path"):
-        tsolver.select_path(big, cap)
+    assert tsolver.select_path(big, cap) == "xla"
     with pytest.raises(ValueError, match="contact-only"):
         tsolver.select_path(big, cap.replace(backend="grid"))
 

@@ -217,6 +217,34 @@ def test_cuda_control_lanes_match_plain(cuda_stress):
 
 
 @pytest.mark.cuda
+def test_cuda_control_lanes_batch_matches_single_worlds(cuda_stress):
+    """K2 over a batch of 3 worlds (one launch, grid.y = 3) gives each
+    world the bits of its own launch, and the vmapped plain version's lanes
+    0, 1, 2, 4 bit for bit, lane 3 within 1e-5."""
+    from avbd3d_tpu_torch.parallel import replicate_world, world_at
+
+    sc, w = cuda_stress
+    worlds = replicate_world(w, 3)
+    kick = torch.tensor([0.0, 0.5, 3.0], device="cuda")
+    worlds = worlds.replace(bodies=worlds.bodies.replace(
+        linvel=worlds.bodies.linvel + kick[:, None, None, None]))
+    b, bp = worlds.bodies, worlds.bp
+    args = (bp.nb, b, bp.anchor, bp.anchor_quat, sc.params)
+    lk = solver_cuda.control_lanes(*args)
+    lp = solver_cuda.control_lanes_plain(*args)
+    assert lk.shape == (3, 5)
+    for i in range(3):
+        wi = world_at(worlds, i)
+        one = solver_cuda.control_lanes(wi.bp.nb, wi.bodies, wi.bp.anchor, wi.bp.anchor_quat,
+                                        sc.params)
+        assert torch.equal(lk[i].view(torch.int32), one.view(torch.int32)), i
+    exact = [0, 1, 2, 4]
+    assert torch.equal(lk[:, exact].view(torch.int32), lp[:, exact].view(torch.int32))
+    torch.testing.assert_close(lk[:, 3], lp[:, 3], rtol=1e-5, atol=1e-6)
+    assert not torch.equal(lk[0], lk[2])
+
+
+@pytest.mark.cuda
 def test_cuda_bp_probe_matches_plain(cuda_stress):
     """K7 against bp_probe_plain at a landing Stress1000 state and on a
     world without slots: n_slots and near identical, min_sep bit for bit;

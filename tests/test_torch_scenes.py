@@ -83,11 +83,10 @@ def test_forced_backend_errors_match_reference(name, backend):
     assert str(err.value) == want
 
 
-def test_grid_forced_on_a_fused_scene_and_xla_not_ported():
+def test_grid_and_xla_forced_on_a_fused_scene():
     sc = tscenes.load_scene("Stress1000", "cpu")     # G = 8: the grid tier covers it
     assert tsolver.select_path(sc.world, sc.cap.replace(backend="grid")) == "grid"
-    with pytest.raises(NotImplementedError):
-        tsolver.select_path(sc.world, sc.cap.replace(backend="xla"))
+    assert tsolver.select_path(sc.world, sc.cap.replace(backend="xla")) == "xla"
     with pytest.raises(ValueError):
         tsolver.select_path(sc.world, sc.cap.replace(backend="tpu"))
 
