@@ -75,6 +75,16 @@ class Capacity:
     joint_degree: int = 0
     spring_degree: int = 0
     joint_colors: int = 1
+    # Broadphase refresh: 0 = the row-blocked O(N^2) matrix; > 0 = the
+    # sorted-axis sweep with windows of this many sorted columns
+    # (ops/broadphase.candidate_lists_swept), exactness-guarded: where a
+    # window could miss a pair it falls back to the matrix, so the lists
+    # are the matrix's either way.  Each chunk of 128 sorted rows is tested
+    # against one window centred on it, so the window must exceed 128 by
+    # the sorted neighbours the chunk's bodies can touch on each side: a
+    # window <= 128 falls back on every chunk of a dense scene.  Pick
+    # window + 8 (the fat overlay) a multiple of 128, e.g. 248 or 504.
+    # Single-shard only (a body-sharded world keeps the matrix).
     bp_window: int = 0
     backend: str = "auto"
     grid_residency: int = 4

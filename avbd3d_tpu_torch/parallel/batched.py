@@ -19,6 +19,12 @@ the vmapped step, for the whole batch in one launch of K2 (its world axis).
 Each world therefore gets what ``solver.step(world_i, params,
 cap.replace(backend="xla"))`` gives it.
 
+With ``cap.bp_window`` > 0 the refreshing worlds' lists come from the swept
+broadphase (``broadphase.sweep_lists``, vmapped), whose per-world guards are
+read in one more host copy; when any refreshing world's guard fires, the
+matrix runs for the batch and ``torch.where`` keeps each world's own side,
+as the reference's ``vmap`` over ``lax.cond`` does.
+
 ``make_mesh`` / ``shard_batch`` split a batch over devices: a list of
 per-device chunks, which ``batched_step`` also accepts.
 """
@@ -32,7 +38,8 @@ import torch
 
 from .. import solver
 from ..config import Capacity, SolverParams
-from ..ops.broadphase import build_bp_cache, refresh_due
+from ..ops.broadphase import (build_bp_cache, cache_from_lists, candidate_lists_swept,
+                              refresh_due, sweep_lists)
 from ..state import World
 
 _PARTS = ("bodies", "contacts", "joints", "springs", "bp", "diagnostics")
@@ -108,6 +115,49 @@ def _tree_where(c, a, b):
     return {k: torch.where(c, a[k], b[k]) for k in a}
 
 
+def _fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _fresh_caches(worlds: World, params: SolverParams, cap: Capacity, refresh) -> dict:
+    """Every world's fresh broadphase cache (leaves with the batch axis), on
+    its poses after the fall-freeze: the matrix, or with ``cap.bp_window``
+    > 0 the sweep, whose guards (one host read) send the batch through the
+    matrix too when a refreshing world needs the fallback.  The swept
+    broadphase's counters count the refreshing worlds."""
+    one = world_at(worlds, 0)
+    leaves = world_tensors(worlds)
+
+    def frozen(lv):
+        w = with_tensors(one, lv)
+        return solver.freeze_fallen(w, params) if params.fall_freeze_y > -1.0e8 else w
+
+    def matrix(lv):
+        w = frozen(lv)
+        return _fields(build_bp_cache(w.bodies, w.exclusions, cap.max_degree, params.bp_margin))
+
+    if cap.bp_window <= 0:
+        return torch.func.vmap(matrix)(leaves)
+
+    def swept(lv):
+        w = frozen(lv)
+        b = w.bodies
+        lists, info = sweep_lists(b.pos, b.quat, tuple(b.size[k] * 0.5 for k in range(3)),
+                                  b.radius, b.dynamic, w.exclusions, cap.max_degree,
+                                  params.bp_margin, cap.bp_window)
+        return _fields(cache_from_lists(b, lists)), info["need_fallback"]
+
+    fresh, need = torch.func.vmap(swept)(leaves)
+    batched_step.host_reads += 1
+    fallback = [bool(x) and r for x, r in zip(need.cpu(), refresh)]
+    candidate_lists_swept.fallbacks += sum(fallback)
+    candidate_lists_swept.swept += sum(refresh) - sum(fallback)
+    if not any(fallback):
+        return fresh
+    c = torch.tensor(fallback, device=need.device)
+    return torch.func.vmap(_tree_where)(c, torch.func.vmap(matrix)(leaves), fresh)
+
+
 def _read_gates(worlds: World, params: SolverParams) -> dict:
     """The batch's one (B, 18) host read and every world's gates from it,
     exactly as ``solver.step`` takes them."""
@@ -153,6 +203,8 @@ def _launch(worlds: World, params: SolverParams, cap: Capacity, gates: dict) -> 
     per_world = {"refresh": torch.tensor(refresh, device=dev),
                  "ballistic": torch.tensor(ballistic, device=dev),
                  "table": torch.from_numpy(table).to(dev)}
+    if any_refresh:
+        per_world["fresh"] = _fresh_caches(worlds, params, cap, refresh)
     one = world_at(worlds, 0)
 
     def one_world(leaves, flags):
@@ -160,12 +212,8 @@ def _launch(worlds: World, params: SolverParams, cap: Capacity, gates: dict) -> 
         if params.fall_freeze_y > -1.0e8:
             w = solver.freeze_fallen(w, params)
         if any_refresh:
-            fresh = build_bp_cache(w.bodies, w.exclusions, cap.max_degree, params.bp_margin)
             c = True if all(refresh) else flags["refresh"]
-            bp = _tree_where(c, {f.name: getattr(fresh, f.name) for f in
-                                 dataclasses.fields(fresh)},
-                             {f.name: getattr(w.bp, f.name) for f in dataclasses.fields(w.bp)})
-            w = w.replace(bp=w.bp.replace(**bp))
+            w = w.replace(bp=w.bp.replace(**_tree_where(c, flags["fresh"], _fields(w.bp))))
         outs = {}
         if any_ballistic:
             outs["ballistic"] = world_tensors(solver._ballistic_body(w, params))
@@ -191,7 +239,9 @@ def batched_step(worlds, params: SolverParams, cap: Capacity):
     """One step of every world of the batch on the portable path, or of
     every chunk of a ``shard_batch`` list: every chunk's host read first,
     then every chunk's launches, so the devices run their chunks at once.
-    ``batched_step.host_reads`` counts the host reads (one per batch)."""
+    ``batched_step.host_reads`` counts the host reads (one per batch, and
+    one more for the sweep's guards on a refresh with ``cap.bp_window`` >
+    0)."""
     cap = cap.replace(backend="xla")
     chunks = list(worlds) if isinstance(worlds, (list, tuple)) else [worlds]
     gates = [_read_gates(w, params) for w in chunks]

@@ -6,6 +6,9 @@ the host, so each step makes ONE small device-to-host copy and takes every
 gate from it.  All comparisons run in float32 on both sides, as JAX compares
 an f32 lane against a weakly typed Python float (a float64 compare would
 flip a branch at the boundary).  ``step.host_reads`` counts those copies.
+With ``cap.bp_window`` > 0 a step that refreshes its candidate lists makes
+one more, the swept broadphase's guard (counted in
+``broadphase.candidate_lists_swept.host_reads``).
 
 ``select_path`` is the reference's backend dispatch with ``cap.backend``
 honoured:
@@ -338,7 +341,8 @@ def _step_impl(world: World, params: SolverParams, cap: Capacity, gather=gather,
     if refreshed is None:
         control = read_control(world)
         bp, refreshed = refresh_scalar(world.bp, control, world.bodies, world.exclusions,
-                                       cap.max_degree, params.bp_margin, comm)
+                                       cap.max_degree, params.bp_margin, comm,
+                                       0 if comm.n_shards > 1 else cap.bp_window)
         world = world.replace(bp=bp)
     out = _step_body(world, params, cap, plan_for(params, control, refreshed), gather, comm)
     return attach_control(out, params, gather, comm)
@@ -369,17 +373,14 @@ def select_path(world: World, cap: Capacity) -> str:
     "xla" forces the portable path ("xla"), which "auto" also takes for
     every scene neither covers (a jointed world above 2048 bodies, a
     contact-only one above 16384 bodies or with G % 8 != 0), as the
-    reference does off the TPU.  The swept broadphase (the reference's
-    refresh with ``window=cap.bp_window``, solver.py:377-380) is not
-    ported: ``cap.bp_window > 0`` raises rather than stepping with the
-    matrix broadphase."""
+    reference does off the TPU.  ``cap.bp_window`` > 0 takes the same
+    path; every refresh on it is the swept broadphase
+    (``broadphase.candidate_lists_swept``), but a body-sharded world's
+    (``parallel.sharded``), which keeps the matrix."""
     b = world.bodies
     supports_fused = b.n <= 2048
     supports_grid = (b.n <= 16384 and b.g % 8 == 0 and world.joints.dj == 0
                      and world.springs.ds == 0)
-    if cap.bp_window > 0:
-        raise NotImplementedError(
-            f"cap.bp_window={cap.bp_window} > 0 (the swept broadphase) is not ported")
     if cap.backend == "xla":
         return "xla"
     if cap.backend == "pallas":
@@ -416,7 +417,7 @@ def _grid_step(world: World, params: SolverParams, cap: Capacity) -> World:
     step.host_reads += 1
     refreshed, stale_ok, calm = (bool(x) for x in flags.cpu())
     bp, _ = refresh_or_reuse(world.bp, refreshed, b, world.exclusions,
-                             cap.max_degree, params.bp_margin)
+                             cap.max_degree, params.bp_margin, window=cap.bp_window)
     step.last_gates = {"refreshed": refreshed, "stale_ok": stale_ok, "calm": calm}
     return solver_grid.step_grid(world.replace(bp=bp), params, cap, stale_ok, calm)
 
@@ -436,7 +437,7 @@ def step(world: World, params: SolverParams, cap: Capacity) -> World:
 
     dv = read_control(world)
     bp, refreshed = refresh_scalar(world.bp, dv, world.bodies, world.exclusions,
-                                   cap.max_degree, params.bp_margin)
+                                   cap.max_degree, params.bp_margin, window=cap.bp_window)
     world = world.replace(bp=bp)
     ballistic = ballistic_ok(params, world, dv, refreshed)
     step.last_gates = {"refreshed": refreshed, "ballistic": ballistic}

@@ -111,6 +111,18 @@
    launch for the whole batch) and no other kernel, K2's batched lanes
    against its plain version; then 100 timed batched steps from the
    landing state (world-steps/s, launches and host reads a step).
+17. The swept broadphase (``cap.bp_window`` > 0, windows SWEPT_WINDOWS):
+   one refresh at Stress1000's landing and settled states and at settled
+   Stress4096, the sweep on the card against the matrix on the card (lists
+   identical, slack at most the matrix's) and against the sweep's plain
+   run on the CPU (lists identical), with both refreshes' times, kernels
+   and device time; Stress1000 700 steps from step 0 with the sweep (K1 and
+   K2 launched, the sweep taken on most refreshes, the envelope of phase
+   2); Stress4096 200 steps from step 0 on the grid tier (K5 and K6 a step,
+   sanitized 0, overflow 0, the sweep taken on some refreshes: the falling
+   layers need a larger window) and 20 steps from its settled state equal
+   to the matrix's bit for bit, the sweep taken; one refresh of a
+   16384-body pile, timed.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1630,6 +1642,149 @@ def batched_phase(card, landing) -> dict:
                 **k2_times, "bound_ms": k2_bnd[0], "bound_by": k2_bnd[1]}}
 
 
+# ---------------------------------------------------------------------------
+# The swept broadphase (phase 17): cap.bp_window > 0 on the fused path and
+# the grid tier
+# ---------------------------------------------------------------------------
+
+# The windows of phase 17: for each scene the smallest that takes the sweep
+# at its states (utils/sweep_bench.py; PERF.md section 5).
+SWEPT_WINDOWS = {"Stress1000": 504, "Stress4096": 1016, "pile": 4088}
+
+
+def swept_refresh(card, label, world, scene, window) -> dict:
+    """One refresh at ``world``: the sweep on the card against the matrix on
+    the card (lists identical, slack at most the matrix's) and against the
+    sweep's plain run on CPU copies of the same inputs (lists identical);
+    both refreshes' ms (CUDA events), kernels and device us (trace)."""
+    import torch
+
+    from avbd3d_tpu_torch.convert import world_from_arrays, world_to_arrays
+    from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
+    from avbd3d_tpu_torch.utils import sweep_bench
+
+    deg, margin = scene.cap.max_degree, scene.params.bp_margin
+    r = sweep_bench.refresh_pair(world, deg, margin, window, "cuda")
+    host = world_from_arrays(world_to_arrays(world), "cpu")
+    plain = build_bp_cache(host.bodies, host.exclusions, deg, margin, window=window)
+    same_cpu = all(torch.equal(getattr(r["cache"], f).cpu(), getattr(plain, f))
+                   for f in ("nb", "key", "thr", "cand"))
+    print(f"[{card}] swept refresh, {label} (N = {world.bodies.n}, window {window}): "
+          f"{'fell back' if r['fallback'] else 'swept'}; lists vs the matrix on the card "
+          f"{'identical' if r['identical'] else 'DIFFER'}, vs the sweep on the CPU "
+          f"{'identical' if same_cpu else 'DIFFER'}; slack {r['slack']:.6g} (matrix "
+          f"{r['matrix_slack']:.6g}); a refresh: swept {r['swept_ms']:.3f} ms, "
+          f"{r['swept']['launches']:.0f} kernels, {r['swept']['device_us']:.1f} us on the card; "
+          f"matrix {r['matrix_ms']:.3f} ms, {r['matrix']['launches']:.0f} kernels, "
+          f"{r['matrix']['device_us']:.1f} us")
+    if not (r["identical"] and same_cpu and r["slack_ok"]):
+        fail(f"swept refresh, {label}: identical {r['identical']}, vs CPU {same_cpu}, "
+             f"slack {r['slack']} vs {r['matrix_slack']}")
+    return {k: v for k, v in r.items() if k != "cache"}
+
+
+def swept_run(label, scene, window, n_steps, hold_from, most: bool):
+    """``n_steps`` steps of ``scene`` from step 0 with ``bp_window`` =
+    ``window``, counters reset before and read after: the launches, paths,
+    refresh steps and the sweep's calls and fallbacks, the envelope held
+    from ``hold_from`` (none when it is ``n_steps``).  The sweep must be
+    taken on most refreshes (``most``) or on some."""
+    from avbd3d_tpu_torch import solver
+    from avbd3d_tpu_torch.ops.broadphase import candidate_lists_swept as c
+
+    p, cap = scene.params, scene.cap.replace(bp_window=window)
+    w = scene.world
+    watch = Watch(hold_from)
+    paths, refreshes, base = set(), 0, (c.swept, c.fallbacks)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        w = solver.step(w, p, cap)
+        paths.add(solver.step.last_path)
+        refreshes += int(solver.step.last_gates["refreshed"])
+        watch.add(i, w)
+    sync()
+    out = {"seconds": time.perf_counter() - t0, "launches": read_counts(), "paths": paths,
+           "refresh_steps": refreshes, "swept": c.swept - base[0],
+           "fallbacks": c.fallbacks - base[1], "world": w}
+    print(f"{label}, bp_window {window}: {n_steps} steps in {out['seconds']:.2f} s; paths "
+          f"{sorted(paths)}; refresh steps {refreshes}: {out['swept']} swept, "
+          f"{out['fallbacks']} fell back; launches {out['launches']}")
+    if out["swept"] <= (out["fallbacks"] if most else 0):
+        fail(f"{label}: the sweep was taken on {out['swept']} of {refreshes} refreshes")
+    watch.check(f"{label}, swept", n_steps)
+    return out
+
+
+def swept_phase(card, landing, settled, grid) -> dict:
+    """Phase 17: the swept broadphase.  One refresh at Stress1000's landing
+    (step 150) and settled (step 700) states and at Stress4096's settled
+    state (step 1000), held by ``swept_refresh``; Stress1000 for 700 steps
+    from step 0 with its window (K1 and K2 launched, the sweep taken on
+    most refreshes, the main path's envelope); Stress4096 for 200 steps
+    from step 0 on the grid tier (K5 once and K6 five times a step,
+    sanitized 0, overflow 0, finite poses, the sweep taken on some
+    refreshes), then 20 steps from its settled
+    state with and without the window: there the sweep runs along x, where
+    the ground is fat and the only static body, so its slack is exact and
+    the steps are the matrix's bit for bit; one refresh of a pile of 31 x 17
+    x 31 cubes (N = 16384) at its spawn poses, timed."""
+    import torch
+
+    from avbd3d_tpu_torch import load_scene, solver
+    from avbd3d_tpu_torch.convert import world_from_arrays
+    from avbd3d_tpu_torch.models.scenes import Scene, _scene_stress_n
+    from avbd3d_tpu_torch.ops.broadphase import candidate_lists_swept
+    from avbd3d_tpu_torch.parallel.batched import world_tensors
+
+    s1000, s4096 = load_scene("Stress1000", "cuda"), load_scene("Stress4096", "cuda")
+    w1, w4 = SWEPT_WINDOWS["Stress1000"], SWEPT_WINDOWS["Stress4096"]
+    refresh = {label: swept_refresh(card, label, w, sc, win) for label, w, sc, win in (
+        ("Stress1000 landing (step 150)", landing, s1000, w1),
+        ("Stress1000 settled (step 700)", settled, s1000, w1),
+        ("Stress4096 settled (step 1000)", grid["settled"], s4096, w4))}
+
+    fused = swept_run("Stress1000", s1000, w1, 700, 300, most=True)
+    if fused["paths"] != {"fused"}:
+        fail(f"Stress1000 with the sweep took {fused['paths']}")
+    lf = fused["launches"]
+    if lf["step_kernel"] == 0 or lf["control_lanes"] == 0:
+        fail(f"Stress1000 with the sweep: a kernel of its path never launched: {lf}")
+    # While it falls the pile sweeps along y, where its layers need more
+    # than this window (sweep_bench: the fallbacks of Stress4096's 1000
+    # steps all fall in its first 200), so here the sweep is held to "some".
+    gridded = swept_run("Stress4096", s4096, w4, 200, 200, most=False)
+    lg = gridded["launches"]
+    if gridded["paths"] != {"grid"} or (lg["collide_grid"], lg["iterblock_grid"]) != (200, 1000):
+        fail(f"Stress4096 with the sweep: paths {gridded['paths']}, launches {lg}")
+
+    p4 = s4096.params
+    ws, wm = grid["settled"], grid["settled"]
+    swept0 = candidate_lists_swept.swept
+    for _ in range(20):
+        ws = solver.step(ws, p4, s4096.cap.replace(bp_window=w4))
+        wm = solver.step(wm, p4, s4096.cap)
+    ta, tb = world_tensors(ws), world_tensors(wm)
+    differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    settled_swept = candidate_lists_swept.swept - swept0
+    print(f"Stress4096 steps 1001-1020 from the settled state, window {w4} against 0: "
+          f"{'bit for bit' if not differ else 'DIFFER in ' + ', '.join(differ)}; "
+          f"{settled_swept} refreshes swept")
+    if differ or settled_swept == 0:
+        fail(f"Stress4096 settled, swept against matrix: differ in {differ}, "
+             f"{settled_swept} refreshes swept")
+
+    arrays, p, cap, n_real = _scene_stress_n(31, 17, 31, max_degree=28, cache_degree=16)
+    pile = Scene("pile", world_from_arrays(arrays, "cuda"), p, cap, n_real)
+    refresh["pile 31x17x31 spawn"] = swept_refresh(card, "pile 31x17x31 at its spawn poses",
+                                                   pile.world, pile, SWEPT_WINDOWS["pile"])
+    return {"refresh": refresh, "fused": lf, "grid": lg,
+            "counts": {k: {f: r[f] for f in ("refresh_steps", "swept", "fallbacks", "seconds")}
+                       for k, r in (("Stress1000 700 steps", fused),
+                                    ("Stress4096 200 steps", gridded))}}
+
+
 def kernel_name(key: str) -> str:
     """A traced kernel's name without its parameter list and, for a
     template (demangled with its return type in front), without ``void``:
@@ -2090,9 +2245,10 @@ class Watch:
             fail(f"{label}: sanitized {worst[8]}")
         if worst[9] + worst[10] != 0.0:
             fail(f"{label}: overflow: pair {worst[9]}, degree {worst[10]}")
+        after = (f", {held[0]:.6f} over steps {self.hold_from + 1}-{n_steps}"
+                 if self.hold_from < n_steps else "")
         print(f"{label}: max penetration {worst[0]:.6f} over steps 1-{n_steps} (landing "
-              f"cascade), {held[0]:.6f} over steps {self.hold_from + 1}-{n_steps}; "
-              f"sanitized 0, overflow 0, poses finite")
+              f"cascade){after}; sanitized 0, overflow 0, poses finite")
         if not held[0] < PEN_LIMIT:
             fail(f"{label}: max penetration {held[0]} >= {PEN_LIMIT} after the landing")
 
@@ -2248,6 +2404,7 @@ def main() -> int:
         "20 sheets step 100": (jointed["state"], jointed["scene"].params),
         "Stress1000 settled, fresh lists of 40 slots": (wide, p),
         "Ground, no slots": (ground.world, ground.params)})
+    swept = swept_phase(card, saved["landing"], w, grid)
     traced = app_phase(card, scene, saved["landing"], w)
     portable = portable_phase(card, w)
     chains = chains_phase(card)
@@ -2320,7 +2477,11 @@ def main() -> int:
                                        rows=True),
                          "cluster_route": sweep_extra(solver_cuda.sweep_plan(128, 16, None, 2),
                                                       sweeps, rows=True)},
-                     **{"collide": collide_extra(sweeps)}),
+                     **{"collide": collide_extra(sweeps)},
+                     paths={"swept broadphase": {
+                         "launches": swept["fused"]["step_kernel"], "steps": 700,
+                         "note": f"Stress1000 with bp_window {SWEPT_WINDOWS['Stress1000']}, "
+                                 "phase 17"}}),
         kernel_entry("control_lanes", csrc + "control_lanes.cu", "avbd3d_tpu/solver_tpu.py:262",
                      launches["control_lanes"], max(k2_err, batched["k2_err"]), k2_ms,
                      k2_plain_ms, k2_bnd,
@@ -2337,7 +2498,12 @@ def main() -> int:
                                 "note": f"{BATCH} Stress1000 worlds, phase 16: one launch a "
                                         "batched step (grid.y = worlds); times at the kicked "
                                         "landing state",
-                                "max_abs_err": batched["k2_err"], **batched["k2"]}},
+                                "max_abs_err": batched["k2_err"], **batched["k2"]},
+                            "swept broadphase": {
+                                "launches": swept["fused"]["control_lanes"], "steps": 700,
+                                "note": "Stress1000 with bp_window "
+                                        f"{SWEPT_WINDOWS['Stress1000']}, phase 17: the ballistic "
+                                        "steps"}},
                      device_us={k: t["device_us"] for k, t in k2_times.items()},
                      ms_by_state={k: t["ms"] for k, t in k2_times.items()},
                      parent=None if sweeps["ab"] is None else {
@@ -2352,11 +2518,19 @@ def main() -> int:
         kernel_entry("collide_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1355",
                      grid["launches"]["collide_grid"], grid["k5_err"], grid["k5_ms"],
                      grid["k5_plain_ms"], grid["k5_bound"], **collide_extra(sweeps),
-                     device_us={k: us for k, (us, _c) in grid["k5_trace"].items()}),
+                     device_us={k: us for k, (us, _c) in grid["k5_trace"].items()},
+                     paths={"swept broadphase": {
+                         "launches": swept["grid"]["collide_grid"], "steps": 200,
+                         "note": f"Stress4096 with bp_window {SWEPT_WINDOWS['Stress4096']}, "
+                                 "phase 17"}}),
         kernel_entry("iterblock_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1614",
                      grid["launches"]["iterblock_grid"], grid["k6_err"], grid["k6_ms"],
                      grid["k6_plain_ms"], grid["k6_bound"],
-                     **sweep_extra(solver_cuda.sweep_plan(5120, 16, 1024), sweeps)),
+                     **sweep_extra(solver_cuda.sweep_plan(5120, 16, 1024), sweeps),
+                     paths={"swept broadphase": {
+                         "launches": swept["grid"]["iterblock_grid"], "steps": 200,
+                         "note": f"Stress4096 with bp_window {SWEPT_WINDOWS['Stress4096']}, "
+                                 "phase 17"}}),
         kernel_entry("bp_probe", csrc + "bp_probe.cu", "avbd3d_tpu/solver_tpu.py:207",
                      probe["launches"], probe["err"], probe["ms"], probe["plain_ms"],
                      probe["bound"], kernel="k_probe", kernels_per_call=1,

@@ -92,13 +92,19 @@ def test_grid_and_xla_forced_on_a_fused_scene():
 
 
 @pytest.mark.parametrize("name,path", [("Stress1000", "fused"), ("Stress4096", "grid")])
-def test_bp_window_not_ported(name, path):
-    """The reference's swept broadphase (``cap.bp_window > 0``, its
-    solver.py:377-380) is not ported: select_path raises on a fused and on
-    a grid scene, and bp_window == 0 dispatches as before."""
+def test_bp_window_dispatch(name, path):
+    """``cap.bp_window > 0`` (the swept broadphase, the reference's
+    solver.py:377-380 and solver_tpu.py:1696-1699) dispatches as 0 does,
+    on a fused and on a grid scene, and a step runs on that path with the
+    swept refresh (the first step always refreshes)."""
+    from avbd3d_tpu_torch.ops.broadphase import candidate_lists_swept
+
     sc = tscenes.load_scene(name, "cpu")
+    cap = sc.cap.replace(bp_window=504)
     assert sc.cap.bp_window == 0 and tsolver.select_path(sc.world, sc.cap) == path
-    with pytest.raises(NotImplementedError, match="bp_window"):
-        tsolver.select_path(sc.world, sc.cap.replace(bp_window=4))
-    with pytest.raises(NotImplementedError, match="bp_window"):
-        tsolver.step(sc.world, sc.params, sc.cap.replace(bp_window=1))
+    assert tsolver.select_path(sc.world, cap) == path
+    calls = candidate_lists_swept.swept + candidate_lists_swept.fallbacks
+    w = tsolver.step(sc.world, sc.params, cap)
+    assert tsolver.step.last_path == path and tsolver.step.last_gates["refreshed"]
+    assert candidate_lists_swept.swept + candidate_lists_swept.fallbacks == calls + 1
+    assert int(w.diagnostics.as_dict()["sanitized"]) == 0
