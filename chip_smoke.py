@@ -123,6 +123,12 @@
    layers need a larger window) and 20 steps from its settled state equal
    to the matrix's bit for bit, the sweep taken; one refresh of a
    16384-body pile, timed.
+18. The port's bench as a user starts it: ``python -m avbd3d_tpu_torch.bench
+   --quick`` in a subprocess (every regime of the root bench.py at shorter
+   windows, each checked against its own untimed rerun), its last line
+   parsed: ``correct`` true, ``device`` the card of phase 1, K1 and K2
+   launched on Stress1000, K5 once and K6 five times a Stress4096 grid
+   step, one host read a fused step; the phase's seconds.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1539,6 +1545,47 @@ def compare_k2_batch(worlds, params, label: str) -> float:
     return err
 
 
+def bench_phase(card: str) -> dict:
+    """Phase 18: ``python -m avbd3d_tpu_torch.bench --quick`` as a
+    subprocess, its JSON line (the last) held to the bench's own checks and
+    to the counts the code promises.  Returns the line and the seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "avbd3d_tpu_torch.bench", "--quick"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"bench --quick exited {proc.returncode}: {lines[-1:]} {proc.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    extra, regimes = line["extra"], line["extra"]["regimes"]
+    if line["correct"] is not True or line["failed"] or line["quick"] is not True:
+        fail(f"bench --quick: correct {line['correct']}, failed {line['failed']}")
+    if extra["device"] != card:
+        fail(f"bench --quick ran on {extra['device']!r}, phase 1 printed {card!r}")
+    stress1000 = [regimes[k]["counts"]["launches"] for k in regimes if k.startswith("stress1000")]
+    k1, k2 = (sum(c[k] for c in stress1000) for k in ("step_kernel", "control_lanes"))
+    if not (k1 and k2):
+        fail(f"bench --quick: Stress1000 launched K1 {k1} and K2 {k2} times")
+    grid = regimes["stress4096"]["counts"]
+    if (grid["paths"] != {"grid": grid["steps"]} or grid["launches_per_step"]["collide_grid"] != 1
+            or grid["launches_per_step"]["iterblock_grid"] != 5):
+        fail(f"bench --quick, Stress4096: paths {grid['paths']}, launches a step "
+             f"{grid['launches_per_step']}; expected the grid tier, K5 1 and K6 5")
+    for name, r in regimes.items():
+        c = r["counts"]
+        if c["paths"].get("fused") == c["steps"] and c["host_reads_per_step"] != 1.0:
+            fail(f"bench --quick, {name}: {c['host_reads_per_step']} host reads a fused step")
+    settled = regimes["stress1000_settled"]
+    print(f"[{card}] bench --quick: {seconds:.1f} s, correct; settled Stress1000 "
+          f"{settled['best']:.1f} steps/s (one block of {settled['window_steps']}), falling "
+          f"{extra['falling_steps_per_sec']:.1f}, Stress2048 "
+          f"{extra['stress2048']['steps_per_sec']:.1f}, Stress4096 "
+          f"{extra['stress4096']['steps_per_sec']:.1f}; K1 {k1}, K2 {k2} launches on Stress1000, "
+          f"K5 / K6 1 / 5 a grid step; one host read a step")
+    return {"seconds": seconds, "line": line, "k1": k1, "k2": k2, "grid": grid}
+
+
 def batched_phase(card, landing) -> dict:
     """Phase 16: ``batched_step`` over BATCH Stress1000 worlds that differ
     by a kick, counters reset before each run and read after.  From the
@@ -2417,6 +2464,8 @@ def main() -> int:
                                                                  "Stress2048 initial")}})
     sweeps = sweep_record(card, lib, {"k1_settled_ms": k1_ms, "k1_sheets_ms": jointed["ms"],
                                       "k4_ms": {"20": prof["ms4"]}, "k6_ms": grid["k6_ms"]})
+    bench = bench_phase(card)
+    bench_note = "python -m avbd3d_tpu_torch.bench --quick, phase 18: every Stress1000 regime"
 
     for label, t in [*((f"K2, {k}", v) for k, v in k2_times.items()),
                      ("K7, Stress1000 settled", probe), ("K7, Stress4096 settled", probe["grid"])]:
@@ -2481,7 +2530,8 @@ def main() -> int:
                      paths={"swept broadphase": {
                          "launches": swept["fused"]["step_kernel"], "steps": 700,
                          "note": f"Stress1000 with bp_window {SWEPT_WINDOWS['Stress1000']}, "
-                                 "phase 17"}}),
+                                 "phase 17"},
+                         "bench": {"launches": bench["k1"], "note": bench_note}}),
         kernel_entry("control_lanes", csrc + "control_lanes.cu", "avbd3d_tpu/solver_tpu.py:262",
                      launches["control_lanes"], max(k2_err, batched["k2_err"]), k2_ms,
                      k2_plain_ms, k2_bnd,
@@ -2503,7 +2553,8 @@ def main() -> int:
                                 "launches": swept["fused"]["control_lanes"], "steps": 700,
                                 "note": "Stress1000 with bp_window "
                                         f"{SWEPT_WINDOWS['Stress1000']}, phase 17: the ballistic "
-                                        "steps"}},
+                                        "steps"},
+                            "bench": {"launches": bench["k2"], "note": bench_note}},
                      device_us={k: t["device_us"] for k, t in k2_times.items()},
                      ms_by_state={k: t["ms"] for k, t in k2_times.items()},
                      parent=None if sweeps["ab"] is None else {
@@ -2522,7 +2573,10 @@ def main() -> int:
                      paths={"swept broadphase": {
                          "launches": swept["grid"]["collide_grid"], "steps": 200,
                          "note": f"Stress4096 with bp_window {SWEPT_WINDOWS['Stress4096']}, "
-                                 "phase 17"}}),
+                                 "phase 17"},
+                         "bench": {"launches": bench["grid"]["launches"]["collide_grid"],
+                                   "steps": bench["grid"]["steps"],
+                                   "note": "bench --quick, phase 18: the stress4096 regime"}}),
         kernel_entry("iterblock_grid", csrc + "grid_kernels.cu", "avbd3d_tpu/solver_tpu.py:1614",
                      grid["launches"]["iterblock_grid"], grid["k6_err"], grid["k6_ms"],
                      grid["k6_plain_ms"], grid["k6_bound"],
@@ -2530,7 +2584,10 @@ def main() -> int:
                      paths={"swept broadphase": {
                          "launches": swept["grid"]["iterblock_grid"], "steps": 200,
                          "note": f"Stress4096 with bp_window {SWEPT_WINDOWS['Stress4096']}, "
-                                 "phase 17"}}),
+                                 "phase 17"},
+                         "bench": {"launches": bench["grid"]["launches"]["iterblock_grid"],
+                                   "steps": bench["grid"]["steps"],
+                                   "note": "bench --quick, phase 18: the stress4096 regime"}}),
         kernel_entry("bp_probe", csrc + "bp_probe.cu", "avbd3d_tpu/solver_tpu.py:207",
                      probe["launches"], probe["err"], probe["ms"], probe["plain_ms"],
                      probe["bound"], kernel="k_probe", kernels_per_call=1,

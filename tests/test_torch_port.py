@@ -28,14 +28,15 @@ torch.set_num_threads(1)
 
 
 def test_port_imports_no_jax():
-    code = ("import avbd3d_tpu_torch, avbd3d_tpu_torch.cli, avbd3d_tpu_torch.kernels, "
-            "avbd3d_tpu_torch.viewer, avbd3d_tpu_torch.queries, "
-            "avbd3d_tpu_torch.utils.checkpoint, avbd3d_tpu_torch.utils.export, "
-            "avbd3d_tpu_torch.utils.overlay, avbd3d_tpu_torch.utils.native, "
-            "avbd3d_tpu_torch.utils.profile_phases, avbd3d_tpu_torch.utils.profile_cuda, "
-            "chip_smoke, sys; "
+    """Every module of the package (found by ``pkgutil.walk_packages``) and
+    chip_smoke.py import neither JAX nor the reference."""
+    code = ("import importlib, pkgutil, sys, avbd3d_tpu_torch as pkg; "
+            "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
+            "[importlib.import_module(m) for m in mods]; import chip_smoke; "
+            "assert {'avbd3d_tpu_torch.bench', 'avbd3d_tpu_torch.parallel.sharded', "
+            "'avbd3d_tpu_torch.utils.sweep_bench'} <= set(mods), mods; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'avbd3d_tpu.'))"
-            " or m == 'avbd3d_tpu']; assert not bad, bad")
+            " or m == 'avbd3d_tpu']; assert not bad, bad; print(len(mods))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
