@@ -303,3 +303,91 @@ static __device__ void control_lanes_block(const CtrlIn& in, const KParams& p, f
     out[4] = v2r[1];
   }
 }
+
+// ---------------------------------------------------------------------------
+// The anchor deviation (the broadphase cache's two reuse bounds, the plain
+// version's ops/broadphase.anchor_deviation), shared by K2
+// (control_lanes.cu, lanes 3 and 4) and the refresh predicate
+// (bp_refresh.cu, k_refresh_needed), so that both give the same bits:
+//
+// - per body, anchor_terms: the displacement from the anchor, whether the
+//   body moved and its rotation chord;
+// - per group of LANES_WARPS bodies (K2's block), fold_group: each partial
+//   folded over the group's bodies in body order (LANE_PARTS partials:
+//   min gap, gate, near speed, dev_raw, moved count, the three displacement
+//   sums; the refresh predicate fills 3-7);
+// - over the groups, fold_parts_warp: one warp a partial, lane l over
+//   groups l, l + 32, ... in index order, then a fixed shuffle tree;
+// - dev_mm_block: the largest |disp - t| + chord over moved bodies (a max,
+//   exact in any order).
+// ---------------------------------------------------------------------------
+
+#define LANES_WARPS 8
+#define LANE_PARTS 8  // min gap, gate, near speed, dev_raw, nm, s0, s1, s2
+
+// op 0 min, 1 max, 2 sum: the fold of partial k.
+__device__ __forceinline__ int part_op(int k) { return k == 0 ? 0 : (k < 4 ? 1 : 2); }
+
+__device__ __forceinline__ float fold(int op, float a, float b) {
+  return op == 0 ? fminf(a, b) : (op == 1 ? fmaxf(a, b) : a + b);
+}
+
+struct AnchorTerms {
+  V3 disp;      // pos - anchor
+  float disp2;  // |disp|^2
+  bool moved;   // dynamic, or displaced
+  float chord;  // 2 * min(|vec(q (x) qa*)|, 1) * max(radius, 0)
+};
+
+__device__ __forceinline__ AnchorTerms anchor_terms(V3 pos, Q4 q, V3 anchor, Q4 qa, float radius,
+                                                    bool dyn) {
+  AnchorTerms a;
+  a.disp = vsub(pos, anchor);
+  a.disp2 = a.disp.x * a.disp.x + a.disp.y * a.disp.y + a.disp.z * a.disp.z;
+  a.moved = dyn || a.disp2 > F(0.0);
+  Q4 dq = qmul(q, Q4{-qa.x, -qa.y, -qa.z, qa.w});
+  float svec = sqrtf(dq.x * dq.x + dq.y * dq.y + dq.z * dq.z);
+  a.chord = F(2.0) * fminf(svec, F(1.0)) * fmaxf(radius, F(0.0));
+  return a;
+}
+
+// A group's partial: vals[0] folded with vals[1], ..., vals[LANES_WARPS - 1].
+__device__ __forceinline__ float fold_group(const float* vals, int op) {
+  float v = vals[0];
+  for (int w = 1; w < LANES_WARPS; ++w) v = fold(op, v, vals[w]);
+  return v;
+}
+
+// Partial k over n_groups groups (part: LANE_PARTS floats a group, written
+// by other blocks before their ticket), by the whole calling warp; every
+// lane returns the result.
+__device__ __forceinline__ float fold_parts_warp(const float* part, int n_groups, int k, int lane) {
+  const int op = part_op(k);
+  float v = k == 0 ? F(1.0e9) : F(0.0);
+  for (int b = lane; b < n_groups; b += 32) v = fold(op, v, __ldcg(part + b * LANE_PARTS + k));
+  for (int off = 16; off > 0; off >>= 1) v = fold(op, v, __shfl_xor_sync(FULL_MASK, v, off));
+  return v;
+}
+
+// The largest |disp - t| + chord over the moved bodies of dv (disp.x,
+// disp.y, disp.z, chord; chord -1 for a body that has not moved), 0 when
+// none moved; called by the whole block, the result in thread 0.  sh_dev:
+// blockDim.x / 32 floats of shared memory.
+__device__ __forceinline__ float dev_mm_block(const float4* dv, int n, V3 t, float* sh_dev) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float dev_mm = F(0.0);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float4 v = __ldcg(dv + j);
+    if (v.w >= F(0.0)) {  // moved
+      V3 e = v3(v.x - t.x, v.y - t.y, v.z - t.z);
+      dev_mm = fmaxf(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + v.w);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
+  if (lane == 0) sh_dev[warp] = dev_mm;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) dev_mm = fmaxf(dev_mm, sh_dev[w]);
+  return dev_mm;
+}

@@ -37,16 +37,6 @@
 // launch on that world alone gives.
 #include "avbd_common.cuh"
 
-#define LANES_WARPS 8
-#define LANE_PARTS 8  // min gap, gate, near speed, dev_raw, nm, s0, s1, s2
-
-// op 0 min, 1 max, 2 sum: the fold of partial k.
-__device__ __forceinline__ int part_op(int k) { return k == 0 ? 0 : (k < 4 ? 1 : 2); }
-
-__device__ __forceinline__ float fold(int op, float a, float b) {
-  return op == 0 ? fminf(a, b) : (op == 1 ? fmaxf(a, b) : a + b);
-}
-
 // World w's operands in a batch whose worlds lie one after another.
 __device__ __forceinline__ CtrlIn ctrl_world(CtrlIn in, int w) {
   const size_t n = in.n, off = (size_t)w * n;
@@ -110,25 +100,20 @@ k_control_lanes(CtrlIn in_all, KParams p, float* part, float4* dv, unsigned int*
       bool dyn = in.inv_mass[i] > F(0.0);
       bool alive = dyn && (p.has_fall_freeze == F(0.0) || pos.y >= p.fall_freeze_y);
       float v2 = alive ? speed_sq : F(0.0);
-      V3 disp = vsub(pos, ld3(in.anchor, i, n));
-      float disp2 = disp.x * disp.x + disp.y * disp.y + disp.z * disp.z;
-      bool moved = dyn || disp2 > F(0.0);
-      float mf = moved ? F(1.0) : F(0.0);
-      Q4 qa = ld4(in.anchor_q, i, n);
-      Q4 dq = qmul(q, Q4{-qa.x, -qa.y, -qa.z, qa.w});
-      float svec = sqrtf(dq.x * dq.x + dq.y * dq.y + dq.z * dq.z);
-      float chord = F(2.0) * fminf(svec, F(1.0)) * fmaxf(in.radius[i], F(0.0));
+      AnchorTerms a = anchor_terms(pos, q, ld3(in.anchor, i, n), ld4(in.anchor_q, i, n),
+                                   in.radius[i], dyn);
+      float mf = a.moved ? F(1.0) : F(0.0);
       RACE_DELAY();
-      dv[i] = make_float4(disp.x, disp.y, disp.z, moved ? chord : F(-1.0));
+      dv[i] = make_float4(a.disp.x, a.disp.y, a.disp.z, a.moved ? a.chord : F(-1.0));
       __threadfence();
       sh[0][warp] = min_gap;
       sh[1][warp] = v2;
       sh[2][warp] = near ? v2 : F(0.0);
-      sh[3][warp] = moved ? sqrtf(disp2) + chord : F(0.0);
+      sh[3][warp] = a.moved ? sqrtf(a.disp2) + a.chord : F(0.0);
       sh[4][warp] = mf;
-      sh[5][warp] = disp.x * mf;
-      sh[6][warp] = disp.y * mf;
-      sh[7][warp] = disp.z * mf;
+      sh[5][warp] = a.disp.x * mf;
+      sh[6][warp] = a.disp.y * mf;
+      sh[7][warp] = a.disp.z * mf;
     }
   } else if (lane == 0) {
     const float none[LANE_PARTS] = {F(1.0e9), 0, 0, 0, 0, 0, 0, 0};
@@ -136,9 +121,8 @@ k_control_lanes(CtrlIn in_all, KParams p, float* part, float4* dv, unsigned int*
   }
   __syncthreads();
   if (threadIdx.x < LANE_PARTS) {  // one thread a partial, bodies in order
-    const int k = threadIdx.x, op = part_op(k);
-    float v = sh[k][0];
-    for (int w = 1; w < LANES_WARPS; ++w) v = fold(op, v, sh[k][w]);
+    const int k = threadIdx.x;
+    float v = fold_group(sh[k], part_op(k));
     RACE_DELAY();
     part[blockIdx.x * LANE_PARTS + k] = v;
     __threadfence();
@@ -154,30 +138,14 @@ k_control_lanes(CtrlIn in_all, KParams p, float* part, float4* dv, unsigned int*
   // before its ticket); read them from L2, past this SM's L1.
   __threadfence();
   if (warp < LANE_PARTS) {
-    const int k = warp, op = part_op(k);
-    float v = k == 0 ? F(1.0e9) : F(0.0);
-    for (int b = lane; b < (int)gridDim.x; b += 32)
-      v = fold(op, v, __ldcg(part + b * LANE_PARTS + k));
-    for (int off = 16; off > 0; off >>= 1) v = fold(op, v, __shfl_xor_sync(FULL_MASK, v, off));
-    if (lane == 0) sh_fold[k] = v;
+    float v = fold_parts_warp(part, gridDim.x, warp, lane);
+    if (lane == 0) sh_fold[warp] = v;
   }
   __syncthreads();
   float nmc = fmaxf(sh_fold[4], F(1.0));
   V3 t = v3(sh_fold[5] / nmc, sh_fold[6] / nmc, sh_fold[7] / nmc);
-  float dev_mm = F(0.0);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float4 v = __ldcg(dv + j);
-    if (v.w >= F(0.0)) {  // moved
-      V3 e = v3(v.x - t.x, v.y - t.y, v.z - t.z);
-      dev_mm = fmaxf(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + v.w);
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
-  if (lane == 0) sh_dev[warp] = dev_mm;
-  __syncthreads();
+  float dev_mm = dev_mm_block(dv, n, t, sh_dev);
   if (threadIdx.x == 0) {
-    for (int w = 1; w < LANES_WARPS; ++w) dev_mm = fmaxf(dev_mm, sh_dev[w]);
     out[0] = sh_fold[1];
     out[1] = sh_fold[2];
     out[2] = sh_fold[0];

@@ -13,8 +13,8 @@ float operation rounds as the plain PyTorch versions' ops do (the integer
 outputs of the step kernel then match them exactly; csrc/avbd_common.cuh).
 
 Kernels allocate nothing: the launch functions here allocate outputs and
-scratch with ``torch.empty`` (K2's and K7's scratch, which the kernel hands
-between its own blocks, is held per stream: ``_scratch``), check device,
+scratch with ``torch.empty`` (the scratch that K2, K7 and the refresh
+kernels hand between their own blocks is held per stream: ``_scratch``), check device,
 dtype, shape and contiguity of every operand, launch on the current stream
 and raise if the C entry point returns a CUDA error.  The parameter block
 of a SolverParams is built once (``_fparams``).
@@ -37,7 +37,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-_SOURCES = ("step_kernel.cu", "grid_kernels.cu", "control_lanes.cu", "bp_probe.cu")
+_SOURCES = ("step_kernel.cu", "grid_kernels.cu", "control_lanes.cu", "bp_probe.cu",
+            "bp_refresh.cu")
 _HEADERS = ("avbd_common.cuh", "step_kernel.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -149,6 +150,14 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
                                          ci, ci, ci, ci, ctypes.POINTER(ci),
                                          ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ci), vp]
     cdll.avbd_iterblock_grid.restype = ci
+    cdll.avbd_bp_tables.argtypes = [ctypes.POINTER(vp), ci, ci, ctypes.c_float, vp]
+    cdll.avbd_bp_tables.restype = ci
+    cdll.avbd_bp_lists.argtypes = [ctypes.POINTER(vp), ci, ci, ci, ci, ci, ci, ctypes.c_float,
+                                   ci, vp]
+    cdll.avbd_bp_lists.restype = ci
+    cdll.avbd_refresh_needed.argtypes = [ctypes.POINTER(vp), ci, ctypes.c_float, ctypes.c_float,
+                                         vp]
+    cdll.avbd_refresh_needed.restype = ci
     if cdll.avbd_n_params() != len(_PARAM_NAMES):
         raise RuntimeError(
             f"parameter block mismatch: kernel {cdll.avbd_n_params()} floats, "
@@ -635,3 +644,121 @@ def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, para
                                         _stream(dev))
     _raise_on(code, "grid iteration kernel launch")
     return tuple(outs) + (geom[24:28],)
+
+
+# Threads a block of k_bp_tables and k_refresh_needed (csrc/bp_refresh.cu:
+# a thread a body), the largest candidate width and the shared memory of
+# k_bp_lists (a block a row: N + E int32 keys and exclusions).
+_BP_THREADS = 256
+BP_MAX_DEGREE = 64
+_SMEM_MAX = 232448
+
+
+def _card_lib(dev) -> _Lib:
+    """The library, once the operands (checked first) lie on a card."""
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels need CUDA tensors")
+    return _lib()
+
+
+def launch_bp_tables(pos, quat, ext, ext_scale: float, radius, dyn_key):
+    """Run k_bp_tables: the broadphase's per-body table (N, 8) float32,
+    (centre, radius, world-AABB halves, dynamic 1 / 0), and the largest
+    half extent () float32; the halves are ``ext * ext_scale``, dynamic is
+    ``dyn_key > 0``.  With a leading batch axis B on every operand, B
+    tables and (B,) maxima (one launch)."""
+    dev = pos.device
+    lead = tuple(pos.shape[:-3])
+    batch = lead[0] if lead else 1
+    g = radius.shape[-2]
+    n = g * 128
+    f32 = torch.float32
+    ins = [_check(pos, "pos", lead + (3, g, 128), f32, dev),
+           _check(quat, "quat", lead + (4, g, 128), f32, dev),
+           _check(ext, "ext", lead + (3, g, 128), f32, dev),
+           _check(radius, "radius", lead + (g, 128), f32, dev),
+           _check(dyn_key, "dyn_key", lead + (g, 128), f32, dev)]
+    lib = _card_lib(dev)
+    table = torch.empty(lead + (n, 8), dtype=f32, device=dev)
+    max_wh = torch.empty(lead, dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks = -(-n // _BP_THREADS)
+    scratch = [_scratch(dev, stream, "bp_part_max", batch * blocks, f32),
+               _scratch(dev, stream, "bp_tables_ticket", batch, torch.int32)]
+    code = lib.cdll.avbd_bp_tables(_ptrs(ins + [table, max_wh] + scratch), n, batch,
+                                   ctypes.c_float(ext_scale), ctypes.c_void_p(stream))
+    _raise_on(code, "broadphase tables kernel launch")
+    return table, max_wh
+
+
+def launch_bp_lists(rows, cols, max_wh, exclusions, degree: int, margin: float, row0: int = 0):
+    """Run k_bp_lists: the candidate lists of the rows of table ``rows``
+    (n_rows, 8) (global ids ``row0`` ..) against every body of table
+    ``cols`` (N, 8), keys packed with ``max_wh`` and N; ``exclusions`` (E,
+    G_rows, 128) int32.  Returns nb, key (D, G_rows, 128) int32, thr
+    (G_rows, 128) int32, cand, slack, kept, dropped (() int32, f32, int32,
+    int32; over these rows).  With a leading batch axis B on every
+    operand, each world's (one launch)."""
+    dev = rows.device
+    if not 1 <= degree <= BP_MAX_DEGREE:
+        raise ValueError(f"candidate width {degree} outside 1..{BP_MAX_DEGREE}")
+    lead = tuple(rows.shape[:-2])
+    batch = lead[0] if lead else 1
+    n_rows, n = rows.shape[-2], cols.shape[-2]
+    if n_rows % 128 or n % 128 or n_rows > n:
+        raise ValueError(f"tables of {n_rows} rows and {n} columns: multiples of 128, rows <= "
+                         "columns expected")
+    g = n_rows // 128
+    n_excl = exclusions.shape[-3] if exclusions.dim() == len(lead) + 3 else 0
+    smem = 4 * (n + n_excl)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{n} columns and {n_excl} exclusions need {smem} bytes of shared "
+                         f"memory a block, more than {_SMEM_MAX}")
+    f32, i32 = torch.float32, torch.int32
+    ins = [_check(rows, "rows", lead + (n_rows, 8), f32, dev),
+           _check(cols, "cols", lead + (n, 8), f32, dev),
+           _check(max_wh, "max_wh", lead, f32, dev),
+           _check(exclusions, "exclusions", lead + (n_excl, g, 128), i32, dev)]
+    lib = _card_lib(dev)
+    nb = torch.empty(lead + (degree, g, 128), dtype=i32, device=dev)
+    key = torch.empty(lead + (degree, g, 128), dtype=i32, device=dev)
+    thr = torch.empty(lead + (g, 128), dtype=i32, device=dev)
+    counts = torch.empty(lead + (3,), dtype=i32, device=dev)
+    slack = torch.empty(lead, dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "bp_part_cnt", batch * 2 * n_rows, i32),
+               _scratch(dev, stream, "bp_part_slack", batch * n_rows, f32),
+               _scratch(dev, stream, "bp_lists_ticket", batch, i32)]
+    q_max = (2**31 - 1) // n - 1
+    code = lib.cdll.avbd_bp_lists(_ptrs(ins + [nb, key, thr, counts, slack] + scratch), n_rows,
+                                  n, int(row0), int(degree), n_excl, q_max,
+                                  ctypes.c_float(margin), batch, ctypes.c_void_p(stream))
+    _raise_on(code, "broadphase lists kernel launch")
+    cand, kept, dropped = counts.unbind(-1)
+    return nb, key, thr, cand, slack, kept, dropped
+
+
+def launch_refresh_needed(b, anchor, anchor_quat, slack, margin: float):
+    """Run k_refresh_needed on the Bodies ``b`` against the cache anchors:
+    returns (need () bool, (dev_mm, dev_raw) (2,) float32), need =
+    dev_mm > 0.5 * margin or dev_raw > slack + margin in float32."""
+    dev = b.pos.device
+    g = b.mass.shape[-2]
+    n = g * 128
+    f32 = torch.float32
+    ins = _body_operands(b, g, dev, ("pos", "quat", "radius", "inv_mass"))
+    ins += [_check(anchor, "anchor", (3, g, 128), f32, dev),
+            _check(anchor_quat, "anchor_quat", (4, g, 128), f32, dev),
+            _check(slack, "slack", (), f32, dev)]
+    lib = _card_lib(dev)
+    devs = torch.empty((2,), dtype=f32, device=dev)
+    need = torch.empty((), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "refresh_part", _LANE_PARTS * _blocks(n), f32),
+               _scratch(dev, stream, "refresh_dv", 4 * n, f32),
+               _scratch(dev, stream, "refresh_ticket", 1, torch.int32)]
+    code = lib.cdll.avbd_refresh_needed(_ptrs(ins + [devs, need] + scratch), n,
+                                        ctypes.c_float(0.5 * margin), ctypes.c_float(margin),
+                                        ctypes.c_void_p(stream))
+    _raise_on(code, "refresh predicate kernel launch")
+    return need, devs

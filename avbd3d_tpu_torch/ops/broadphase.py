@@ -2,8 +2,14 @@
 
 Port of ``avbd3d_tpu/ops/broadphase.py`` (the reference; its module
 docstring explains the AABB-gap ranking, the unique int32 selection keys and
-the symmetric filter).  Torch ops throughout; ``control_lanes`` here is the
-plain version of the control-lanes kernel (csrc/control_lanes.cu).
+the symmetric filter).  Torch ops throughout, but for the refresh on the
+card: ``candidate_lists`` and ``refresh_needed`` launch the kernels of
+csrc/bp_refresh.cu on CUDA tensors (``build_bp_cache`` takes the lists and
+``dropped`` from one call) and run their plain versions,
+``candidate_lists_plain`` and ``refresh_needed_plain``, on CPU tensors;
+``launches`` on each counts the calls that launched.  ``control_lanes``
+here is the plain version of the control-lanes kernel
+(csrc/control_lanes.cu).
 
 The reference's seams are keyword arguments with identity defaults:
 ``gather`` (partner reads), ``own_iota`` / ``n_total`` (global ids of this
@@ -130,6 +136,10 @@ def build_bp_cache(b, exclusions, degree: int, margin: float,
     """Fresh candidate lists anchored at the current poses.  ``window`` > 0
     selects the guarded sweep (``candidate_lists_swept``) on a single-shard
     world; 0 the row-blocked matrix."""
+    if b.pos.device.type == "cuda" and not (window > 0 and comm.n_shards == 1):
+        *lists, dropped = _lists_on_card(b.pos, b.quat, b.size, 0.5, b.radius, b.inv_mass,
+                                         exclusions, degree, margin, comm)
+        return BroadphaseCache(b.pos, b.quat, *lists, dropped=dropped)
     half = tuple(b.size[k] * 0.5 for k in range(3))
     if window > 0 and comm.n_shards == 1:
         lists = candidate_lists_swept(b.pos, b.quat, half, b.radius, b.dynamic, exclusions,
@@ -187,8 +197,24 @@ def anchor_deviation(pos_cg, quat_cg, radius_g, dynamic_g, anchor, anchor_quat,
 
 def refresh_needed(bp: BroadphaseCache, b, margin: float):
     """The refresh predicate of ``refresh_or_reuse`` (reference
-    broadphase.py:153-188) by device reductions on the current state, as a
-    () bool tensor; the bounds compare in float32."""
+    broadphase.py:153-188) on the current state, as a () bool tensor with
+    no host read: on CUDA tensors one launch of k_refresh_needed
+    (csrc/bp_refresh.cu), else ``refresh_needed_plain``."""
+    if b.pos.device.type == "cpu":
+        return refresh_needed_plain(bp, b, margin)
+    from .. import kernels
+
+    need, _devs = kernels.launch_refresh_needed(b, bp.anchor, bp.anchor_quat, bp.slack, margin)
+    refresh_needed.launches += 1
+    return need
+
+
+refresh_needed.launches = 0
+
+
+def refresh_needed_plain(bp: BroadphaseCache, b, margin: float):
+    """Plain version of the refresh predicate kernel: device reductions on
+    the current state, a () bool tensor; the bounds compare in float32."""
     dev_mm, dev_raw = anchor_deviation(b.pos, b.quat, b.radius, b.dynamic,
                                        bp.anchor, bp.anchor_quat)
     half = torch.tensor(0.5 * margin, dtype=torch.float32, device=dev_mm.device)
@@ -237,7 +263,48 @@ def _keys(gap, pack, partner):
 
 def candidate_lists(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
                     exclusions, degree: int, margin: float = 0.0, comm=LOCAL_COMM):
-    """Per-body candidate slots, deepest-gap first, as unique int32 keys.
+    """Per-body candidate slots, deepest-gap first, as unique int32 keys
+    (``candidate_lists_plain`` says what): on CUDA tensors the kernels of
+    csrc/bp_refresh.cu, else ``candidate_lists_plain``.  Returns nb, key,
+    thr, cand, slack."""
+    if radius_g.device.type == "cpu":
+        return candidate_lists_plain(pos_cg, quat_cg, half_cg, radius_g, dynamic_g, exclusions,
+                                     degree, margin, comm)
+    return _lists_on_card(pos_cg, quat_cg, torch.stack(tuple(half_cg)), 1.0, radius_g,
+                          dynamic_g.to(torch.float32), exclusions, degree, margin, comm)[:5]
+
+
+candidate_lists.launches = 0
+
+
+def _lists_on_card(pos, quat, ext, ext_scale: float, radius, dyn_key, exclusions, degree: int,
+                   margin: float, comm=LOCAL_COMM):
+    """The candidate lists and the dropped count on the card: k_bp_tables
+    (the bodies' table and largest half extent; halves ``ext * ext_scale``,
+    dynamic ``dyn_key > 0``), then k_bp_lists over this shard's rows against
+    every body's table (all-gathered on a body-sharded world, whose scalars
+    are then reduced across shards).  Leaves with a leading batch axis give
+    every world's lists from the same two launches.  Returns nb, key, thr,
+    cand, slack, dropped."""
+    from .. import kernels
+
+    table, max_wh = kernels.launch_bp_tables(pos, quat, ext, ext_scale, radius, dyn_key)
+    cols = table
+    if comm.n_shards > 1:
+        cols, max_wh = comm.all_gather_g(table), comm.pmax(max_wh)
+    nb, key, thr, cand, slack, kept, dropped = kernels.launch_bp_lists(
+        table, cols, max_wh, exclusions, degree, margin, comm.row0(table.shape[-2]))
+    candidate_lists.launches += 1
+    if comm.n_shards > 1:
+        cand, slack = comm.psum(cand), comm.pmin(slack)
+        dropped = cand - comm.psum(kept)
+    return nb, key, thr, cand, slack, dropped
+
+
+def candidate_lists_plain(pos_cg, quat_cg, half_cg, radius_g, dynamic_g,
+                          exclusions, degree: int, margin: float = 0.0, comm=LOCAL_COMM):
+    """Per-body candidate slots, deepest-gap first, as unique int32 keys;
+    plain version of the candidate-list kernels (csrc/bp_refresh.cu).
 
     Returns nb (D, G, 128), key (D, G, 128), thr (G, 128), the directed
     candidate count () int32 and the mover-static slack () f32.  Above

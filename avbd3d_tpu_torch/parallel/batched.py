@@ -23,7 +23,10 @@ With ``cap.bp_window`` > 0 the refreshing worlds' lists come from the swept
 broadphase (``broadphase.sweep_lists``, vmapped), whose per-world guards are
 read in one more host copy; when any refreshing world's guard fires, the
 matrix runs for the batch and ``torch.where`` keeps each world's own side,
-as the reference's ``vmap`` over ``lax.cond`` does.
+as the reference's ``vmap`` over ``lax.cond`` does.  On the card the
+matrix's lists of the whole batch come from one call of the refresh kernels
+(``broadphase.candidate_lists``, their world axis); on the CPU its plain
+version runs vmapped.
 
 ``make_mesh`` / ``shard_batch`` split a batch over devices: a list of
 per-device chunks, which ``batched_step`` also accepts.
@@ -40,7 +43,7 @@ from .. import solver
 from ..config import Capacity, SolverParams
 from ..ops.broadphase import (build_bp_cache, cache_from_lists, candidate_lists_swept,
                               refresh_due, sweep_lists)
-from ..state import World
+from ..state import Bodies, World
 
 _PARTS = ("bodies", "contacts", "joints", "springs", "bp", "diagnostics")
 
@@ -136,8 +139,16 @@ def _fresh_caches(worlds: World, params: SolverParams, cap: Capacity, refresh) -
         w = frozen(lv)
         return _fields(build_bp_cache(w.bodies, w.exclusions, cap.max_degree, params.bp_margin))
 
+    def matrices(lv):
+        # On the card the batch's lists come from one call of the refresh
+        # kernels (their world axis), which vmap cannot enter.
+        if lv["bodies.pos"].device.type == "cpu":
+            return torch.func.vmap(matrix)(lv)
+        b = Bodies(**torch.func.vmap(lambda x: _fields(frozen(x).bodies))(lv))
+        return _fields(build_bp_cache(b, lv["exclusions"], cap.max_degree, params.bp_margin))
+
     if cap.bp_window <= 0:
-        return torch.func.vmap(matrix)(leaves)
+        return matrices(leaves)
 
     def swept(lv):
         w = frozen(lv)
@@ -155,7 +166,7 @@ def _fresh_caches(worlds: World, params: SolverParams, cap: Capacity, refresh) -
     if not any(fallback):
         return fresh
     c = torch.tensor(fallback, device=need.device)
-    return torch.func.vmap(_tree_where)(c, torch.func.vmap(matrix)(leaves), fresh)
+    return torch.func.vmap(_tree_where)(c, matrices(leaves), fresh)
 
 
 def _read_gates(worlds: World, params: SolverParams) -> dict:
@@ -241,12 +252,14 @@ def batched_step(worlds, params: SolverParams, cap: Capacity):
     then every chunk's launches, so the devices run their chunks at once.
     ``batched_step.host_reads`` counts the host reads (one per batch, and
     one more for the sweep's guards on a refresh with ``cap.bp_window`` >
-    0)."""
+    0); ``batched_step.last_gates`` holds each chunk's gates of the last
+    call (per world: ``refresh``, ``ballistic``, ``plans``)."""
     cap = cap.replace(backend="xla")
     chunks = list(worlds) if isinstance(worlds, (list, tuple)) else [worlds]
-    gates = [_read_gates(w, params) for w in chunks]
+    gates = batched_step.last_gates = [_read_gates(w, params) for w in chunks]
     out = [_launch(w, params, cap, g) for w, g in zip(chunks, gates)]
     return out if isinstance(worlds, (list, tuple)) else out[0]
 
 
 batched_step.host_reads = 0
+batched_step.last_gates = []

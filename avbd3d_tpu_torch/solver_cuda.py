@@ -53,6 +53,7 @@ import torch
 from . import cm
 from .config import Capacity, SolverParams
 from .maths import solve66_cm
+from .ops import broadphase
 from .ops import replicated as rep
 from .ops.broadphase import bp_probe as bp_probe_math
 from .ops.broadphase import control_lanes as control_lanes_math
@@ -787,6 +788,10 @@ bp_probe.launches = 0
 
 
 def reset_launch_counts() -> None:
+    """Every launch count of this module and of the broadphase refresh's
+    wrappers (``ops.broadphase.candidate_lists`` / ``refresh_needed``) to 0."""
+    broadphase.candidate_lists.launches = 0
+    broadphase.refresh_needed.launches = 0
     step_kernel.launches = 0
     control_lanes.launches = 0
     bp_probe.launches = 0

@@ -23,7 +23,13 @@ launches, the card's name and power limit beside them, one JSON line last:
                   K1 contact-only at settled Stress1000; over 100 calls, K2
                   at Stress1000's initial (rain-in) and settled states and
                   Stress2048's initial state, and K7 at settled Stress1000
-                  and settled Stress4096
+                  and settled Stress4096; a refresh of the lists
+                  (``build_bp_cache``) and the grid step's refresh predicate
+                  (``refresh_needed``) at settled Stress1000, Stress2048
+                  (step 600) and Stress4096, each also with every kernel of
+                  the trace, the torch operations' too (``all_us``,
+                  ``all_launches``): the torch version in a tree before the
+                  refresh kernels
   k2_lanes_differ K2 against its plain version at those three states: the
                   lanes whose bits differ (lane 3, the deviation from the
                   mean displacement, sums over the world in another order)
@@ -60,7 +66,9 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     from avbd3d_tpu_torch import kernels, load_scene, solver, solver_cuda, solver_grid
-    from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
+    from torch.autograd import DeviceType
+
+    from avbd3d_tpu_torch.ops.broadphase import build_bp_cache, refresh_needed
     from avbd3d_tpu_torch.utils import profile_phases
 
     if not torch.cuda.is_available():
@@ -77,15 +85,20 @@ def main(argv=None) -> int:
             for _ in range(reps):
                 call()
             torch.cuda.synchronize()
-        by_name, counts = {}, {}
+        by_name, counts, all_us, all_launches = {}, {}, 0.0, 0.0
         for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA and profile_phases.device_time_us(e) > 0.0
+                    and not e.key.startswith(("Memcpy", "Memset"))):
+                all_us += profile_phases.device_time_us(e) / reps
+                all_launches += e.count / reps
             if cs.own_kernel(e.key):
                 # "void k_x<512, true>(...)" for a template
                 name = e.key.split("(")[0].removeprefix("void ")
                 by_name[name] = by_name.get(name, 0.0) + profile_phases.device_time_us(e) / reps
                 counts[name] = counts.get(name, 0) + e.count / reps
         out["traced"][label] = {"ms": ms, "device_us": sum(by_name.values()),
-                                "kernels": by_name, "launches": counts}
+                                "kernels": by_name, "launches": counts, "all_us": all_us,
+                                "all_launches": all_launches}
 
     def with_cache(world, scene):
         """``world`` with fresh candidate lists (an initial state's)."""
@@ -102,6 +115,14 @@ def main(argv=None) -> int:
         differ = (got.view(torch.int32) != want.view(torch.int32)).nonzero().flatten()
         out.setdefault("k2_lanes_differ", {})[label] = differ.tolist()
 
+    def refresh(label, world, scene):
+        """A refresh of ``world``'s lists and the grid step's predicate on
+        its cached lists, each timed and traced over 20 calls."""
+        b, pr, ex = world.bodies, scene.params, world.exclusions
+        traced(f"refresh lists, {label}",
+               lambda: build_bp_cache(b, ex, scene.cap.max_degree, pr.bp_margin))
+        traced(f"refresh predicate, {label}", lambda: refresh_needed(world.bp, b, pr.bp_margin))
+
     def probe(label, world, params):
         traced(f"K7, {label}", lambda: solver_cuda.bp_probe(world.bp.nb, world.bodies, params),
                100)
@@ -112,6 +133,7 @@ def main(argv=None) -> int:
     w = solver.run_steps(sc.world, p, sc.cap, 700)
     lanes("Stress1000 settled", w, p)
     probe("Stress1000 settled", w, p)
+    refresh("Stress1000 settled", w, sc)
     a1 = cs.k1_inputs(w, sc)
     out["k1_settled_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a1), 20)
     traced("K1 contact-only, settled Stress1000", lambda: solver_cuda.step_kernel(*a1))
@@ -127,6 +149,7 @@ def main(argv=None) -> int:
     s2 = load_scene("Stress2048", device="cuda")
     lanes("Stress2048 initial", with_cache(s2.world, s2), s2.params)
     w2 = solver.run_steps(s2.world, s2.params, s2.cap, 600)
+    refresh("Stress2048 step 600", w2, s2)
     a2 = cs.k1_inputs(w2, s2)
     out["k1_2048_ms"] = cs.event_ms(lambda: solver_cuda.step_kernel(*a2), 20)
 
@@ -143,6 +166,7 @@ def main(argv=None) -> int:
     s4 = load_scene("Stress4096", device="cuda")
     w4 = solver.run_steps(s4.world, s4.params, s4.cap, 1000)
     probe("Stress4096 settled", w4, s4.params)
+    refresh("Stress4096 settled", w4, s4)
     wi = cs.grid_inputs(w4, s4)
     a5 = cs.k5_args(wi, s4)
     traced("K5, settled Stress4096", lambda: solver_grid.collide_grid(*a5))

@@ -9,8 +9,10 @@
    D = 24, DC = 12) through ``load_scene(..., device="cuda")`` and ``step``
    for 700 steps (the falling regime with the ballistic rain-in, the landing,
    the settling pile), with the launch counters reset before and read after.
-   Checks: K1 and K2 launched, sanitized == 0, overflow 0, penetration below
-   PEN_LIMIT at every step after the landing cascade, poses finite.
+   Checks: K1 once a contact step, K2 once a ballistic step and the refresh
+   kernels once a refresh step, each launched; sanitized == 0, overflow 0,
+   penetration below PEN_LIMIT at every step after the landing cascade,
+   poses finite.
 3. Kernel vs plain on the card: K1 for one step from a landing state and a
    settled state (Stress1000 takes one launch per half-sweep), K1 on its
    cluster-resident route on Pyramid and a 7^3 pile, K2 on Stress1000's
@@ -27,7 +29,8 @@
 5. Grid tier: Stress4096 (16^3 cubes + ground, N = 5120, G = 40, D = 28,
    DC = 16, x-major order) for 1000 steps, the reference's validated window,
    counters reset before and read after.  Checks: every step took the grid
-   tier, K5 launched once and K6 five times per step, sanitized 0, pair and
+   tier, K5 launched once and K6 five times per step, the refresh predicate
+   once a step and the refresh kernels once a refresh step, sanitized 0, pair and
    degree overflow 0 and finite poses at every step, penetration below
    PEN_LIMIT over steps 901-1000.  Then K5 (two kernels a call, held to
    that in a trace; floats with difference 0) and K6 against their plain
@@ -78,11 +81,13 @@
    uninterrupted run, ``pick`` straight down onto the settled pile, the
    viewer's ``Sim`` (state, spawn into a padding slot, the refresh after
    it), and utils/profile_phases' table for 50 settled steps, whose kernel
-   count is held to the sweep plan's own.
+   count is held to the sweep plan's own and its refresh kernels to the
+   traced steps' refreshes.
 12. The race gate: every resident route (K1's cluster route at clusters of
    4, 12 and 16 blocks, K6 with 5 clusters, K1's joint route at RodJointed,
-   SoftGrid and the 20 sheets, RodJointed also on the grid barrier) and K7
-   and K2 (whose last block folds every block's partials) run RACE_REPS
+   SoftGrid and the 20 sheets, RodJointed also on the grid barrier), K7,
+   K2 and the refresh kernels (whose last block folds every block's
+   partials) run RACE_REPS
    times on one input with every output bit-identical, then through a
    build whose odd blocks sleep before their pose reads and writes (K7,
    K2: before their partials' write and the ticket), bit-identical again;
@@ -91,14 +96,15 @@
    cluster and grid barrier, where the tool runs (else the reason).
 13. The sweep kernels' record: the route ``solver_cuda.sweep_plan`` gives
    each scene and the kernels a step of it queues, ptxas registers and spill
-   bytes of the tiled, the collide, K7's and K2's kernels, and K1-K7
+   bytes of the tiled, the collide, K7's, K2's and the refresh kernels, and K1-K7
    timed by utils/time_sweeps.py (CUDA events, and the kernels' own time in
    a trace) in this tree and, where an archive of the parent commit lies in
    ``_archive/parent`` (git-ignored), in that tree too, in turns within
    this one run.
 14. The portable path (``backend="xla"``) on Stress1000, 300 steps from step
-   0 through the landing: one host read and one K2 launch a step, no other
-   kernel, sanitized 0, overflow 0; one step from its landing state and
+   0 through the landing: one host read and one K2 launch a step, the
+   refresh kernels once a refresh, no other kernel, sanitized 0, overflow
+   0; one step from its landing state and
    from the settled state on both paths: candidate lists and contact counts
    identical, poses within the reference's backend bound (2e-3 m); its
    ms/step and kernel launches a step.
@@ -108,7 +114,9 @@
    sanitized 0, degree overflow 0, RodJointed's weld gates at step 200.
 16. ``parallel.batched_step`` over 16 kicked Stress1000 worlds: 3 steps,
    each world equal to its own single run, K2 once a batched step (one
-   launch for the whole batch) and no other kernel, K2's batched lanes
+   launch for the whole batch), the refresh kernels once a batched step in
+   which a world refreshes (one call for the whole batch) and no other
+   kernel, K2's batched lanes
    against its plain version; then 100 timed batched steps from the
    landing state (world-steps/s, launches and host reads a step).
 17. The swept broadphase (``cap.bp_window`` > 0, windows SWEPT_WINDOWS):
@@ -136,6 +144,18 @@
    float16 control failing it) and ``failed_steps`` 0, the headline a rate
    over its count of timed steps; its idle share, longest idle gap and peak
    memory printed.
+19. The broadphase refresh on the card (csrc/bp_refresh.cu): the lists
+   kernels (``build_bp_cache``) against their plain version on the same
+   card tensors at Stress1000's initial, landing and settled states (also
+   at D = 4, where rows exceed the width, D = 40, and every body static),
+   Stress2048 steps 700 and 800, Stress4096 steps 800 and 2800, RodJointed
+   (exclusion columns) and the 16384-body pile compressed: nb, key, thr,
+   cand, dropped identical, slack bit for bit; the lists of two halves of
+   the rows (a sharded call) equal to the whole's; the refresh predicate
+   against its plain version at those states and against older lists: the
+   bool equal (both values taken), dev_raw bit for bit, dev_mm within 1e-5
+   relative, both the bits of K2's lanes 3 and 4; times of both beside the
+   torch versions' (and their launches) at N = 1024, 2048, 5120 and 16384.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -143,6 +163,7 @@ Exits non-zero on any failure, and without CUDA.  The last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -360,8 +381,10 @@ def compare_k2(world, params, label: str) -> float:
 def one_kernel_times(card, what, kernel, call, plain, reps=100) -> dict:
     """``call`` (one wrapper call) timed with CUDA events over ``reps``
     calls back to back, then traced: the port's kernels in the trace must be
-    ``kernel``, once a call.  ``plain``: the plain version, timed beside it.
-    Returns {"ms", "plain_ms", "device_us" (the kernel's own time a call)}."""
+    ``kernel`` (a name, or a tuple of the names a call queues), once each a
+    call.  ``plain``: the plain version, timed beside it.  Returns {"ms",
+    "plain_ms", "device_us" (the kernels' own time a call)}."""
+    names = {kernel} if isinstance(kernel, str) else set(kernel)
     ms = event_ms(call, reps)
     plain_ms = event_ms(plain, 20)
     t = trace_kernels(call, reps)
@@ -371,16 +394,17 @@ def one_kernel_times(card, what, kernel, call, plain, reps=100) -> dict:
     # holds no other kernel and fewer launches than calls is taken again, up
     # to twice, and then held as it is.
     for _ in range(2):
-        if not set(t) <= {kernel} or (t and round(t[kernel][1]) >= 1):
+        if not set(t) <= names or (set(t) == names and all(round(t[k][1]) >= 1 for k in t)):
             break
         print(f"{what}: the trace lost records ({t}); tracing again")
         t = trace_kernels(call, reps)
-    if set(t) != {kernel} or round(t[kernel][1]) != 1:
-        fail(f"{what}: the trace shows {t}, expected one {kernel} a call")
-    us = t[kernel][0] / t[kernel][1]
+    if set(t) != names or any(round(t[k][1]) != 1 for k in t):
+        fail(f"{what}: the trace shows {t}, expected one each of {sorted(names)} a call")
+    us = sum(t[k][0] / t[k][1] for k in t)
     print(f"[{card}] {what}: {ms:.4f} ms a call back to back (CUDA events, {reps} calls), plain "
-          f"{plain_ms:.4f} ms; on the card {us:.2f} us a call, one kernel ({kernel}; trace of "
-          f"{reps} calls)")
+          f"{plain_ms:.4f} ms; on the card {us:.2f} us a call, {len(names)} kernel(s) ("
+          + ", ".join(f"{k} {t[k][0] / t[k][1]:.2f} us" for k in sorted(t))
+          + f"; trace of {reps} calls)")
     return {"ms": ms, "plain_ms": plain_ms, "device_us": us}
 
 
@@ -393,7 +417,8 @@ def unmoved_world(world):
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count to 0 (K1-K7)."""
+    """Every kernel wrapper's launch count to 0 (K1-K7 and the broadphase
+    refresh's two wrappers)."""
     from avbd3d_tpu_torch import solver_cuda, solver_grid
 
     solver_cuda.reset_launch_counts()
@@ -402,8 +427,11 @@ def reset_counts():
 
 def read_counts() -> dict:
     from avbd3d_tpu_torch import solver_cuda, solver_grid
+    from avbd3d_tpu_torch.ops import broadphase
 
-    return {"step_kernel": solver_cuda.step_kernel.launches,
+    return {"candidate_lists": broadphase.candidate_lists.launches,
+            "refresh_needed": broadphase.refresh_needed.launches,
+            "step_kernel": solver_cuda.step_kernel.launches,
             "control_lanes": solver_cuda.control_lanes.launches,
             "collide_and_init": solver_cuda.collide_and_init.launches,
             "solve_loop": solver_cuda.solve_loop.launches,
@@ -436,8 +464,8 @@ def grid_phase(card: str) -> dict:
         paths.add(solver.step.last_path)
         refreshes += int(solver.step.last_gates["refreshed"])
         watch.add(i, w)
-        if i + 1 == 250:
-            saved["landing"] = w
+        if i + 1 in (250, 800):
+            saved[{250: "landing", 800: "step 800"}[i + 1]] = w
         if i + 1 in (300, hold_from):
             sync()
             marks[i + 1] = time.perf_counter() - t0
@@ -449,10 +477,13 @@ def grid_phase(card: str) -> dict:
           f"refresh steps {refreshes}; launches {launches}; host reads {host_reads}")
     if paths != {"grid"}:
         fail(f"Stress4096 did not take the grid tier at every step: {paths}")
-    want = {"step_kernel": 0, "control_lanes": 0, "collide_and_init": 0, "solve_loop": 0,
+    # A grid step reads the refresh predicate (one launch) and, when it
+    # holds, refreshes the lists (one call of the refresh kernels).
+    want = {"candidate_lists": refreshes, "refresh_needed": n_steps, "step_kernel": 0,
+            "control_lanes": 0, "collide_and_init": 0, "solve_loop": 0,
             "bp_probe": 0, "collide_grid": n_steps, "iterblock_grid": 5 * n_steps}
-    if launches != want:
-        fail(f"Stress4096 launch counts {launches}, expected {want}")
+    if launches != want or refreshes == 0:
+        fail(f"Stress4096 launch counts {launches}, expected {want} ({refreshes} refresh steps)")
     if host_reads != n_steps:
         fail(f"Stress4096 host reads {host_reads}, expected one per step")
     watch.check("Stress4096", n_steps)
@@ -508,8 +539,9 @@ def grid_phase(card: str) -> dict:
         nbytes(a6[3], [getattr(a6[4], f) for f in ("mass", "inv_mass", "friction", "inertia",
                                                     "inv_inertia")], a6[5:], out6),
         len(a6[2]) * (slots * OPS_CONTACT_SLOT_SWEEP + wi.bodies.n * OPS_BODY_SWEEP))
-    return {"settled": w, "params": p,
-            "launches": launches, "k5_err": k5_err, "k6_err": k6_err, "k5_ms": k5_ms,
+    return {"settled": w, "params": p, "step 800": saved["step 800"], "scene": scene,
+            "refreshes": refreshes, "launches": launches, "k5_err": k5_err, "k6_err": k6_err,
+            "k5_ms": k5_ms,
             "k5_plain_ms": k5_plain_ms, "k6_ms": k6_ms, "k6_plain_ms": k6_plain_ms,
             "k5_bound": k5_bound, "k6_bound": k6_bound, "k5_trace": k5_trace, "k6_args": a6}
 
@@ -717,21 +749,24 @@ def compare_k6(args, label: str) -> float:
 
 def run_counted(w, p, cap, n_steps, watch=None, at=()):
     """``n_steps`` steps from ``w`` with the counters reset before and read
-    after; returns (world, launches, seconds, {step: world} for ``at``)."""
+    after; returns (world, launches, seconds, {step: world} for ``at``,
+    refresh steps)."""
     from avbd3d_tpu_torch import solver
 
     saved = {}
+    refreshes = 0
     reset_counts()
     sync()
     t0 = time.perf_counter()
     for i in range(n_steps):
         w = solver.step(w, p, cap)
+        refreshes += int(solver.step.last_gates["refreshed"])
         if watch is not None:
             watch.add(i, w)
         if i + 1 in at:
             saved[i + 1] = w
     sync()
-    return w, read_counts(), time.perf_counter() - t0, saved
+    return w, read_counts(), time.perf_counter() - t0, saved, refreshes
 
 
 def world_anchor(w, body, local):
@@ -746,11 +781,13 @@ def world_anchor(w, body, local):
     return pos + v + qw * t + np.cross(qv, t)
 
 
-def expect_fused_only(label, launches, n_steps):
+def expect_fused_only(label, launches, n_steps, refreshes):
     """Every step of a jointed world through K1 (no ballistic step: the
-    gate needs dj == 0 and ds == 0), no other kernel."""
+    gate needs dj == 0 and ds == 0), the refresh kernels once a refresh
+    step, no other kernel."""
     want = dict.fromkeys(launches, 0)
     want["step_kernel"] = n_steps
+    want["candidate_lists"] = refreshes
     if launches != want:
         fail(f"{label}: launch counts {launches}, expected {want}")
 
@@ -767,8 +804,9 @@ def rod_jointed_phase(card):
     if (sc.world.joints.dj, cap.joint_colors, p.iterations) != (2, 2, 20):
         fail("RodJointed is not the DJ = 2, 2-colour, 20-iteration scene")
     watch = Watch(600)
-    w, launches, t_run, saved = run_counted(sc.world, p, cap, 600, watch, at=(30, 200))
-    expect_fused_only("RodJointed", launches, 600)
+    w, launches, t_run, saved, refreshes = run_counted(sc.world, p, cap, 600, watch,
+                                                       at=(30, 200))
+    expect_fused_only("RodJointed", launches, 600, refreshes)
     worst = watch.worst.tolist()
     if not bool(watch.finite) or worst[8] != 0.0:
         fail(f"RodJointed: sanitized {worst[8]} or non-finite poses")
@@ -797,7 +835,7 @@ def rod_jointed_phase(card):
           f"K1 launches {launches['step_kernel']}; sanitized 0; anchor gap max "
           f"{max(gaps):.2e} at step 200; max_lin {d['max_linear_speed']:.2e} at step 600; "
           f"worst link tension error {max(errs) * 100:.3f}%")
-    return sc, saved[30]
+    return sc, saved[30], w
 
 
 def soft_grid_phase():
@@ -808,9 +846,9 @@ def soft_grid_phase():
 
     sc = load_scene("SoftGrid", device="cuda")
     watch = Watch(150)
-    w, launches, t_run, saved = run_counted(sc.world, sc.params, sc.cap, 150, watch,
-                                            at=(1, 5))
-    expect_fused_only("SoftGrid", launches, 150)
+    w, launches, t_run, saved, refreshes = run_counted(sc.world, sc.params, sc.cap, 150, watch,
+                                                       at=(1, 5))
+    expect_fused_only("SoftGrid", launches, 150, refreshes)
     if not bool(watch.finite) or watch.worst[8].item() != 0.0:
         fail("SoftGrid: sanitized or non-finite poses")
     pos = w.bodies.pos_n3[1:sc.n_real]
@@ -834,8 +872,8 @@ def small_worlds_phase():
     b = sb.add_body((1, 1, 1), 1.0, 0.5, (0.0, 3.0, 0.0))
     sb.add_spring(a, b, (0, 0, 0), (0, 0, 0), stiffness=100.0)
     arrays, p, cap, _ = sb.build(SolverParams())
-    w, launches, _t, _s = run_counted(world_from_arrays(arrays, "cuda"), p, cap, 600)
-    expect_fused_only("spring world", launches, 600)
+    w, launches, _t, _s, refreshes = run_counted(world_from_arrays(arrays, "cuda"), p, cap, 600)
+    expect_fused_only("spring world", launches, 600, refreshes)
     dist = float((w.bodies.pos_n3[0] - w.bodies.pos_n3[1]).norm())
     manifolds = w.diagnostics.as_dict()["active_manifolds"]
     if not (abs(dist - 2.1) < 0.03 and manifolds == 0):
@@ -845,8 +883,8 @@ def small_worlds_phase():
     b = sb.add_body((1, 1, 1), 1.0, 0.5, (0.0, 5.0, 0.0))
     sb.add_world_joint(b, (0.0, 5.5, 0.0))
     arrays, p, cap, _ = sb.build(SolverParams())
-    wj, launches, _t, _s = run_counted(world_from_arrays(arrays, "cuda"), p, cap, 120)
-    expect_fused_only("world joint", launches, 120)
+    wj, launches, _t, _s, refreshes = run_counted(world_from_arrays(arrays, "cuda"), p, cap, 120)
+    expect_fused_only("world joint", launches, 120, refreshes)
     drift = float(abs(world_anchor(wj, 0, (0.0, 0.5, 0.0)) - [0.0, 5.5, 0.0]).max())
     if not drift < 0.02:
         fail(f"world joint: pinned anchor off by {drift}")
@@ -911,8 +949,8 @@ def sheets_phase(card):
     if shape != (2001, 2048, 16, 4, 3600, 1, 32, 32) or solver.select_path(w, cap) != "fused":
         fail(f"20-sheet world is not N = 2048 / 3600 soft joints / D = DC = 32: {shape}")
     watch = Watch(300)
-    w, launches, t_run, saved = run_counted(w, p, cap, 300, watch, at=(100,))
-    expect_fused_only("20 sheets", launches, 300)
+    w, launches, t_run, saved, refreshes = run_counted(w, p, cap, 300, watch, at=(100,))
+    expect_fused_only("20 sheets", launches, 300, refreshes)
     worst = watch.worst.tolist()
     if not bool(watch.finite) or worst[8] != 0.0 or worst[10] != 0.0:
         fail(f"20 sheets: sanitized {worst[8]}, degree overflow {worst[10]}")
@@ -929,6 +967,44 @@ def sheets_phase(card):
           f"manifolds, max |pos| {big:.2f}, max_pen {d['max_penetration']:.4f}")
     return {"scene": scene, "state": saved[100], "args": a1, "ms": ms, "plain_ms": plain_ms,
             "launches": launches["step_kernel"]}
+
+
+# The kernels of the broadphase refresh (csrc/bp_refresh.cu): one call of
+# ``candidate_lists`` on the card queues each of REFRESH_KERNELS once; the
+# refresh predicate is PREDICATE_KERNEL, once a call.
+REFRESH_KERNELS = ("k_bp_tables", "k_bp_lists")
+PREDICATE_KERNEL = "k_refresh_needed"
+
+
+def profiled_kernels(scene_name: str, warm: int, steps: int):
+    """``profile_phases.profile`` of ``steps`` steps after ``warm`` steps of
+    ``scene_name``, and its traced kernels of csrc/ but the refresh kernels
+    ({name: count}).  The refresh kernels are held to the refresh steps of
+    the traced block, which the counters give: its untraced twin and the
+    traced block run the same steps from the same state, and a run of the
+    ``warm`` steps of its own counts their refreshes.  Returns (profile's
+    numbers, the other kernels, the traced block's refresh steps)."""
+    from avbd3d_tpu_torch import load_scene, solver
+    from avbd3d_tpu_torch.utils import profile_phases
+
+    sc = load_scene(scene_name, device="cuda")
+    w, warm_refreshes = sc.world, 0
+    for _ in range(warm):
+        w = solver.step(w, sc.params, sc.cap)
+        warm_refreshes += int(solver.step.last_gates["refreshed"])
+    reset_counts()
+    r = profile_phases.profile(scene_name, warm, steps, "cuda")
+    calls = read_counts()["candidate_lists"] - warm_refreshes
+    own = collections.Counter()
+    for name, _us, c in r["kernels"]:
+        if own_kernel(name):
+            own[kernel_name(name)] += c
+    lists = [own.pop(k, 0) for k in REFRESH_KERNELS]
+    if calls % 2 or lists != [calls // 2] * len(REFRESH_KERNELS):
+        fail(f"profile_phases, {scene_name} {warm} + {steps} steps: the refresh kernels "
+             f"{REFRESH_KERNELS} traced {lists} times, the counters say {calls} refreshes in "
+             "the untraced and traced blocks together")
+    return r, dict(own), calls // 2
 
 
 def trace_kernels(fn, reps: int) -> dict:
@@ -951,11 +1027,12 @@ def trace_kernels(fn, reps: int) -> dict:
     return out
 
 
-def joint_step_trace(card, label, step_fn, args, n_steps: int):
+def joint_step_trace(card, label, step_fn, args, n_steps: int, refreshed: bool):
     """``n_steps`` calls of ``step_fn`` (steps of a jointed world) traced:
     the port's kernels per step must be the sweep plan's
     ``step_kernel_count``, one of them the resident joint kernel, and none
-    of the launch-per-sub-pass kernels."""
+    of the launch-per-sub-pass kernels; besides them the refresh kernels,
+    one each a call when the step refreshes (``refreshed``)."""
     from avbd3d_tpu_torch import solver_cuda
 
     b, j, sp = args[4], args[10], args[11]
@@ -964,6 +1041,10 @@ def joint_step_trace(card, label, step_fn, args, n_steps: int):
     iters = args[8] + int(args[7].post_stabilize)
     per_step = solver_cuda.step_kernel_count(plan, iters, dj, ds)
     t = trace_kernels(step_fn, n_steps)
+    lists = [round(t.pop(k, (0.0, 0.0))[1]) for k in REFRESH_KERNELS]
+    if lists != [int(refreshed)] * len(REFRESH_KERNELS):
+        fail(f"{label}: the refresh kernels {REFRESH_KERNELS} ran {lists} times a step, the "
+             f"step {'refreshes' if refreshed else 'reuses its lists'}")
     total = sum(c for _us, c in t.values())
     resident = sum(c for name, (_us, c) in t.items() if name.startswith("k_joint_sweeps"))
     if total != per_step or resident != 1 or any(k in t for k in ("k_subpass", "k_contact_acc")):
@@ -985,7 +1066,7 @@ def jointed_phases(card) -> dict:
     from avbd3d_tpu_torch import solver, solver_cuda
     from avbd3d_tpu_torch.utils import profile_phases
 
-    rod_scene, rod_state = rod_jointed_phase(card)
+    rod_scene, rod_state, rod_world = rod_jointed_phase(card)
     soft_scene, soft_state = soft_grid_phase()
     small_worlds_phase()
     sheets = sheets_phase(card)
@@ -1006,8 +1087,7 @@ def jointed_phases(card) -> dict:
              f"{ccap.joint_colors} colours; expected one cluster at DC = 1, DJ = 2, 2 colours")
     err = max(err, compare_k1(cargs, "narrow-cache rod step 20, DC = 1, cluster route"))
     # profile_phases on a named jointed scene, and a trace of sheet steps.
-    r = profile_phases.profile("RodJointed", 30, 20, "cuda")
-    own = {kernel_name(name): c for name, _us, c in r["kernels"] if own_kernel(name)}
+    _r, own, rod_refreshes = profiled_kernels("RodJointed", 30, 20)
     rod_args = states["RodJointed step 30"]
     per_step = solver_cuda.step_kernel_count(
         solver_cuda.sweep_plan(128, rod_args[0].other.shape[0], None, 2), 20, 2)
@@ -1015,11 +1095,15 @@ def jointed_phases(card) -> dict:
     if sum(own.values()) != 20 * per_step or resident != 20:
         fail(f"profile_phases, 20 RodJointed steps: {own}, the plan says {per_step} a step")
     print(f"profile_phases, 20 RodJointed steps: {sum(own.values()) / 20:.0f} of the port's kernels "
-          f"a step (the plan's {per_step}): {own}")
+          f"a step (the plan's {per_step}): {own}; and the refresh kernels once each on its "
+          f"{rod_refreshes} refresh steps")
     w, p, cap = sheets["state"], sheets["scene"].params, sheets["scene"].cap
+    solver.step(w, p, cap)
     trace = joint_step_trace(card, "20 sheets, 5 steps from step 100",
-                             lambda: solver.step(w, p, cap), states["20 sheets step 100"], 5)
-    return {**sheets, "err": err, "states": states, "trace": trace}
+                             lambda: solver.step(w, p, cap), states["20 sheets step 100"], 5,
+                             solver.step.last_gates["refreshed"])
+    return {**sheets, "err": err, "states": states, "trace": trace,
+            "rod": (rod_scene, rod_world)}
 
 
 def profiler_phase(w, scene, card) -> dict:
@@ -1278,13 +1362,14 @@ def app_phase(card, scene, landing, settled):
     print(f"viewer Sim on the card: state(5) well formed ({n_real} bodies), spawn filled slot "
           f"{n_real}, next step's gates {gates}, body at y = {y:.4f} after 5 steps, sanitized 0")
 
-    r = profile_phases.profile("Stress1000", 700, 50, "cuda")
+    r, own, refreshes = profiled_kernels("Stress1000", 700, 50)
     # Every settled step is a contact step, so the trace must hold the
-    # kernels the sweep plan says K1 queues, 50 times over.
+    # kernels the sweep plan says K1 queues, 50 times over, and besides them
+    # the refresh kernels once each a refresh step (profiled_kernels).
     plan = solver_cuda.sweep_plan(settled.bodies.n, settled.contacts.other.shape[0])
     n_main, _k = solver_cuda.select_variant(p, True, True)
     per_step = solver_cuda.step_kernel_count(plan, n_main + int(p.post_stabilize))
-    step_kernels = sum(c for name, _us, c in r["kernels"] if own_kernel(name))
+    step_kernels = sum(own.values())
     if not (r["device_us"] > 0.0 and 0.0 < r["busy"] <= 1.0):
         fail(f"profile_phases traced no device work: device_us {r['device_us']}, launches "
              f"{r['launches']}, busy {r['busy']}")
@@ -1293,12 +1378,14 @@ def app_phase(card, scene, landing, settled):
              f"({r['launches']} launches in all), the plan ({plan.route}) says {per_step} a step")
     print(f"[{card}] profile_phases, 50 settled Stress1000 steps: busy share "
           f"{100 * r['busy']:.1f}%, {r['launches'] / 50:.1f} launches/step "
-          f"({step_kernels / 50:.1f} of them the port's own kernels, the sweep plan's "
-          f"{per_step}); device {r['device_us'] / 50:.1f} us/step: "
+          f"({step_kernels / 50:.1f} of them the port's step kernels, the sweep plan's "
+          f"{per_step}, and the refresh kernels on its {refreshes} refresh steps); device "
+          f"{r['device_us'] / 50:.1f} us/step: "
           + ", ".join(f"{kernel_name(name)} {us / 50:.1f}"
                       for name, us, _c in r["kernels"] if own_kernel(name)))
     return {"device_us_per_step": r["device_us"] / 50, "busy": r["busy"],
-            "launches_per_step": r["launches"] / 50, "own_per_step": step_kernels / 50}
+            "launches_per_step": r["launches"] / 50,
+            "own_per_step": (step_kernels + len(REFRESH_KERNELS) * refreshes) / 50}
 
 
 # ---------------------------------------------------------------------------
@@ -1332,10 +1419,12 @@ def device_launches(fn, reps: int) -> tuple:
             sum(profile_phases.device_time_us(e) for e in rows) / reps)
 
 
-def expect_only_k2(label, launches, n_steps):
-    """The portable path launches K2 once a step and no other kernel."""
+def expect_only_k2(label, launches, n_steps, refreshes):
+    """The portable path launches K2 once a step, the refresh kernels once
+    a refresh (``refreshes``), and no other kernel."""
     want = dict.fromkeys(launches, 0)
     want["control_lanes"] = n_steps
+    want["candidate_lists"] = refreshes
     if launches != want:
         fail(f"{label}: launch counts {launches}, expected {want}")
 
@@ -1378,7 +1467,7 @@ def portable_phase(card, settled) -> dict:
     sync()
     t_run = time.perf_counter() - t0
     launches, reads = read_counts(), solver.step.host_reads
-    expect_only_k2("portable path", launches, 300)
+    expect_only_k2("portable path", launches, 300, gates["refreshed"])
     if reads != 300:
         fail(f"portable path: {reads} host reads in 300 steps")
     worst = worst.tolist()
@@ -1466,17 +1555,19 @@ def chains_phase(card) -> dict:
     reset_counts()
     solver.step.host_reads = 0
     worst = torch.zeros(16, device="cuda")
+    refreshes = 0
     sync()
     t0 = time.perf_counter()
     for i in range(200):
         w = solver.step(w, p, cap)
         if solver.step.last_path != "xla":
             fail(f"chains: step {i + 1} took {solver.step.last_path}")
+        refreshes += int(solver.step.last_gates["refreshed"])
         worst = torch.maximum(worst, w.diagnostics.vec)
     sync()
     t_run = time.perf_counter() - t0
     launches, reads = read_counts(), solver.step.host_reads
-    expect_only_k2("chains", launches, 200)
+    expect_only_k2("chains", launches, 200, refreshes)
     worst = worst.tolist()
     finite = bool(torch.isfinite(w.bodies.pos).all() & torch.isfinite(w.bodies.quat).all())
     if reads != 200 or not finite or worst[8] != 0.0 or worst[10] != 0.0:
@@ -1640,6 +1731,15 @@ def cells_phase(card: str) -> dict:
     return out
 
 
+def batched_refreshed() -> int:
+    """1 when some world of the last ``batched_step`` refreshed its lists
+    (the batch's lists then come from one call of the refresh kernels), else
+    0."""
+    from avbd3d_tpu_torch.parallel import batched_step
+
+    return int(any(any(g["refresh"]) for g in batched_step.last_gates))
+
+
 def batched_phase(card, landing) -> dict:
     """Phase 16: ``batched_step`` over BATCH Stress1000 worlds that differ
     by a kick, counters reset before each run and read after.  From the
@@ -1662,10 +1762,12 @@ def batched_phase(card, landing) -> dict:
     worlds = kicked_batch(scene.world, BATCH)
     starts = [world_at(worlds, i) for i in range(BATCH)]
     reset_counts()
+    refreshes = 0
     for _ in range(3):
         worlds = batched_step(worlds, p, cap)
+        refreshes += batched_refreshed()
     sync()
-    expect_only_k2("batched_step, 3 steps", read_counts(), 3)
+    expect_only_k2("batched_step, 3 steps", read_counts(), 3, refreshes)
 
     singles = []
     for w in starts:
@@ -1716,13 +1818,15 @@ def batched_phase(card, landing) -> dict:
     reads0 = batched_step.host_reads
     sync()
     reset_counts()
+    refreshes = 0
     t0 = time.perf_counter()
     for _ in range(100):
         worlds = batched_step(worlds, p, cap)
+        refreshes += batched_refreshed()
     sync()
     t_run = time.perf_counter() - t0
     launches = read_counts()
-    expect_only_k2("batched_step, 100 steps", launches, 100)
+    expect_only_k2("batched_step, 100 steps", launches, 100, refreshes)
     reads = (batched_step.host_reads - reads0) / 100
     vec = worlds.diagnostics.vec
     finite = bool(torch.isfinite(worlds.bodies.pos).all())
@@ -1809,6 +1913,12 @@ def swept_run(label, scene, window, n_steps, hold_from, most: bool):
     out = {"seconds": time.perf_counter() - t0, "launches": read_counts(), "paths": paths,
            "refresh_steps": refreshes, "swept": c.swept - base[0],
            "fallbacks": c.fallbacks - base[1], "world": w}
+    # The matrix runs on the card where the sweep falls back; the grid tier
+    # reads its refresh predicate every step.
+    want = (out["fallbacks"], n_steps if paths == {"grid"} else 0)
+    if (out["launches"]["candidate_lists"], out["launches"]["refresh_needed"]) != want:
+        fail(f"{label}, swept: refresh kernel launches {out['launches']}, expected "
+             f"candidate_lists {want[0]} (the fallbacks), refresh_needed {want[1]}")
     print(f"{label}, bp_window {window}: {n_steps} steps in {out['seconds']:.2f} s; paths "
           f"{sorted(paths)}; refresh steps {refreshes}: {out['swept']} swept, "
           f"{out['fallbacks']} fell back; launches {out['launches']}")
@@ -1880,7 +1990,7 @@ def swept_phase(card, landing, settled, grid) -> dict:
     pile = Scene("pile", world_from_arrays(arrays, "cuda"), p, cap, n_real)
     refresh["pile 31x17x31 spawn"] = swept_refresh(card, "pile 31x17x31 at its spawn poses",
                                                    pile.world, pile, SWEPT_WINDOWS["pile"])
-    return {"refresh": refresh, "fused": lf, "grid": lg,
+    return {"refresh": refresh, "fused": lf, "grid": lg, "pile": pile,
             "counts": {k: {f: r[f] for f in ("refresh_steps", "swept", "fallbacks", "seconds")}
                        for k, r in (("Stress1000 700 steps", fused),
                                     ("Stress4096 200 steps", gridded))}}
@@ -1899,13 +2009,261 @@ def own_kernel(name: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# The broadphase refresh on the card (phase 19)
+# ---------------------------------------------------------------------------
+
+# Float operations a unit, from csrc/bp_refresh.cu's statements, rounded
+# down: k_bp_lists' gap of a (dynamic row, column) pair (3 subtractions, 3
+# abs, 3 additions, 3 subtractions, 2 maxes, the margin); k_bp_tables' world
+# halves of a body; k_refresh_needed's anchor terms, partials and deviation
+# pass of a body.
+OPS_BP_PAIR = 15
+OPS_BP_BODY = 55
+OPS_ANCHOR_BODY = 60
+
+
+def plain_cache(b, exclusions, degree, margin):
+    """The refresh's plain version (``candidate_lists_plain`` and
+    ``cache_from_lists``) on the same tensors."""
+    from avbd3d_tpu_torch.ops import broadphase as bpm
+
+    half = tuple(b.size[k] * 0.5 for k in range(3))
+    return bpm.cache_from_lists(b, bpm.candidate_lists_plain(
+        b.pos, b.quat, half, b.radius, b.dynamic, exclusions, degree, margin))
+
+
+def compare_lists(label, world, degree, margin) -> dict:
+    """The refresh kernels (``build_bp_cache`` on the card: k_bp_tables,
+    k_bp_lists) against the plain version on the same card tensors: nb,
+    key, thr, cand and dropped identical, slack bit for bit."""
+    import torch
+
+    from avbd3d_tpu_torch.ops import broadphase as bpm
+
+    b, ex = world.bodies, world.exclusions
+    k = bpm.build_bp_cache(b, ex, degree, margin)
+    pl = plain_cache(b, ex, degree, margin)
+    sync()
+    differ = [f for f in ("nb", "key", "thr", "cand", "dropped")
+              if not torch.equal(getattr(k, f), getattr(pl, f))]
+    if not same_bits(k.slack, pl.slack):
+        differ.append("slack")
+    out = {"cand": int(k.cand), "dropped": int(k.dropped), "slack": float(k.slack),
+           "full_rows": int((k.thr != bpm.INT32_MAX).sum()),
+           "dynamic": int(b.dynamic.sum())}
+    verdict = "identical (slack bit for bit)" if not differ else "DIFFER in " + ", ".join(differ)
+    print(f"refresh lists vs plain ({label}, N = {b.n}, D = {degree}, {ex.shape[0]} exclusion "
+          f"columns): {verdict}; "
+          f"cand {out['cand']}, dropped {out['dropped']}, rows at the width {out['full_rows']}, "
+          f"dynamic rows {out['dynamic']}, slack {out['slack']:.6g}")
+    if differ:
+        fail(f"refresh lists, {label}: the kernels differ from the plain version in {differ}")
+    return out
+
+
+def compare_predicate(label, world, params) -> float:
+    """k_refresh_needed against ``refresh_needed_plain`` on the same state:
+    the bool equal, dev_raw bit for bit, dev_mm (through world-wide sums in
+    another order than torch.sum's) within 1e-5 relative, 1e-6 absolute;
+    and both deviations the bits of K2's lanes 3 and 4 on the same state
+    (the shared fold).  Returns dev_mm's difference."""
+    from avbd3d_tpu_torch import kernels, solver_cuda
+    from avbd3d_tpu_torch.ops import broadphase as bpm
+
+    b, bp, margin = world.bodies, world.bp, params.bp_margin
+    need, devs = kernels.launch_refresh_needed(b, bp.anchor, bp.anchor_quat, bp.slack, margin)
+    need_p = bpm.refresh_needed_plain(bp, b, margin)
+    mm, raw = bpm.anchor_deviation(b.pos, b.quat, b.radius, b.dynamic, bp.anchor, bp.anchor_quat)
+    lanes = solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, params)
+    sync()
+    err = abs(float(devs[0]) - float(mm))
+    ok = (bool(need) == bool(need_p), same_bits(devs[1], raw),
+          err <= 1e-6 + 1e-5 * abs(float(mm)), same_bits(devs, lanes[3:5]))
+    print(f"refresh predicate vs plain ({label}, N = {b.n}): need {bool(need)} (plain "
+          f"{bool(need_p)}); dev_raw {float(devs[1]):.6g} {'bit for bit' if ok[1] else 'DIFFERS'}; "
+          f"dev_mm {float(devs[0]):.6g}, abs err {err:.3e}; both the bits of K2's lanes 3 and 4: "
+          f"{ok[3]}")
+    if not all(ok):
+        fail(f"refresh predicate, {label}: need equal, dev_raw bits, dev_mm bound, K2's bits: {ok}")
+    return err
+
+
+def row_split_check(label, world, degree, margin) -> None:
+    """The lists kernel on two halves of the rows (their global offset
+    ``row0``) against every column, as a body-sharded world calls it: each
+    half's slots, keys and thresholds are the whole launch's rows, the
+    halves' counts sum and their slacks take the min to the whole's."""
+    import torch
+
+    from avbd3d_tpu_torch import kernels
+
+    b, ex = world.bodies, world.exclusions
+    table, max_wh = kernels.launch_bp_tables(b.pos, b.quat, b.size, 0.5, b.radius, b.inv_mass)
+    whole = kernels.launch_bp_lists(table, table, max_wh, ex, degree, margin)
+    half = b.g // 2
+    parts = [kernels.launch_bp_lists(table[g0 * 128:(g0 + half) * 128], table, max_wh,
+                                     ex[:, g0:g0 + half].contiguous(), degree, margin, g0 * 128)
+             for g0 in (0, half)]
+    sync()
+    same = [torch.equal(whole[k], torch.cat([p[k] for p in parts], dim=-2)) for k in range(2)]
+    same.append(torch.equal(whole[2], torch.cat([p[2] for p in parts])))
+    same += [int(whole[k]) == sum(int(p[k]) for p in parts) for k in (3, 5)]
+    same.append(same_bits(whole[4], torch.minimum(parts[0][4], parts[1][4])))
+    print(f"refresh lists by halves of the rows ({label}, rows 0-{half * 128 - 1} and "
+          f"{half * 128}-{b.n - 1} against all {b.n} columns): nb, key, thr, cand, kept, slack "
+          f"{'the whole launch' + chr(39) + 's' if all(same) else 'DIFFER: ' + str(same)}")
+    if not all(same):
+        fail(f"refresh lists by halves, {label}: {same}")
+
+
+def compressed(world, params, cap, scale=0.9):
+    """``world`` with every dynamic body's position scaled by ``scale``
+    about the origin (the ground's top face is y = 0), so that a spawn's
+    layers overlap, and its lists anchored at the scaled poses; and the
+    lists anchored at the poses as they were."""
+    import torch
+
+    from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
+
+    b = world.bodies
+    before = build_bp_cache(b, world.exclusions, cap.max_degree, params.bp_margin)
+    b = b.replace(pos=torch.where((b.inv_mass > 0.0)[None], b.pos * scale, b.pos))
+    return world.replace(bodies=b, bp=build_bp_cache(b, world.exclusions, cap.max_degree,
+                                                     params.bp_margin)), before
+
+
+def refresh_bounds(world, degree) -> dict:
+    """The least time for a refresh and for the predicate at ``world``
+    (bytes: each input read once and each output written once; operations:
+    the dynamic rows' pairs and the bodies' terms)."""
+    b, ex, bp = world.bodies, world.exclusions, world.bp
+    n = b.n
+    lists_bytes = (nbytes([getattr(b, f) for f in ("pos", "quat", "size", "radius", "inv_mass")],
+                          ex) + 4 * (2 * degree * n + n + 4))
+    lists_ops = int(b.dynamic.sum()) * n * OPS_BP_PAIR + n * OPS_BP_BODY
+    pred_bytes = nbytes([getattr(b, f) for f in ("pos", "quat", "radius", "inv_mass")],
+                        bp.anchor, bp.anchor_quat, bp.slack) + 1
+    return {"lists": bound(lists_bytes, lists_ops), "predicate": bound(pred_bytes,
+                                                                       n * OPS_ANCHOR_BODY)}
+
+
+def refresh_times(card, label, world, degree, params) -> dict:
+    """At ``world``: a refresh on the card (both kernels) and the predicate,
+    each against its plain version (CUDA events back to back, traced and
+    held to its kernels, once each a call), the plain versions' launches a
+    call (a trace), and the bounds."""
+    from avbd3d_tpu_torch.ops import broadphase as bpm
+
+    b, ex, bp, margin = world.bodies, world.exclusions, world.bp, params.bp_margin
+    reps = 100 if b.n <= 5120 else 20
+    lists = one_kernel_times(
+        card, f"refresh lists ({label}, N = {b.n}, D = {degree})", REFRESH_KERNELS,
+        lambda: bpm.build_bp_cache(b, ex, degree, margin),
+        lambda: plain_cache(b, ex, degree, margin), reps)
+    lists["plain_launches"], lists["plain_device_us"] = device_launches(
+        lambda: plain_cache(b, ex, degree, margin), 2)
+    pred = one_kernel_times(
+        card, f"refresh predicate ({label}, N = {b.n})", PREDICATE_KERNEL,
+        lambda: bpm.refresh_needed(bp, b, margin), lambda: bpm.refresh_needed_plain(bp, b, margin),
+        reps)
+    pred["plain_launches"], pred["plain_device_us"] = device_launches(
+        lambda: bpm.refresh_needed_plain(bp, b, margin), 2)
+    bnd = refresh_bounds(world, degree)
+    for what, t in (("lists", lists), ("predicate", pred)):
+        t["bound_ms"], t["bound_by"] = bnd[what]
+        print(f"[{card}] refresh {what} ({label}): kernels {t['ms']:.4f} ms a call "
+              f"({t['device_us']:.1f} us on the card), the torch version {t['plain_ms']:.4f} ms "
+              f"({t['plain_launches']:.0f} launches, {t['plain_device_us']:.1f} us on the card); "
+              f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    return {"lists": lists, "predicate": pred}
+
+
+def refresh_phase_states(card, scene, saved, init, w2048, s2048, grid, jointed, pile) -> dict:
+    """Phase 19 at this run's states: Stress1000 (N = 1024, D = 24) at its
+    initial, landing (150) and settled (700) states, settled also at D = 4
+    (rows beyond the width: the bisection) and D = 40, and with every body
+    static; Stress2048 (N = 2048, D = 24) at steps 700 and 800 (100 and 200
+    steps on from phase 7's state); Stress4096 (N = 5120, D = 28) at steps
+    800 and 2800 (1800 grid steps on from phase 5's state); RodJointed at
+    step 600 (exclusion columns); the 16384-body pile of phase 17 with its
+    spawn's positions scaled by 0.9 (overlapping layers).  The predicate at
+    those states with their own lists and at three against older lists (the
+    refresh due)."""
+    from avbd3d_tpu_torch import solver
+
+    p, deg = scene.params, scene.cap.max_degree
+    p48, c48 = s2048.params, s2048.cap
+    s700 = solver.run_steps(w2048, p48, c48, 100)
+    s800 = solver.run_steps(s700, p48, c48, 100)
+    p4, c4 = grid["params"], grid["scene"].cap
+    g800 = grid["step 800"]
+    g2800 = solver.run_steps(grid["settled"], p4, c4, 1800)
+    rod_scene, rod = jointed["rod"]
+    pr, ppile = rod_scene.params, pile.params
+    big, spawn_lists = compressed(pile.world, ppile, pile.cap)
+    settled = saved["settled"]
+    lists = {
+        "Stress1000 initial": (init, deg, p.bp_margin),
+        "Stress1000 landing (step 150)": (saved["landing"], deg, p.bp_margin),
+        "Stress1000 settled (step 700)": (settled, deg, p.bp_margin),
+        "Stress1000 settled, D = 4 (rows beyond the width)": (settled, 4, p.bp_margin),
+        "Stress1000 settled, D = 40": (settled, 40, p.bp_margin),
+        "Stress1000 initial, every body static": (unmoved_world(init), deg, p.bp_margin),
+        "Stress2048 step 700": (s700, c48.max_degree, p48.bp_margin),
+        "Stress2048 step 800": (s800, c48.max_degree, p48.bp_margin),
+        "Stress4096 step 800": (g800, c4.max_degree, p4.bp_margin),
+        "Stress4096 step 2800": (g2800, c4.max_degree, p4.bp_margin),
+        "RodJointed step 600 (exclusions)": (rod, rod_scene.cap.max_degree, pr.bp_margin),
+        "pile 31x17x31, spawn compressed to 0.9": (big, pile.cap.max_degree, ppile.bp_margin)}
+    predicate = {
+        "Stress1000 landing (step 150)": (saved["landing"], p),
+        "Stress1000 settled (step 700)": (settled, p),
+        "Stress1000 settled against the landing's lists": (
+            settled.replace(bp=saved["landing"].bp), p),
+        "Stress1000 initial, every body static": (unmoved_world(init), p),
+        "Stress2048 step 700": (s700, p48), "Stress2048 step 800": (s800, p48),
+        "Stress4096 step 800": (g800, p4), "Stress4096 step 2800": (g2800, p4),
+        "Stress4096 step 2800 against step 800's lists": (g2800.replace(bp=g800.bp), p4),
+        "RodJointed step 600": (rod, pr),
+        "pile 31x17x31, spawn compressed to 0.9": (big, ppile),
+        "pile 31x17x31 compressed, against its spawn's lists": (
+            big.replace(bp=spawn_lists), ppile)}
+    timed = {"Stress1000 settled": (settled, deg, p),
+             "Stress2048 step 800": (s800, c48.max_degree, p48),
+             "Stress4096 step 2800": (g2800, c4.max_degree, p4),
+             "pile 31x17x31 compressed": (big, pile.cap.max_degree, ppile)}
+    return refresh_phase(card, lists, predicate, timed)
+
+
+def refresh_phase(card, lists: dict, predicate: dict, timed: dict) -> dict:
+    """Phase 19: the refresh kernels against their plain versions at every
+    state of ``lists`` ({label: (world, degree, margin)}, compare_lists) and
+    the predicate at every state of ``predicate`` ({label: (world,
+    params)}, compare_predicate), the row split of a sharded call at the
+    first Stress4096 state, and the times of both at the states of
+    ``timed`` ({label: (world, degree, params)})."""
+    out = {label: compare_lists(label, *args) for label, args in lists.items()}
+    from avbd3d_tpu_torch.ops import broadphase as bpm
+
+    err = max(compare_predicate(label, *args) for label, args in predicate.items())
+    needs = {bool(bpm.refresh_needed_plain(w.bp, w.bodies, p.bp_margin))
+             for w, p in predicate.values()}
+    if needs != {True, False}:
+        fail(f"refresh predicate: the states took only {needs}")
+    split = next(label for label in lists if label.startswith("Stress4096"))
+    row_split_check(split, *lists[split])
+    times = {label: refresh_times(card, label, *args) for label, args in timed.items()}
+    return {"lists": out, "predicate_err": err, "times": times}
+
+
+# ---------------------------------------------------------------------------
 # The sweep kernels' record (phase 13)
 # ---------------------------------------------------------------------------
 
 # The kernels whose ptxas usage the record prints: the tiled sweep kernels,
-# the two collide kernels of K1, K3 and K5, K7's and K2's.
+# the two collide kernels of K1, K3 and K5, K7's, K2's and the refresh's.
 RECORD_KERNELS = ("k_sweeps", "k_primal", "k_joint_sweeps", "k_filter_cull", "k_collide",
-                  "k_probe", "k_control_lanes")
+                  "k_probe", "k_control_lanes", "k_bp_tables", "k_bp_lists", "k_refresh_needed")
 
 # The last recorded times of these calls (this script's own event times, as
 # PERF.md section 6 records them from one H100 80GB HBM3 at 700 W); printed
@@ -2002,7 +2360,9 @@ def sweep_record(card, lib, smoke_times) -> dict:
                   f"{t[2]['device_us']:.1f} us on the card (one run, in turns)")
             for who, r in (("parent", t[0]), ("change", t[1])):
                 print(f"    {who} kernels, us and launches a call: " + ", ".join(
-                    f"{k} {us:.1f} x{r['launches'][k]:g}" for k, us in r["kernels"].items()))
+                    f"{k} {us:.1f} x{r['launches'][k]:g}" for k, us in r["kernels"].items())
+                    + (f"; every kernel of the trace: {r['all_us']:.1f} us, "
+                       f"{r['all_launches']:g} launches" if "all_us" in r else ""))
         for who, r in (("parent", runs[0]), ("change", runs[1])):
             print(f"[{card}] K2's lanes whose bits differ from the plain version ({who}): "
                   + json.dumps(r.get("k2_lanes_differ")))
@@ -2024,9 +2384,10 @@ RACE_REPS = 50
 # this long before each read of other blocks' poses and each pose write
 # (csrc/step_kernel.cu AVBD_RACE_DELAY), several times a sweep's own length
 # on the small worlds, so that a missing barrier changes the bits; those of
-# K7 and K2 before they write their partials and before they take the
-# ticket (csrc/bp_probe.cu, control_lanes.cu), several times the kernels'
-# own length, so that a fold that does not wait for every block shows.
+# K7, K2 and the refresh kernels before they write their partials and before
+# they take the ticket (csrc/bp_probe.cu, control_lanes.cu, bp_refresh.cu),
+# several times the kernels' own length, so that a fold that does not wait
+# for every block shows.
 RACE_DELAY_NS = 20000
 
 
@@ -2041,6 +2402,7 @@ def race_routes(states: dict) -> list:
     import dataclasses
 
     from avbd3d_tpu_torch import kernels, load_scene, solver, solver_cuda, solver_grid
+    from avbd3d_tpu_torch.ops import broadphase
 
     routes = []
 
@@ -2081,6 +2443,16 @@ def race_routes(states: dict) -> list:
         routes.append((f"K2 {label} (the last block folds and runs the deviation pass)",
                        lambda w=w, p=p: [solver_cuda.control_lanes(w.bp.nb, w.bodies, w.bp.anchor,
                                                                    w.bp.anchor_quat, p)]))
+    # The refresh kernels (a ticket fold each) and the predicate (K2's fold).
+    for label, (w, degree, p) in states["refresh"].items():
+        b = w.bodies
+        routes.append((f"refresh lists {label} (k_bp_tables and k_bp_lists: the last block folds)",
+                       lambda b=b, w=w, degree=degree, p=p: list(broadphase._lists_on_card(
+                           b.pos, b.quat, b.size, 0.5, b.radius, b.inv_mass, w.exclusions,
+                           degree, p.bp_margin))))
+        routes.append((f"refresh predicate {label} (the last block folds and runs the deviation "
+                       "pass)", lambda b=b, w=w, p=p: list(kernels.launch_refresh_needed(
+                           b, w.bp.anchor, w.bp.anchor_quat, w.bp.slack, p.bp_margin))))
     return routes
 
 
@@ -2418,16 +2790,17 @@ def main() -> int:
             t_fall = time.perf_counter() - t0
     sync()
     t_main = time.perf_counter() - t0
-    launches = {"step_kernel": solver_cuda.step_kernel.launches,
-                "control_lanes": solver_cuda.control_lanes.launches}
+    launches = {k: v for k, v in read_counts().items()
+                if k in ("step_kernel", "control_lanes", "candidate_lists")}
     host_reads = solver.step.host_reads
     worst = worst.tolist()
     diag = w.diagnostics.as_dict()
     print(f"main path: 700 steps in {t_main:.2f} s; gates {gates}; launches {launches}; "
           f"host reads {host_reads}")
-    if launches["step_kernel"] == 0 or launches["control_lanes"] == 0:
+    if 0 in launches.values():
         fail(f"a kernel of the main path never launched: {launches}")
-    if launches["step_kernel"] != gates["contact"] or launches["control_lanes"] != gates["ballistic"]:
+    if (launches["step_kernel"], launches["control_lanes"], launches["candidate_lists"]) != (
+            gates["contact"], gates["ballistic"], gates["refreshed"]):
         fail(f"launch counts {launches} do not match the steps taken {gates}")
     if worst[8] != 0.0:
         fail(f"sanitized {worst[8]}")
@@ -2513,6 +2886,8 @@ def main() -> int:
         "Stress1000 settled, fresh lists of 40 slots": (wide, p),
         "Ground, no slots": (ground.world, ground.params)})
     swept = swept_phase(card, saved["landing"], w, grid)
+    refresh = refresh_phase_states(card, scene, saved, init, w2048, s2048, grid, jointed,
+                                   swept["pile"])
     traced = app_phase(card, scene, saved["landing"], w)
     portable = portable_phase(card, w)
     chains = chains_phase(card)
@@ -2522,7 +2897,11 @@ def main() -> int:
                              "probe": {"Stress1000 settled": (w, p),
                                        "Stress4096 settled": (grid["settled"], grid["params"])},
                              "lanes": {k: k2_states[k] for k in ("Stress1000 settled",
-                                                                 "Stress2048 initial")}})
+                                                                 "Stress2048 initial")},
+                             "refresh": {"Stress1000 settled": (w, cap.max_degree, p),
+                                         "Stress4096 settled": (grid["settled"],
+                                                                grid["scene"].cap.max_degree,
+                                                                grid["params"])}})
     sweeps = sweep_record(card, lib, {"k1_settled_ms": k1_ms, "k1_sheets_ms": jointed["ms"],
                                       "k4_ms": {"20": prof["ms4"]}, "k6_ms": grid["k6_ms"]})
     bench = bench_phase(card)
@@ -2559,6 +2938,7 @@ def main() -> int:
         + n4 * OPS_BODY_STEP)
     sync()
     csrc = "avbd3d_tpu_torch/csrc/"
+    t4 = refresh["times"]["Stress4096 step 2800"]
     report = {"kernels": [
         kernel_entry("step_kernel", csrc + "step_kernel.cu", "avbd3d_tpu/solver_tpu.py:864",
                      launches["step_kernel"], max(k1_err, k1_small_err, k1_2048_err, jointed["err"]),
@@ -2662,6 +3042,40 @@ def main() -> int:
                          "parent": parent_traced(sweeps, "K7, Stress4096 settled"),
                          "bound_ms": probe["grid"]["bound"][0],
                          "bound_by": probe["grid"]["bound"][1]}),
+        kernel_entry("candidate_lists", csrc + "bp_refresh.cu", "avbd3d_tpu/ops/broadphase.py:231",
+                     launches["candidate_lists"], 0.0, t4["lists"]["ms"], t4["lists"]["plain_ms"],
+                     (t4["lists"]["bound_ms"], t4["lists"]["bound_by"]),
+                     note="no Pallas kernel: the reference's candidate_lists runs in XLA; timed "
+                          "at Stress4096 step 2800 (N = 5120, D = 28); max_abs_err: the slack, "
+                          "the integer outputs identical at every state of phase 19",
+                     kernel=list(REFRESH_KERNELS), kernels_per_call=len(REFRESH_KERNELS),
+                     device_us=t4["lists"]["device_us"],
+                     plain_launches=t4["lists"]["plain_launches"],
+                     by_state={k: {f: v["lists"][f] for f in ("ms", "plain_ms", "device_us",
+                                                               "plain_launches", "bound_ms",
+                                                               "bound_by")}
+                               for k, v in refresh["times"].items()},
+                     paths={"fused path": {"launches": launches["candidate_lists"], "steps": 700,
+                                           "note": "Stress1000, phase 2: once a refresh step"},
+                            "grid tier": {"launches": grid["launches"]["candidate_lists"],
+                                          "steps": 1000, "refresh_steps": grid["refreshes"],
+                                          "note": "Stress4096, phase 5"}},
+                     **{k: sweeps["usage"][k] for k in REFRESH_KERNELS}),
+        kernel_entry("refresh_needed", csrc + "bp_refresh.cu", "avbd3d_tpu/ops/broadphase.py:153",
+                     grid["launches"]["refresh_needed"], refresh["predicate_err"],
+                     t4["predicate"]["ms"], t4["predicate"]["plain_ms"],
+                     (t4["predicate"]["bound_ms"], t4["predicate"]["bound_by"]),
+                     note="no Pallas kernel: the reference's refresh_or_reuse computes its "
+                          "predicate in XLA; the grid tier's main path (Stress4096, phase 5: "
+                          "once a step); timed at Stress4096 step 2800 (N = 5120); max_abs_err: "
+                          "dev_mm, dev_raw bit for bit",
+                     kernel=PREDICATE_KERNEL, kernels_per_call=1,
+                     device_us=t4["predicate"]["device_us"],
+                     plain_launches=t4["predicate"]["plain_launches"],
+                     by_state={k: {f: v["predicate"][f] for f in (
+                         "ms", "plain_ms", "device_us", "plain_launches", "bound_ms", "bound_by")}
+                               for k, v in refresh["times"].items()},
+                     **sweeps["usage"][PREDICATE_KERNEL]),
     ]}
     print(f"race gate: {race['routes']} resident routes, {RACE_REPS} repetitions each and the "
           f"delayed build bit-identical; compute-sanitizer: {json.dumps(race['sanitizer'])}")

@@ -20,6 +20,7 @@ from avbd3d_tpu_torch import (SceneBuilder, kernels, load_scene, run_steps, solv
                               solver_cuda, solver_grid)
 from avbd3d_tpu_torch.config import SolverParams
 from avbd3d_tpu_torch.convert import world_from_arrays
+from avbd3d_tpu_torch.ops import broadphase
 from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -177,6 +178,62 @@ def cuda_stress():
     kernels.build()
     sc = load_scene("Stress1000", device="cuda")
     return sc, run_steps(sc.world, sc.params, sc.cap, 160)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [24, 4, 40])
+def test_cuda_candidate_lists_match_plain(cuda_stress, degree):
+    """The refresh kernels (csrc/bp_refresh.cu) against the plain version on
+    the same card tensors, at a landing Stress1000 state at its width, at D
+    = 4 (rows past the width: the bisection) and D = 40, and at RodJointed
+    (exclusion columns): nb, key, thr, cand, dropped identical, slack bit for
+    bit; one count a call, none for the plain version."""
+    sc, w = cuda_stress
+    rod = load_scene("RodJointed", device="cuda")
+    dropped = []
+    for world, margin in ((w, sc.params.bp_margin),
+                          (run_steps(rod.world, rod.params, rod.cap, 50), rod.params.bp_margin)):
+        b = world.bodies
+        broadphase.candidate_lists.launches = 0
+        got = build_bp_cache(b, world.exclusions, degree, margin)
+        half = tuple(b.size[k] * 0.5 for k in range(3))
+        want = broadphase.cache_from_lists(b, broadphase.candidate_lists_plain(
+            b.pos, b.quat, half, b.radius, b.dynamic, world.exclusions, degree, margin))
+        for f in ("nb", "key", "thr", "cand", "dropped"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(got.slack.view(torch.int32), want.slack.view(torch.int32))
+        assert broadphase.candidate_lists.launches == 1
+        dropped.append(int(got.dropped))
+    assert (dropped[0] > 0) == (degree == 4), dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0.0, 1e-3, 0.05])
+def test_cuda_refresh_needed_matches_plain(cuda_stress, shift):
+    """The predicate kernel against its plain version on the landing
+    Stress1000 state, every dynamic body moved by a seeded draw of scale
+    ``shift``: the bool equal, dev_raw bit for bit and the bits of K2's lane
+    4, dev_mm within 1e-5 relative and the bits of K2's lane 3; one count a
+    call."""
+    sc, w = cuda_stress
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    b, bp, margin = w.bodies, w.bp, sc.params.bp_margin
+    g = torch.Generator().manual_seed(3)
+    step = shift * torch.randn(b.pos.shape, generator=g).to("cuda")
+    b = b.replace(pos=b.pos + (b.inv_mass > 0)[None] * step)
+    broadphase.refresh_needed.launches = 0
+    need = broadphase.refresh_needed(bp, b, margin)
+    assert broadphase.refresh_needed.launches == 1
+    assert bool(need) == bool(broadphase.refresh_needed_plain(bp, b, margin))
+    assert bool(need) == (shift > 0.01)
+    _need, devs = kernels.launch_refresh_needed(b, bp.anchor, bp.anchor_quat, bp.slack, margin)
+    mm, raw = broadphase.anchor_deviation(b.pos, b.quat, b.radius, b.dynamic, bp.anchor,
+                                          bp.anchor_quat)
+    lanes = solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, sc.params)
+    assert torch.equal(devs[1].view(torch.int32), raw.view(torch.int32))
+    assert abs(float(devs[0]) - float(mm)) <= 1e-6 + 1e-5 * abs(float(mm))
+    assert torch.equal(devs.view(torch.int32), lanes[3:5].view(torch.int32))
 
 
 @pytest.mark.cuda
