@@ -1,0 +1,639 @@
+// The grid step's stages around K5 and K6 on the card: the gates
+// (k_grid_gates), the prediction (k_grid_predict) and the finalize
+// (k_grid_finalize), one launch each.
+//
+// None replaces a Pallas kernel: the reference runs these stages as XLA
+// inside its jitted step (avbd3d_tpu/solver.py:322-330 the fall-freeze,
+// ops/broadphase.py:153-188 the reuse bounds of refresh_or_reuse,
+// solver.py:73-112 stale_lhs_ok(refine=False), solver.py:194-231 predict,
+// solver_tpu.py:1808-1817 the pose sanitizes and solver.py:234-317
+// finalize).  Their plain versions are the port's torch code
+// (solver_grid.grid_gates_plain, grid_predict_plain, grid_finalize_plain:
+// solver.freeze_fallen, refresh_needed_plain and stale_lhs_ok; predict and
+// the (C, G, 128) layout; _sanitize and finalize), which took ~290 launches
+// of small torch operations a Stress4096 step.
+//
+// Every float expression repeats the plain version's statements in their
+// order, and the library is built with --fmad=false and IEEE division and
+// square root, so frozen fields, poses, quaternions and velocities are the
+// plain version's bits.  Two reductions of the plain version are torch's
+// own: the quaternion's squared norm in quat_normalize (torch.sum over the
+// four components) and the speeds' vector_norm; QUAT_MSQ, VNORM3 and
+// VNORM3_XZY below write the order in which torch's CUDA reductions add
+// those terms (read on the card; the speed lanes are held to 1e-6 relative
+// where a torch build orders them otherwise).
+//
+// What bounds them on the H100: launch latency.  Their bytes at N = 5120
+// are ~0.4 MB (gates), ~2.5 MB (predict, most of it the stick latches'
+// float copy) and ~6 MB (finalize: separations, normal duals, counts, the
+// once mask and the latches of the (4, 16, N) slots, the kept mask),
+// 0.1-2 us at 3.35 TB/s, below a launch's own few microseconds.  Design:
+// one launch each, spread over the card, a thread a body (and a thread a
+// slot where the slots are the bytes); a cross-block fold, where a stage
+// has one, is a ticket fold as in K2 (k_control_lanes): each block writes
+// its partials, fences, takes a ticket, and the last block folds every
+// block's partials in index order, writes the result and resets the ticket
+// to 0.  Integer sums are exact in any order and the maxima propagate NaN
+// as torch.max does, so the flags, the counts and the max lanes equal the
+// plain version's.
+//
+// k_grid_gates, a thread a body: the fall-freeze (linvel, angvel and
+// inv_mass with the frozen bodies zeroed, written when the freeze is on),
+// then on the frozen state the refresh predicate's two deviations through
+// K2's fold (avbd_common.cuh: anchor_terms, fold_group over groups of
+// LANES_WARPS bodies, fold_parts_warp, dev_mm_block: the bits of K2's lanes
+// 3 and 4 and of k_refresh_needed's), and the largest v^2 of a dynamic
+// body, compared with the two speed bounds in float32.  Writes need,
+// stale_ok and calm (1 / 0), dev_mm, dev_raw and v^2 max into one buffer,
+// the grid step's one host read.
+//
+// k_grid_predict, a thread a body: the sanitized velocities (the angular
+// one clamped), the inertial pose, the accel-weighted warm start and the
+// sanitize count (a ticket fold of the bodies' blocks), written straight
+// into the (C, G, 128) layout K6 reads; and a thread a slot latch: the
+// contact cache's stick latches as the 0 / 1 floats K5 takes.
+//
+// k_grid_finalize, a thread a (slot, body): the pose sanitizes and finalize
+// for the bodies (the threads of slot 0), the latches back to bool, and the
+// 16 diagnostics lanes: the maxima of lanes 0-4 over slots and bodies, the
+// counts of lanes 5-10 (with the pair overflow cand - kept folded in) and
+// CONTROL_RESET in lanes 11-15.
+#include "avbd_common.cuh"
+
+#define GS_THREADS 256
+#define GS_WARPS (GS_THREADS / 32)
+
+// The orders of torch's CUDA reductions over a row's few components, which
+// depend on the row's layout: over a component-major (N, C) view (strides
+// (1, N)) one thread adds the components in order; over a contiguous (N, 3)
+// row, threads pair the components by shuffles, (x^2 + z^2) + y^2.
+//   quat_normalize's torch.sum(q * q, dim=-1) (q component-major):
+#define QUAT_MSQ(q) ((((q).x * (q).x + (q).y * (q).y) + (q).z * (q).z) + (q).w * (q).w)
+//   vector_norm of a component-major row (the angular clamp's angvel, the
+//   finalized linvel):
+#define VNORM3(v) sqrtf(((v).x * (v).x + (v).y * (v).y) + (v).z * (v).z)
+//   vector_norm of a contiguous row (the finalized angvel, built by
+//   quat_mul's torch.stack):
+#define VNORM3_XZY(v) sqrtf(((v).x * (v).x + (v).z * (v).z) + (v).y * (v).y)
+
+// torch.max's max: NaN if either is NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+__device__ __forceinline__ bool finite4(Q4 q) {
+  return isfinite(q.x) && isfinite(q.y) && isfinite(q.z) && isfinite(q.w);
+}
+
+// ---------------------------------------------------------------------------
+// k_grid_gates
+// ---------------------------------------------------------------------------
+
+struct GatesArgs {
+  const float* pos;       // (3, N)
+  const float* quat;      // (4, N)
+  const float* lv;        // (3, N)
+  const float* av;        // (3, N)
+  const float* inv_mass;  // (N)
+  const float* radius;    // (N)
+  const float* anchor;    // (3, N)
+  const float* anchor_q;  // (4, N)
+  const float* slack;     // ()
+  float* lv_out;          // (3, N) frozen linvel, angvel, inv_mass; null: no fall-freeze
+  float* av_out;
+  float* im_out;
+  float* out;             // need, stale_ok, calm, dev_mm, dev_raw, v2 max
+  float* part;            // LANE_PARTS floats a group of LANES_WARPS bodies
+  float4* dv;             // a body's (disp, chord), chord -1 when it has not moved
+  unsigned int* ticket;
+  int n;
+  float freeze_y;
+  float half_margin;
+  float margin;
+  float th2;              // lhs_stale_speed_max ** 2
+  float calm_th2;         // min(impact_speed_min, lhs_stale_speed_max) ** 2
+};
+
+__global__ void __launch_bounds__(GS_THREADS) k_grid_gates(GatesArgs a) {
+  __shared__ float sh[LANE_PARTS][GS_THREADS];
+  __shared__ float sh_fold[LANE_PARTS];
+  __shared__ float sh_dev[GS_WARPS];
+  __shared__ bool sh_last;
+  const int n = a.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * GS_THREADS + threadIdx.x;
+  if (i < n) {
+    V3 pos = ld3(a.pos, i, n), lv = ld3(a.lv, i, n), av = ld3(a.av, i, n);
+    float im = a.inv_mass[i];
+    if (a.lv_out != nullptr) {
+      // solver.freeze_fallen: torch.where(frozen, 0.0, x)
+      const bool frozen = im > F(0.0) && pos.y < a.freeze_y;
+      if (frozen) {
+        lv = v3(F(0.0), F(0.0), F(0.0));
+        av = lv;
+        im = F(0.0);
+      }
+      st3(a.lv_out, i, n, lv);
+      st3(a.av_out, i, n, av);
+      a.im_out[i] = im;
+    }
+    const bool dyn = im > F(0.0);
+    AnchorTerms t = anchor_terms(pos, ld4(a.quat, i, n), ld3(a.anchor, i, n),
+                                 ld4(a.anchor_q, i, n), a.radius[i], dyn);
+    const float mf = t.moved ? F(1.0) : F(0.0);
+    RACE_DELAY();
+    a.dv[i] = make_float4(t.disp.x, t.disp.y, t.disp.z, t.moved ? t.chord : F(-1.0));
+    __threadfence();
+    sh[1][threadIdx.x] = dyn ? lv.x * lv.x + lv.y * lv.y + lv.z * lv.z : F(0.0);
+    sh[3][threadIdx.x] = t.moved ? sqrtf(t.disp2) + t.chord : F(0.0);
+    sh[4][threadIdx.x] = mf;
+    sh[5][threadIdx.x] = t.disp.x * mf;
+    sh[6][threadIdx.x] = t.disp.y * mf;
+    sh[7][threadIdx.x] = t.disp.z * mf;
+  } else {
+    for (int k = 1; k < LANE_PARTS; ++k) sh[k][threadIdx.x] = F(0.0);
+  }
+  __syncthreads();
+  // One thread a (group, partial): the group's bodies in order.  Partial 1
+  // (v^2) folds with max_nan, 3-7 as K2 folds them.
+  const int groups = GS_THREADS / LANES_WARPS;
+  if (threadIdx.x < groups * 6) {
+    const int g = threadIdx.x / 6, j = threadIdx.x % 6;
+    const int k = j == 0 ? 1 : j + 2;
+    const int gg = blockIdx.x * groups + g;
+    if (gg * LANES_WARPS < n) {
+      const float* vals = &sh[k][g * LANES_WARPS];
+      float v = vals[0];
+      if (k == 1) {
+        for (int w = 1; w < LANES_WARPS; ++w) v = max_nan(v, vals[w]);
+      } else {
+        v = fold_group(vals, part_op(k));
+      }
+      RACE_DELAY();
+      a.part[gg * LANE_PARTS + k] = v;
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    RACE_DELAY();
+    sh_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  __threadfence();
+  const int n_groups = (n + LANES_WARPS - 1) / LANES_WARPS;
+  if (warp >= 3 && warp < LANE_PARTS) {
+    float v = fold_parts_warp(a.part, n_groups, warp, lane);
+    if (lane == 0) sh_fold[warp] = v;
+  } else if (warp == 1) {
+    float v = F(0.0);
+    for (int b = lane; b < n_groups; b += 32) v = max_nan(v, __ldcg(a.part + b * LANE_PARTS + 1));
+    for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(FULL_MASK, v, off));
+    if (lane == 0) sh_fold[1] = v;
+  }
+  __syncthreads();
+  const float nmc = fmaxf(sh_fold[4], F(1.0));
+  const V3 tm = v3(sh_fold[5] / nmc, sh_fold[6] / nmc, sh_fold[7] / nmc);
+  const float dev_mm = dev_mm_block(a.dv, n, tm, sh_dev);
+  if (threadIdx.x == 0) {
+    const float dev_raw = sh_fold[3], v2 = sh_fold[1];
+    a.out[0] = (dev_mm > a.half_margin) || (dev_raw > *a.slack + a.margin) ? F(1.0) : F(0.0);
+    a.out[1] = v2 <= a.th2 ? F(1.0) : F(0.0);
+    a.out[2] = v2 <= a.calm_th2 ? F(1.0) : F(0.0);
+    a.out[3] = dev_mm;
+    a.out[4] = dev_raw;
+    a.out[5] = v2;
+    *a.ticket = 0u;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// k_grid_predict
+// ---------------------------------------------------------------------------
+
+struct PredictArgs {
+  const float* pos;       // (3, N)
+  const float* quat;      // (4, N)
+  const float* lv;        // (3, N)
+  const float* av;        // (3, N)
+  const float* prev_lv;   // (3, N)
+  const float* inv_mass;  // (N)
+  const unsigned char* stick;  // (planes, N) bool
+  float* lv_out;          // (3, N) sanitized linvel
+  float* av_out;          // (3, N) clamped, sanitized angvel
+  float* ip;              // (3, N) inertial position
+  float* iq;              // (4, N) inertial quaternion (also the start)
+  float* ps;              // (3, N) warm start position
+  float* stickf;          // (planes, N) 0 / 1
+  int* san_out;           // () rows sanitized
+  int* part;              // an int a block of bodies
+  unsigned int* ticket;
+  int n;
+  int planes;             // 4 * DC
+};
+
+__device__ __forceinline__ int predict_body(const PredictArgs& a, const KParams& p, int i) {
+  const int n = a.n;
+  const float dt = p.dt;
+  int san = 0;
+  V3 lv = ld3(a.lv, i, n);
+  if (!finite3(lv)) {
+    lv = v3(F(0.0), F(0.0), F(0.0));
+    ++san;
+  }
+  // _clamp_angular: w * where(speed > max, max / clamp(speed, 1e-12), 1)
+  V3 av = ld3(a.av, i, n);
+  const float speed = VNORM3(av);
+  const float scale = speed > p.max_angular_speed
+                          ? p.max_angular_speed / fmaxf(speed, F(1e-12)) : F(1.0);
+  av = vscale(av, scale);
+  if (!finite3(av)) {
+    av = v3(F(0.0), F(0.0), F(0.0));
+    ++san;
+  }
+  const bool dyn = a.inv_mass[i] > F(0.0);
+  const V3 pos0 = ld3(a.pos, i, n);
+  const Q4 q0 = ld4(a.quat, i, n);
+  // pos0 + linvel * dt + gravity * dt * dt
+  const V3 g2 = v3((p.grav[0] * dt) * dt, (p.grav[1] * dt) * dt, (p.grav[2] * dt) * dt);
+  const V3 ip = dyn ? vadd(vadd(pos0, vscale(lv, dt)), g2) : pos0;
+  // quat_normalize(quat0 + quat_mul(omega_q, quat0) * (0.5 * dt))
+  const Q4 qm = qmul(Q4{av.x, av.y, av.z, F(0.0)}, q0);
+  const Q4 q = Q4{q0.x + qm.x * p.half_dt, q0.y + qm.y * p.half_dt, q0.z + qm.z * p.half_dt,
+                  q0.w + qm.w * p.half_dt};
+  const float msq = QUAT_MSQ(q);
+  const bool bad = msq < F(1e-6);
+  const float safe = sqrtf(bad ? F(1.0) : msq);
+  Q4 iq = bad ? Q4{F(0.0), F(0.0), F(0.0), F(1.0)}
+              : Q4{q.x / safe, q.y / safe, q.z / safe, q.w / safe};
+  if (!dyn) iq = q0;
+  float aw = F(0.0);
+  if (p.has_gravity != F(0.0)) {
+    const V3 acc = vsub(lv, ld3(a.prev_lv, i, n));  // cm.div(linvel - prev_linvel, dt)
+    const V3 accel = v3(acc.x / dt, acc.y / dt, acc.z / dt);
+    const float projected = (accel.x * p.ghat[0] + accel.y * p.ghat[1]) + accel.z * p.ghat[2];
+    aw = clipf(projected / p.g_len, F(0.0), F(1.0));
+    if (!isfinite(aw)) aw = F(0.0);
+  }
+  // pos0 + (linvel * dt + gravity * (accel_weight * dt * dt)) * dynf
+  const float dynf = dyn ? F(1.0) : F(0.0);
+  const float awdt2 = (aw * dt) * dt;
+  V3 ps = v3(pos0.x + (lv.x * dt + p.grav[0] * awdt2) * dynf,
+             pos0.y + (lv.y * dt + p.grav[1] * awdt2) * dynf,
+             pos0.z + (lv.z * dt + p.grav[2] * awdt2) * dynf);
+  if (!finite3(ps)) {
+    ps = pos0;
+    ++san;
+  }
+  st3(a.lv_out, i, n, lv);
+  st3(a.av_out, i, n, av);
+  st3(a.ip, i, n, ip);
+  st4(a.iq, i, n, iq);
+  st3(a.ps, i, n, ps);
+  return san;
+}
+
+// Blocks 0 .. body_blocks - 1 take a body a thread and fold the sanitize
+// count (their ticket); every block converts a latch a thread.
+__global__ void __launch_bounds__(GS_THREADS) k_grid_predict(PredictArgs a, KParams p) {
+  __shared__ int sh[GS_WARPS];
+  __shared__ bool sh_last;
+  const int t = blockIdx.x * GS_THREADS + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (t < a.planes * a.n) a.stickf[t] = a.stick[t] ? F(1.0) : F(0.0);
+  const int body_blocks = (a.n + GS_THREADS - 1) / GS_THREADS;
+  if ((int)blockIdx.x >= body_blocks) return;
+  int san = t < a.n ? predict_body(a, p, t) : 0;
+  for (int off = 16; off > 0; off >>= 1) san += __shfl_xor_sync(FULL_MASK, san, off);
+  if (lane == 0) sh[warp] = san;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < GS_WARPS; ++w) s += sh[w];
+    RACE_DELAY();
+    a.part[blockIdx.x] = s;
+    __threadfence();
+    sh_last = atomicAdd(a.ticket, 1u) == (unsigned int)body_blocks - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  __threadfence();
+  if (warp == 0) {
+    int s = 0;
+    for (int b = lane; b < body_blocks; b += 32) s += __ldcg(a.part + b);
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL_MASK, s, off);
+    if (lane == 0) {
+      *a.san_out = s;
+      *a.ticket = 0u;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// k_grid_finalize
+// ---------------------------------------------------------------------------
+
+#define FIN_F 5  // max lanes: penetration, violation, linear speed, angular speed, normal dual
+#define FIN_I 5  // counts: contacts, manifolds, dynamic bodies, sanitized rows, kept slots
+
+struct FinalizeArgs {
+  const float* pos_k;     // (3, N) K6's last poses
+  const float* quat_k;    // (4, N)
+  const float* pos0;      // (3, N) the step's start poses
+  const float* quat0;     // (4, N)
+  const float* lv0;       // (3, N) the bodies' velocities (kept by static bodies)
+  const float* av0;
+  const float* lv_p;      // (3, N) the prediction's sanitized velocities
+  const float* av_p;
+  const float* prev_lv;   // (3, N) the bodies' previous velocities
+  const float* prev_av;
+  const float* inv_mass;  // (N)
+  const int* san_in;      // () the prediction's count
+  const int* count;       // (DC, N)
+  const int* other;       // (DC, N)
+  const float* sep;       // (4, DC, N)
+  const float* lam;       // (12, DC, N)
+  const unsigned char* once;   // (DC, N) bool
+  const float* stickf;    // (4, DC, N) K6's latches
+  const float* kept;      // (D, N) K5's kept mask
+  const int* cand;        // () directed candidates at the refresh
+  const int* dropped;     // () K5's dropped manifolds
+  float* pos;             // (3, N) outputs
+  float* quat;
+  float* lv;
+  float* av;
+  float* prev_lv_out;
+  float* prev_av_out;
+  unsigned char* stick;   // (4, DC, N) bool
+  float* diag;            // (16)
+  float* part_f;          // FIN_F floats a block
+  int* part_i;            // FIN_I ints a block
+  unsigned int* ticket;
+  int n;
+  int dc;
+  int d;
+};
+
+__global__ void __launch_bounds__(GS_THREADS) k_grid_finalize(FinalizeArgs a, KParams p) {
+  __shared__ float shf[FIN_F][GS_WARPS];
+  __shared__ int shi[FIN_I][GS_WARPS];
+  __shared__ bool sh_last;
+  const int n = a.n;
+  const int t = blockIdx.x * GS_THREADS + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float fv[FIN_F] = {F(0.0), F(0.0), F(0.0), F(0.0), F(0.0)};
+  int iv[FIN_I] = {0, 0, 0, 0, 0};
+  if (t < n) {  // body t: the pose sanitizes and finalize's velocities
+    const int i = t;
+    const V3 pos0 = ld3(a.pos0, i, n);
+    const Q4 q0 = ld4(a.quat0, i, n);
+    V3 pf = ld3(a.pos_k, i, n);
+    Q4 qf = ld4(a.quat_k, i, n);
+    int san = i == 0 ? *a.san_in : 0;  // the prediction's count, once
+    if (!finite3(pf)) {
+      pf = pos0;
+      ++san;
+    }
+    if (!finite4(qf)) {
+      qf = q0;
+      ++san;
+    }
+    const bool dyn = a.inv_mass[i] > F(0.0);
+    const float dt = p.dt;
+    // cm.div(pos_f - pos0, dt) * linear_damping
+    const V3 dp = vsub(pf, pos0);
+    V3 nl = vscale(v3(dp.x / dt, dp.y / dt, dp.z / dt), p.linear_damping);
+    // quat_vec_doubled(quat_f (x) conj(quat0)) / dt * angular_damping
+    const Q4 dq = qmul(qf, qconj(q0));
+    const float sign = dq.w < F(0.0) ? F(-1.0) : F(1.0);
+    const V3 vd = v3((F(2.0) * dq.x) * sign, (F(2.0) * dq.y) * sign, (F(2.0) * dq.z) * sign);
+    V3 na = vscale(v3(vd.x / dt, vd.y / dt, vd.z / dt), p.angular_damping);
+    if (!dyn) {
+      nl = ld3(a.lv0, i, n);
+      na = ld3(a.av0, i, n);
+    }
+    if (!finite3(nl)) {
+      nl = v3(F(0.0), F(0.0), F(0.0));
+      ++san;
+    }
+    if (!finite3(na)) {
+      na = v3(F(0.0), F(0.0), F(0.0));
+      ++san;
+    }
+    const float dynf = dyn ? F(1.0) : F(0.0);
+    fv[2] = VNORM3(nl) * dynf;
+    fv[3] = VNORM3_XZY(na) * dynf;
+    iv[2] = dyn ? 1 : 0;
+    iv[3] = san;
+    st3(a.pos, i, n, pf);
+    st4(a.quat, i, n, qf);
+    st3(a.lv, i, n, nl);
+    st3(a.av, i, n, na);
+    st3(a.prev_lv_out, i, n, dyn ? ld3(a.lv_p, i, n) : ld3(a.prev_lv, i, n));
+    st3(a.prev_av_out, i, n, dyn ? ld3(a.av_p, i, n) : ld3(a.prev_av, i, n));
+  }
+  if (t < a.dc * n) {  // slot (d, i): the contact lanes and the latches
+    const int cnt = a.count[t];
+    const bool valid = a.other[t] >= 0;
+    const size_t plane = (size_t)a.dc * n;
+    for (int s = 0; s < 4; ++s) {
+      const bool ok = s < cnt && valid;
+      const float sep = a.sep[s * plane + t];
+      fv[0] = max_nan(fv[0], ok ? -sep : F(0.0));
+      fv[1] = max_nan(fv[1], ok ? p.penetration_slop - sep : F(0.0));
+      fv[4] = max_nan(fv[4], ok ? fabsf(a.lam[3 * s * plane + t]) : F(0.0));
+      a.stick[s * plane + t] = a.stickf[s * plane + t] > F(0.5) ? 1 : 0;
+    }
+    const bool once = a.once[t] != 0;
+    iv[0] = once ? cnt : 0;
+    iv[1] = once && cnt > 0 ? 1 : 0;
+  }
+  if (t < a.d * n) iv[4] = (int)a.kept[t];
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int k = 0; k < FIN_F; ++k) fv[k] = max_nan(fv[k], __shfl_xor_sync(FULL_MASK, fv[k], off));
+    for (int k = 0; k < FIN_I; ++k) iv[k] += __shfl_xor_sync(FULL_MASK, iv[k], off);
+  }
+  if (lane == 0) {
+    for (int k = 0; k < FIN_F; ++k) shf[k][warp] = fv[k];
+    for (int k = 0; k < FIN_I; ++k) shi[k][warp] = iv[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < FIN_F + FIN_I) {  // a thread a quantity, the warps in order
+    const int k = threadIdx.x;
+    if (k < FIN_F) {
+      float v = shf[k][0];
+      for (int w = 1; w < GS_WARPS; ++w) v = max_nan(v, shf[k][w]);
+      RACE_DELAY();
+      a.part_f[blockIdx.x * FIN_F + k] = v;
+    } else {
+      int v = 0;
+      for (int w = 0; w < GS_WARPS; ++w) v += shi[k - FIN_F][w];
+      RACE_DELAY();
+      a.part_i[blockIdx.x * FIN_I + k - FIN_F] = v;
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    RACE_DELAY();
+    sh_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  __threadfence();
+  // Warp w folds quantities w, w + GS_WARPS: lane l over blocks l, l + 32, ...
+  for (int k = warp; k < FIN_F + FIN_I; k += GS_WARPS) {
+    float fvk = F(0.0);
+    int ivk = 0;
+    for (int b = lane; b < (int)gridDim.x; b += 32) {
+      if (k < FIN_F) fvk = max_nan(fvk, __ldcg(a.part_f + b * FIN_F + k));
+      else ivk += __ldcg(a.part_i + b * FIN_I + k - FIN_F);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      fvk = max_nan(fvk, __shfl_xor_sync(FULL_MASK, fvk, off));
+      ivk += __shfl_xor_sync(FULL_MASK, ivk, off);
+    }
+    if (lane == 0) {
+      if (k < FIN_F) shf[k][0] = fvk;
+      else shi[k - FIN_F][0] = ivk;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float* dg = a.diag;
+    for (int k = 0; k < FIN_F; ++k) dg[k] = shf[k][0];
+    dg[5] = (float)shi[0][0];
+    dg[6] = (float)shi[1][0];
+    dg[7] = (float)shi[2][0];
+    dg[8] = (float)shi[3][0];
+    dg[9] = (float)(*a.cand - shi[4][0]);
+    dg[10] = (float)*a.dropped;
+    // state.CONTROL_RESET
+    dg[11] = F(1.0e9);
+    dg[12] = F(1.0e9);
+    dg[13] = F(0.0);
+    dg[14] = F(1.0e9);
+    dg[15] = F(1.0e9);
+    *a.ticket = 0u;
+  }
+}
+
+extern "C" {
+
+// ptrs: pos, quat, linvel, angvel, inv_mass, radius, anchor, anchor_quat,
+// slack, then the frozen linvel, angvel, inv_mass (null each without the
+// fall-freeze), out (6 floats), then scratch: the partials (LANE_PARTS floats
+// a group of LANES_WARPS bodies), dv (4 floats a body, 16-byte aligned) and
+// the ticket (0 before the launch and after it).
+int avbd_grid_gates(void** ptrs, int n, float freeze_y, float half_margin, float margin,
+                    float th2, float calm_th2, void* stream) {
+  GatesArgs a;
+  a.pos = (const float*)ptrs[0];
+  a.quat = (const float*)ptrs[1];
+  a.lv = (const float*)ptrs[2];
+  a.av = (const float*)ptrs[3];
+  a.inv_mass = (const float*)ptrs[4];
+  a.radius = (const float*)ptrs[5];
+  a.anchor = (const float*)ptrs[6];
+  a.anchor_q = (const float*)ptrs[7];
+  a.slack = (const float*)ptrs[8];
+  a.lv_out = (float*)ptrs[9];
+  a.av_out = (float*)ptrs[10];
+  a.im_out = (float*)ptrs[11];
+  a.out = (float*)ptrs[12];
+  a.part = (float*)ptrs[13];
+  a.dv = (float4*)ptrs[14];
+  a.ticket = (unsigned int*)ptrs[15];
+  a.n = n;
+  a.freeze_y = freeze_y;
+  a.half_margin = half_margin;
+  a.margin = margin;
+  a.th2 = th2;
+  a.calm_th2 = calm_th2;
+  const int blocks = (n + GS_THREADS - 1) / GS_THREADS;
+  k_grid_gates<<<blocks, GS_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: pos, quat, linvel, angvel, prev_linvel, inv_mass, stick (planes x
+// N bool), then linvel, angvel, ip, iq, ps, stickf, sanitized (1 int), then
+// scratch: an int a block of bodies and the ticket.
+int avbd_grid_predict(void** ptrs, const float* params, int n, int planes, void* stream) {
+  PredictArgs a;
+  a.pos = (const float*)ptrs[0];
+  a.quat = (const float*)ptrs[1];
+  a.lv = (const float*)ptrs[2];
+  a.av = (const float*)ptrs[3];
+  a.prev_lv = (const float*)ptrs[4];
+  a.inv_mass = (const float*)ptrs[5];
+  a.stick = (const unsigned char*)ptrs[6];
+  a.lv_out = (float*)ptrs[7];
+  a.av_out = (float*)ptrs[8];
+  a.ip = (float*)ptrs[9];
+  a.iq = (float*)ptrs[10];
+  a.ps = (float*)ptrs[11];
+  a.stickf = (float*)ptrs[12];
+  a.san_out = (int*)ptrs[13];
+  a.part = (int*)ptrs[14];
+  a.ticket = (unsigned int*)ptrs[15];
+  a.n = n;
+  a.planes = planes;
+  KParams p = *(const KParams*)params;
+  const int total = planes * n > n ? planes * n : n;
+  const int blocks = (total + GS_THREADS - 1) / GS_THREADS;
+  k_grid_predict<<<blocks, GS_THREADS, 0, (cudaStream_t)stream>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: pos_k, quat_k, pos0, quat0, linvel, angvel, lv_p, av_p,
+// prev_linvel, prev_angvel, inv_mass, sanitized (1 int), count, other,
+// sep, lam, once, stickf, kept, cand (1 int), dropped (1 int), then pos,
+// quat, linvel, angvel, prev_linvel, prev_angvel, stick (bool), diag (16
+// floats), then scratch: FIN_F floats and FIN_I ints a block, the ticket.
+int avbd_grid_finalize(void** ptrs, const float* params, int n, int dc, int d, void* stream) {
+  FinalizeArgs a;
+  a.pos_k = (const float*)ptrs[0];
+  a.quat_k = (const float*)ptrs[1];
+  a.pos0 = (const float*)ptrs[2];
+  a.quat0 = (const float*)ptrs[3];
+  a.lv0 = (const float*)ptrs[4];
+  a.av0 = (const float*)ptrs[5];
+  a.lv_p = (const float*)ptrs[6];
+  a.av_p = (const float*)ptrs[7];
+  a.prev_lv = (const float*)ptrs[8];
+  a.prev_av = (const float*)ptrs[9];
+  a.inv_mass = (const float*)ptrs[10];
+  a.san_in = (const int*)ptrs[11];
+  a.count = (const int*)ptrs[12];
+  a.other = (const int*)ptrs[13];
+  a.sep = (const float*)ptrs[14];
+  a.lam = (const float*)ptrs[15];
+  a.once = (const unsigned char*)ptrs[16];
+  a.stickf = (const float*)ptrs[17];
+  a.kept = (const float*)ptrs[18];
+  a.cand = (const int*)ptrs[19];
+  a.dropped = (const int*)ptrs[20];
+  a.pos = (float*)ptrs[21];
+  a.quat = (float*)ptrs[22];
+  a.lv = (float*)ptrs[23];
+  a.av = (float*)ptrs[24];
+  a.prev_lv_out = (float*)ptrs[25];
+  a.prev_av_out = (float*)ptrs[26];
+  a.stick = (unsigned char*)ptrs[27];
+  a.diag = (float*)ptrs[28];
+  a.part_f = (float*)ptrs[29];
+  a.part_i = (int*)ptrs[30];
+  a.ticket = (unsigned int*)ptrs[31];
+  a.n = n;
+  a.dc = dc;
+  a.d = d;
+  KParams p = *(const KParams*)params;
+  const int rows = dc > d ? dc : d;
+  const int total = (rows > 1 ? rows : 1) * n;
+  const int blocks = (total + GS_THREADS - 1) / GS_THREADS;
+  k_grid_finalize<<<blocks, GS_THREADS, 0, (cudaStream_t)stream>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -38,7 +38,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 _SOURCES = ("step_kernel.cu", "grid_kernels.cu", "control_lanes.cu", "bp_probe.cu",
-            "bp_refresh.cu")
+            "bp_refresh.cu", "grid_stages.cu")
 _HEADERS = ("avbd_common.cuh", "step_kernel.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -158,6 +158,13 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
     cdll.avbd_refresh_needed.argtypes = [ctypes.POINTER(vp), ci, ctypes.c_float, ctypes.c_float,
                                          vp]
     cdll.avbd_refresh_needed.restype = ci
+    cf = ctypes.c_float
+    cdll.avbd_grid_gates.argtypes = [ctypes.POINTER(vp), ci, cf, cf, cf, cf, cf, vp]
+    cdll.avbd_grid_gates.restype = ci
+    cdll.avbd_grid_predict.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(cf), ci, ci, vp]
+    cdll.avbd_grid_predict.restype = ci
+    cdll.avbd_grid_finalize.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(cf), ci, ci, ci, vp]
+    cdll.avbd_grid_finalize.restype = ci
     if cdll.avbd_n_params() != len(_PARAM_NAMES):
         raise RuntimeError(
             f"parameter block mismatch: kernel {cdll.avbd_n_params()} floats, "
@@ -374,7 +381,8 @@ def _body_operands(b, n_groups, device, names, lead=()):
     batch shape."""
     f32 = torch.float32
     shapes = {"pos": (3,), "quat": (4,), "size": (3,), "radius": (), "linvel": (3,),
-              "angvel": (3,), "prev_linvel": (3,), "mass": (), "inv_mass": (),
+              "angvel": (3,), "prev_linvel": (3,), "prev_angvel": (3,), "mass": (),
+              "inv_mass": (),
               "friction": (), "inertia": (3,), "inv_inertia": (3,)}
     return [_check(getattr(b, k), k, lead + shapes[k] + (n_groups, 128), f32, device)
             for k in names]
@@ -762,3 +770,117 @@ def launch_refresh_needed(b, anchor, anchor_quat, slack, margin: float):
                                         ctypes.c_void_p(stream))
     _raise_on(code, "refresh predicate kernel launch")
     return need, devs
+
+
+# Threads a block of the grid step's stage kernels (csrc/grid_stages.cu).
+_GS_THREADS = 256
+
+
+def launch_grid_gates(b, anchor, anchor_quat, slack, params):
+    """Run k_grid_gates on the Bodies ``b`` against the cache anchors: the
+    fall-freeze (when ``params.fall_freeze_y`` > -1e8), the refresh
+    predicate and the unrefined speed gates in one launch.  Returns (linvel,
+    angvel, inv_mass: the frozen fields, or ``b``'s own without the freeze;
+    out (6,) float32: need, stale_ok, calm as 1 / 0, dev_mm, dev_raw, the
+    largest v^2 of a dynamic body)."""
+    dev = b.pos.device
+    g = b.mass.shape[-2]
+    n = g * 128
+    f32 = torch.float32
+    ins = _body_operands(b, g, dev, ("pos", "quat", "linvel", "angvel", "inv_mass", "radius"))
+    ins += [_check(anchor, "anchor", (3, g, 128), f32, dev),
+            _check(anchor_quat, "anchor_quat", (4, g, 128), f32, dev),
+            _check(slack, "slack", (), f32, dev)]
+    lib = _card_lib(dev)
+    freeze = params.fall_freeze_y > -1.0e8
+    frozen = _empty_as(ins[2:5]) if freeze else [None] * 3
+    out = torch.empty((6,), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "gates_part", _LANE_PARTS * _blocks(n), f32),
+               _scratch(dev, stream, "gates_dv", 4 * n, f32),
+               _scratch(dev, stream, "gates_ticket", 1, torch.int32)]
+    ptrs = (ctypes.c_void_p * 16)(*[t.data_ptr() for t in ins],
+                                   *[t.data_ptr() if t is not None else None for t in frozen],
+                                   out.data_ptr(), *[t.data_ptr() for t in scratch])
+    calm = min(params.impact_speed_min, params.lhs_stale_speed_max)
+    code = lib.cdll.avbd_grid_gates(ptrs, n, float(params.fall_freeze_y),
+                                    0.5 * params.bp_margin, float(params.bp_margin),
+                                    params.lhs_stale_speed_max**2, calm**2,
+                                    ctypes.c_void_p(stream))
+    _raise_on(code, "grid gates kernel launch")
+    lv, av, im = (f if f is not None else t for f, t in zip(frozen, ins[2:5]))
+    return lv, av, im, out
+
+
+def launch_grid_predict(b, stick, params):
+    """Run k_grid_predict: the grid step's prediction from the Bodies ``b``
+    and the contact cache's stick latches (4, DC, G, 128) bool.  Returns
+    (linvel, angvel (3, G, 128) sanitized, ip (3, G, 128), iq (4, G, 128),
+    ps (3, G, 128), stick as 0 / 1 float32, rows sanitized () int32)."""
+    dev = b.pos.device
+    g = b.mass.shape[-2]
+    n = g * 128
+    dc = stick.shape[1]
+    f32 = torch.float32
+    ins = _body_operands(b, g, dev, ("pos", "quat", "linvel", "angvel", "prev_linvel",
+                                     "inv_mass"))
+    ins.append(_check(stick, "stick", (4, dc, g, 128), torch.bool, dev))
+    lib = _card_lib(dev)
+    outs = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 3, 3, 4, 3)]
+    outs.append(torch.empty((4, dc, g, 128), dtype=f32, device=dev))
+    outs.append(torch.empty((), dtype=torch.int32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "predict_part", -(-n // _GS_THREADS), torch.int32),
+               _scratch(dev, stream, "predict_ticket", 1, torch.int32)]
+    code = lib.cdll.avbd_grid_predict(_ptrs(ins + outs + scratch), _fparams(params), n, 4 * dc,
+                                      ctypes.c_void_p(stream))
+    _raise_on(code, "grid predict kernel launch")
+    return tuple(outs)
+
+
+def launch_grid_finalize(b, pos, quat, linvel, angvel, sanitized, contacts, sep, once, kept,
+                         cand, dropped, params):
+    """Run k_grid_finalize: the pose sanitizes and finalize of a grid step.
+    ``b``: the step's Bodies; ``pos`` / ``quat``: K6's last poses;
+    ``linvel`` / ``angvel``: the prediction's sanitized velocities;
+    ``sanitized``: its count; ``contacts``: the cache after the step, stick
+    latches as K6's 0 / 1 floats; ``sep`` (4, DC, G, 128): K6's last
+    separations; ``once`` (DC, G, 128) bool and ``kept`` (D, G, 128) float32:
+    K5's masks; ``cand`` / ``dropped``: the refresh's candidates and K5's
+    dropped manifolds (() int32).  Returns (pos, quat, linvel, angvel,
+    prev_linvel, prev_angvel, stick bool, the 16 diagnostics lanes)."""
+    dev = b.pos.device
+    g = b.mass.shape[-2]
+    n = g * 128
+    dc = contacts.other.shape[0]
+    d = kept.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    slot = (dc, g, 128)
+    ins = [_check(pos, "pos", (3, g, 128), f32, dev), _check(quat, "quat", (4, g, 128), f32, dev)]
+    ins += _body_operands(b, g, dev, ("pos", "quat", "linvel", "angvel"))
+    ins += [_check(linvel, "linvel", (3, g, 128), f32, dev),
+            _check(angvel, "angvel", (3, g, 128), f32, dev)]
+    ins += _body_operands(b, g, dev, ("prev_linvel", "prev_angvel", "inv_mass"))
+    ins += [_check(sanitized, "sanitized", (), i32, dev),
+            _check(contacts.count, "count", slot, i32, dev),
+            _check(contacts.other, "other", slot, i32, dev),
+            _check(sep, "sep", (4,) + slot, f32, dev),
+            _check(contacts.lam, "lam", (12,) + slot, f32, dev),
+            _check(once, "once", slot, torch.bool, dev),
+            _check(contacts.stick, "stick", (4,) + slot, f32, dev),
+            _check(kept, "kept", (d, g, 128), f32, dev),
+            _check(cand, "cand", (), i32, dev),
+            _check(dropped, "dropped", (), i32, dev)]
+    lib = _card_lib(dev)
+    outs = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 4, 3, 3, 3, 3)]
+    outs.append(torch.empty((4,) + slot, dtype=torch.bool, device=dev))
+    outs.append(torch.empty((16,), dtype=f32, device=dev))
+    blocks = -(-max(dc, d, 1) * n // _GS_THREADS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "finalize_part_f", 5 * blocks, f32),
+               _scratch(dev, stream, "finalize_part_i", 5 * blocks, i32),
+               _scratch(dev, stream, "finalize_ticket", 1, i32)]
+    code = lib.cdll.avbd_grid_finalize(_ptrs(ins + outs + scratch), _fparams(params), n, dc, d,
+                                       ctypes.c_void_p(stream))
+    _raise_on(code, "grid finalize kernel launch")
+    return tuple(outs)

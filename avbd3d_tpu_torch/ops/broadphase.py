@@ -217,8 +217,14 @@ def refresh_needed_plain(bp: BroadphaseCache, b, margin: float):
     the current state, a () bool tensor; the bounds compare in float32."""
     dev_mm, dev_raw = anchor_deviation(b.pos, b.quat, b.radius, b.dynamic,
                                        bp.anchor, bp.anchor_quat)
+    return reuse_broken(dev_mm, dev_raw, bp.slack, margin)
+
+
+def reuse_broken(dev_mm, dev_raw, slack, margin: float):
+    """The cached lists' reuse bounds broken, from the two anchor
+    deviations (() f32 tensors), compared in float32."""
     half = torch.tensor(0.5 * margin, dtype=torch.float32, device=dev_mm.device)
-    return (dev_mm > half) | (dev_raw > bp.slack + np.float32(margin))
+    return (dev_mm > half) | (dev_raw > slack + np.float32(margin))
 
 
 def refresh_or_reuse(bp: BroadphaseCache, need: bool, b, exclusions, degree: int,

@@ -22,9 +22,11 @@ honoured:
   ``_ballistic_step`` (predict and finalize in torch, then the
   control-lanes kernel).
 - the grid tier (contact-only, 2048 < N <= 16384, G % 8 == 0): the copy is
-  the refresh predicate (``refresh_needed``) and the unrefined speed gates
-  (``stale_lhs_ok``); the step is ``solver_grid.step_grid``.  No ballistic
-  path, as in the reference.
+  ``solver_grid.grid_gates``' buffer, the refresh predicate and the
+  unrefined speed gates (``stale_lhs_ok``) on the state after the
+  fall-freeze, which the same call applies (on the card one launch of
+  k_grid_gates); the step is ``solver_grid.step_grid``.  No ballistic path,
+  as in the reference.
 - the portable path ("xla": ``cap.backend == "xla"``, and every scene
   neither of the above covers, as the reference off the TPU): the same
   copy, refresh and ballistic gate as the fused path, then ``_step_impl``,
@@ -50,8 +52,7 @@ from .config import Capacity, SolverParams
 from .maths import quat_conj, quat_mul, quat_normalize, quat_vec_doubled
 from .ops import replicated as rep
 from .ops.broadphase import control_lanes as control_lanes_math
-from .ops.broadphase import (gather, refresh_needed, refresh_or_reuse, refresh_scalar,
-                             symmetric_filter)
+from .ops.broadphase import gather, refresh_or_reuse, refresh_scalar, symmetric_filter
 from .ops.joints import joint_dual_ema, joint_geometry
 from .solver_cuda import body_tables
 from .state import World, make_diagnostics
@@ -112,8 +113,7 @@ def stale_lhs_ok(b, bp, params: SolverParams, refine: bool = True):
     test fails; eager PyTorch cannot branch on the device, and ``ok_global
     | refined`` has the same value, so the probe launches on every refined
     call."""
-    lv = b.linvel
-    v2 = torch.where(b.dynamic, lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], 0.0)
+    v2 = dynamic_speed_sq(b)
     thresh = torch.tensor(params.lhs_stale_speed_max**2, dtype=torch.float32,
                           device=v2.device)
     ok_global = torch.max(v2) <= thresh
@@ -121,6 +121,12 @@ def stale_lhs_ok(b, bp, params: SolverParams, refine: bool = True):
         return ok_global
     _min_sep, _n_slots, near = solver_cuda.bp_probe(bp.nb, b, params)
     return ok_global | (torch.max(torch.where(near, v2, 0.0)) <= thresh)
+
+
+def dynamic_speed_sq(b):
+    """Each body's |linvel|^2, 0 for a static body ((G, 128) f32)."""
+    lv = b.linvel
+    return torch.where(b.dynamic, lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], 0.0)
 
 
 def attach_control(world: World, params: SolverParams, gather=gather, comm=LOCAL_COMM) -> World:
@@ -406,16 +412,13 @@ def select_path(world: World, cap: Capacity) -> str:
 
 
 def _grid_step(world: World, params: SolverParams, cap: Capacity) -> World:
-    """The grid tier's gates from its one host read, the broadphase refresh
-    or reuse, then ``solver_grid.step_grid``."""
-    b = world.bodies
-    calm_params = params.replace(lhs_stale_speed_max=min(
-        params.impact_speed_min, params.lhs_stale_speed_max))
-    flags = torch.stack([refresh_needed(world.bp, b, params.bp_margin),
-                         stale_lhs_ok(b, world.bp, params, refine=False),
-                         stale_lhs_ok(b, world.bp, calm_params, refine=False)])
+    """The grid tier: the fall-freeze and the gates (``solver_grid.grid_gates``)
+    and their one host read, the broadphase refresh or reuse, then
+    ``solver_grid.step_grid``."""
+    world, gates = solver_grid.grid_gates(world, params)
     step.host_reads += 1
-    refreshed, stale_ok, calm = (bool(x) for x in flags.cpu())
+    refreshed, stale_ok, calm = (v != 0.0 for v in gates.cpu().tolist()[:3])
+    b = world.bodies
     bp, _ = refresh_or_reuse(world.bp, refreshed, b, world.exclusions,
                              cap.max_degree, params.bp_margin, window=cap.bp_window)
     step.last_gates = {"refreshed": refreshed, "stale_ok": stale_ok, "calm": calm}
@@ -428,12 +431,13 @@ def step(world: World, params: SolverParams, cap: Capacity) -> World:
     broadphase refresh and the ballistic fast path (worlds without joints or
     springs only, as the reference's ``ballistic_able``) or the fused step
     (``solver_cuda.step_fused``) or the portable one (``_step_impl``).
-    ``step.last_path`` names the path taken."""
-    if params.fall_freeze_y > -1.0e8:
-        world = freeze_fallen(world, params)
+    ``step.last_path`` names the path taken; the grid tier applies the
+    fall-freeze with its gates."""
     step.last_path = select_path(world, cap)
     if step.last_path == "grid":
         return _grid_step(world, params, cap)
+    if params.fall_freeze_y > -1.0e8:
+        world = freeze_fallen(world, params)
 
     dv = read_control(world)
     bp, refreshed = refresh_scalar(world.bp, dv, world.bodies, world.exclusions,

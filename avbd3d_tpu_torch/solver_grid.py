@@ -20,11 +20,18 @@ K5 (``collide_grid``, csrc/grid_kernels.cu ``avbd_collide_grid``) replaces
 SAT, warmstart match and row init, plus the kept mask, the once-per-pair
 mask and the dropped-manifold count.  K6 (``iterblock_grid``,
 ``avbd_iterblock_grid``) replaces ``_iterblock_grid_call``
-(solver_tpu.py:1614): one launch's iterations.  Each wrapper runs its plain
-version for CPU tensors and launches its kernel or raises for CUDA tensors;
-``launches`` on each wrapper counts kernel launches.  Prediction and
-finalize are the torch stages of ``solver`` (predict, finalize), as in the
-reference.
+(solver_tpu.py:1614): one launch's iterations.  Around them, the stages
+the reference runs in XLA (solver_tpu.py:1683-1817) are kernels of
+csrc/grid_stages.cu on the card: ``grid_gates`` (k_grid_gates: the
+fall-freeze, the refresh predicate and the unrefined speed gates),
+``grid_predict`` (k_grid_predict: the prediction, written in the (C, G, 128)
+layout, and the stick latches' float copy) and ``grid_finalize``
+(k_grid_finalize: the pose sanitizes, finalize and the 16 diagnostics
+lanes).  Their plain versions are the torch stages of ``solver``
+(freeze_fallen, stale_lhs_ok, predict, _sanitize, finalize) and the
+broadphase's refresh predicate.  Each wrapper runs its plain version for
+CPU tensors and launches its kernel or raises for CUDA tensors;
+``launches`` on each wrapper counts kernel launches.
 """
 
 from __future__ import annotations
@@ -34,8 +41,8 @@ import torch
 from . import solver_cuda
 from .config import Capacity, SolverParams
 from .ops import replicated as rep
-from .ops.broadphase import gather, symmetric_filter
-from .state import Contacts, World
+from .ops.broadphase import anchor_deviation, gather, reuse_broken, symmetric_filter
+from .state import Contacts, Diagnostics, World
 
 
 def pick_gb(g: int) -> int:
@@ -89,16 +96,26 @@ def collide_grid_plain(old: Contacts, nb_raw, keys, thr, b, params: SolverParams
     return new, (neighbors >= 0).to(torch.float32), once, dropped
 
 
-def collide_grid(old: Contacts, nb_raw, keys, thr, b, params: SolverParams):
-    """K5; returns what ``collide_grid_plain`` returns."""
+def collide_grid(old: Contacts, nb_raw, keys, thr, b, params: SolverParams, stickf=None):
+    """K5; returns what ``collide_grid_plain`` returns.  ``stickf``: the
+    old cache's stick latches as 0 / 1 float32 (``grid_predict`` writes
+    them); given, the new cache keeps its latches as float32 too, as K6
+    takes them."""
     if b.pos.device.type == "cpu":
-        return collide_grid_plain(old, nb_raw, keys, thr, b, params)
+        new, keptmask, once, dropped = collide_grid_plain(old, nb_raw, keys, thr, b, params)
+        if stickf is not None:
+            new = new.replace(stick=new.stick.to(torch.float32))
+        return new, keptmask, once, dropped
     from . import kernels
 
+    args = solver_cuda.cache_to_args(old) if stickf is None else [
+        stickf if f == "stick" else getattr(old, f) for f in solver_cuda.CACHE_FIELDS]
     cache_out, keptmask, once, dropped = kernels.launch_collide_grid(
-        solver_cuda.cache_to_args(old), nb_raw, keys, thr, b, params)
+        args, nb_raw, keys, thr, b, params)
     collide_grid.launches += 1
-    return solver_cuda.args_to_cache(cache_out), keptmask, once, dropped
+    new = (solver_cuda.args_to_cache(cache_out) if stickf is None
+           else Contacts(**dict(zip(solver_cuda.CACHE_FIELDS, cache_out))))
+    return new, keptmask, once, dropped
 
 
 collide_grid.launches = 0
@@ -160,9 +177,130 @@ def iterblock_grid(params: SolverParams, gb: int, spec, contacts: Contacts, b,
 iterblock_grid.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The stages around K5 and K6 (csrc/grid_stages.cu)
+# ---------------------------------------------------------------------------
+
+def _cg(a, g: int):
+    """(N, C) rows -> the (C, G, 128) layout."""
+    return a.T.contiguous().reshape(a.shape[1], g, 128)
+
+
+def grid_gates_plain(world: World, params: SolverParams):
+    """Plain version of k_grid_gates: the fall-freeze (``solver.freeze_fallen``
+    when ``params.fall_freeze_y`` > -1e8), then on the frozen state the
+    refresh predicate (``refresh_needed_plain``'s deviations and bounds) and
+    the unrefined speed gates (``stale_lhs_ok(refine=False)`` at
+    ``lhs_stale_speed_max`` and at min(impact_speed_min,
+    lhs_stale_speed_max)).  Returns (the frozen world, (6,) float32: need,
+    stale_ok, calm as 1 / 0, dev_mm, dev_raw, the largest v^2 of a dynamic
+    body)."""
+    from .solver import dynamic_speed_sq, freeze_fallen
+
+    if params.fall_freeze_y > -1.0e8:
+        world = freeze_fallen(world, params)
+    b, bp = world.bodies, world.bp
+    dev_mm, dev_raw = anchor_deviation(b.pos, b.quat, b.radius, b.dynamic, bp.anchor,
+                                       bp.anchor_quat)
+    need = reuse_broken(dev_mm, dev_raw, bp.slack, params.bp_margin)
+    v2max = torch.max(dynamic_speed_sq(b))
+    calm_th = min(params.impact_speed_min, params.lhs_stale_speed_max)
+    th = torch.tensor([params.lhs_stale_speed_max**2, calm_th**2], dtype=torch.float32,
+                      device=v2max.device)
+    flags = torch.stack([need, v2max <= th[0], v2max <= th[1]]).to(torch.float32)
+    return world, torch.cat([flags, torch.stack([dev_mm, dev_raw, v2max])])
+
+
+def grid_gates(world: World, params: SolverParams):
+    """k_grid_gates; returns what ``grid_gates_plain`` returns."""
+    if world.bodies.pos.device.type == "cpu":
+        return grid_gates_plain(world, params)
+    from . import kernels
+
+    b, bp = world.bodies, world.bp
+    lv, av, im, out = kernels.launch_grid_gates(b, bp.anchor, bp.anchor_quat, bp.slack, params)
+    grid_gates.launches += 1
+    return world.replace(bodies=b.replace(linvel=lv, angvel=av, inv_mass=im)), out
+
+
+grid_gates.launches = 0
+
+
+def grid_predict_plain(b, stick, params: SolverParams):
+    """Plain version of k_grid_predict: ``solver.predict`` in the (C, G, 128)
+    layout, and the stick latches (4, DC, G, 128) as 0 / 1 float32.  Returns
+    (linvel, angvel, ip, iq, ps, stickf, sanitized () int32); ``iq`` is also
+    the iterations' start quaternion."""
+    from .solver import predict
+
+    linvel, angvel, ipos, iquat, pos_start, _qs, sanitized = predict(b, params)
+    g = b.g
+    return (_cg(linvel, g), _cg(angvel, g), _cg(ipos, g), _cg(iquat, g), _cg(pos_start, g),
+            stick.to(torch.float32), sanitized)
+
+
+def grid_predict(b, stick, params: SolverParams):
+    """k_grid_predict; returns what ``grid_predict_plain`` returns."""
+    if b.pos.device.type == "cpu":
+        return grid_predict_plain(b, stick, params)
+    from . import kernels
+
+    out = kernels.launch_grid_predict(b, stick, params)
+    grid_predict.launches += 1
+    return out
+
+
+grid_predict.launches = 0
+
+
+def grid_finalize_plain(world: World, b, contacts: Contacts, pos, quat, linvel, angvel,
+                        sanitized, sep, once, kept, cand, dropped, params: SolverParams) -> World:
+    """Plain version of k_grid_finalize: the sanitizes of K6's last poses
+    ``pos`` / ``quat`` (C, G, 128) against the step's start, then
+    ``solver.finalize`` with the pair overflow ``cand - sum(kept)``.
+    ``contacts``: the cache after the step with K6's 0 / 1 float latches;
+    ``linvel`` / ``angvel`` / ``sanitized``: the prediction's; ``sep``,
+    ``once``, ``kept``, ``dropped``: K6's and K5's.  Returns the world after
+    the step."""
+    from .solver import _sanitize, finalize
+
+    n = b.n
+    overflow = cand - torch.sum(kept).to(torch.int32)
+    pos_f, sanitized = _sanitize(pos.reshape(3, n).T, b.pos_n3, sanitized)
+    quat_f, sanitized = _sanitize(quat.reshape(4, n).T, b.quat_n4, sanitized)
+    contacts = contacts.replace(stick=contacts.stick > 0.5)
+    return finalize(world, b, contacts, world.joints, world.springs, pos_f, quat_f, b.pos_n3,
+                    b.quat_n4, linvel.reshape(3, n).T, angvel.reshape(3, n).T, contacts.lam,
+                    sep, once, overflow, sanitized, params, degree_overflow=dropped)
+
+
+def grid_finalize(world: World, b, contacts: Contacts, pos, quat, linvel, angvel, sanitized,
+                  sep, once, kept, cand, dropped, params: SolverParams) -> World:
+    """k_grid_finalize; returns what ``grid_finalize_plain`` returns."""
+    if b.pos.device.type == "cpu":
+        return grid_finalize_plain(world, b, contacts, pos, quat, linvel, angvel, sanitized,
+                                   sep, once, kept, cand, dropped, params)
+    from . import kernels
+
+    pos_f, quat_f, lv, av, plv, pav, stick, diag = kernels.launch_grid_finalize(
+        b, pos, quat, linvel, angvel, sanitized, contacts, sep, once, kept, cand, dropped,
+        params)
+    grid_finalize.launches += 1
+    bodies = b.replace(pos=pos_f, quat=quat_f, linvel=lv, angvel=av, prev_linvel=plv,
+                       prev_angvel=pav)
+    return world.replace(bodies=bodies, contacts=contacts.replace(stick=stick),
+                         step_index=world.step_index + 1, diagnostics=Diagnostics(vec=diag))
+
+
+grid_finalize.launches = 0
+
+
 def reset_launch_counts() -> None:
     collide_grid.launches = 0
     iterblock_grid.launches = 0
+    grid_gates.launches = 0
+    grid_predict.launches = 0
+    grid_finalize.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -171,30 +309,20 @@ def reset_launch_counts() -> None:
 
 def step_grid(world: World, params: SolverParams, cap: Capacity, stale_ok: bool,
               calm: bool) -> World:
-    """One step of the grid tier (solver_tpu.step_grid): K5, prediction,
-    the launches of K6 that ``grid_specs`` plans for the cadence ``stale_ok``
-    / ``calm`` select, sanitize and finalize.  ``world.bp`` is the step's
-    (possibly refreshed) broadphase cache; contact-only."""
-    from .solver import _sanitize, finalize, predict
-
+    """One step of the grid tier (solver_tpu.step_grid) after its gates
+    (``grid_gates``): the prediction, K5, the launches of K6 that
+    ``grid_specs`` plans for the cadence ``stale_ok`` / ``calm`` select,
+    and the finalize.  ``world.bp`` is the step's (possibly refreshed)
+    broadphase cache; contact-only."""
     b = world.bodies
-    g, n = b.g, b.n
-    gb = pick_gb(g)
+    gb = pick_gb(b.g)
     bp = world.bp
-    contacts, keptmask, once, dropped = collide_grid(world.contacts, bp.nb, bp.key,
-                                                     bp.thr, b, params)
-    overflow = bp.cand - torch.sum(keptmask).to(torch.int32)
-
-    linvel, angvel, ipos, iquat, pos_start, quat_start, sanitized = predict(b, params)
-    pos0, quat0 = b.pos_n3, b.quat_n4
-
-    def to_cg(a):  # (N, C) -> (C, G, 128)
-        return a.T.contiguous().reshape(a.shape[1], g, 128)
-
-    ip, iq = to_cg(ipos), to_cg(iquat)
-    pos, quat = to_cg(pos_start), to_cg(quat_start)
-    lam, pen, stickf = contacts.lam, contacts.penalty, contacts.stick.to(torch.float32)
-    sep = torch.zeros((4,) + contacts.other.shape, dtype=torch.float32, device=pos.device)
+    linvel, angvel, ip, iq, ps, stickf, sanitized = grid_predict(b, world.contacts.stick,
+                                                                 params)
+    contacts, keptmask, once, dropped = collide_grid(world.contacts, bp.nb, bp.key, bp.thr, b,
+                                                     params, stickf=stickf)
+    pos, quat, lam, pen, stickf = ps, iq, contacts.lam, contacts.penalty, contacts.stick
+    sep = None
     # The grid tier's gates are unrefined (stale_lhs_ok(refine=False)), so
     # calm implies stale_ok and the fused path's variant rule gives exactly
     # the reference's branches (solver_tpu.py:1755-1802).
@@ -202,11 +330,8 @@ def step_grid(world: World, params: SolverParams, cap: Capacity, stale_ok: bool,
     for spec in grid_specs(params, n_iters, k, cap.grid_residency):
         pos, quat, lam, pen, stickf, sep = iterblock_grid(
             params, gb, spec, contacts, b, pos, quat, lam, pen, stickf, ip, iq)
-
-    pos_f, sanitized = _sanitize(pos.reshape(3, n).T, pos0, sanitized)
-    quat_f, sanitized = _sanitize(quat.reshape(4, n).T, quat0, sanitized)
-    contacts = contacts.replace(lam=lam, penalty=pen, stick=stickf > 0.5)
-    return finalize(world, b, contacts, world.joints, world.springs, pos_f, quat_f, pos0,
-                    quat0, linvel, angvel,
-                    lam, sep, once, overflow, sanitized, params,
-                    degree_overflow=dropped)
+    if sep is None:   # no launch: the separations stay at their start, 0
+        sep = torch.zeros((4,) + contacts.other.shape, dtype=torch.float32, device=pos.device)
+    contacts = contacts.replace(lam=lam, penalty=pen, stick=stickf)
+    return grid_finalize(world, b, contacts, pos, quat, linvel, angvel, sanitized, sep, once,
+                         keptmask, bp.cand, dropped, params)

@@ -29,10 +29,14 @@
 5. Grid tier: Stress4096 (16^3 cubes + ground, N = 5120, G = 40, D = 28,
    DC = 16, x-major order) for 1000 steps, the reference's validated window,
    counters reset before and read after.  Checks: every step took the grid
-   tier, K5 launched once and K6 five times per step, the refresh predicate
-   once a step and the refresh kernels once a refresh step, sanitized 0, pair and
+   tier, K5 launched once and K6 five times per step, the gates, prediction
+   and finalize kernels (csrc/grid_stages.cu) once a step and the refresh
+   kernels once a refresh step, one host read a step, sanitized 0, pair and
    degree overflow 0 and finite poses at every step, penetration below
-   PEN_LIMIT over steps 901-1000.  Then K5 (two kernels a call, held to
+   PEN_LIMIT over steps 901-1000; 20 steps from the settled state traced
+   (utils/profile_phases.trace): at most GRID_STEP_LAUNCHES launches a step,
+   every kernel of the step counted, its device time and idle share.  Then
+   K5 (two kernels a call, held to
    that in a trace; floats with difference 0) and K6 against their plain
    versions from a landing and a settled state (K6 on its cluster-resident
    route, logical blocks of 1024 bodies, and on its launch-per-half-sweep
@@ -86,8 +90,8 @@
 12. The race gate: every resident route (K1's cluster route at clusters of
    4, 12 and 16 blocks, K6 with 5 clusters, K1's joint route at RodJointed,
    SoftGrid and the 20 sheets, RodJointed also on the grid barrier), K7,
-   K2 and the refresh kernels (whose last block folds every block's
-   partials) run RACE_REPS
+   K2, the refresh kernels and the grid step's stage kernels (whose last
+   block folds every block's partials) run RACE_REPS
    times on one input with every output bit-identical, then through a
    build whose odd blocks sleep before their pose reads and writes (K7,
    K2: before their partials' write and the ticket), bit-identical again;
@@ -156,6 +160,20 @@
    bool equal (both values taken), dev_raw bit for bit, dev_mm within 1e-5
    relative, both the bits of K2's lanes 3 and 4; times of both beside the
    torch versions' (and their launches) at N = 1024, 2048, 5120 and 16384.
+   The grid step no longer launches the predicate kernel (phase 20's gates
+   kernel folds the same predicate); ``refresh_needed`` keeps it.
+20. The grid step's stage kernels (csrc/grid_stages.cu) against their
+   plain versions on the same card tensors, at Stress4096 steps 800 and
+   2800, step 2800 with its lists fresh at its poses (no refresh due), the
+   low-drop 16^3 pile of phase 6 (step 90), step 800 with every
+   body static, with three bodies below fall_freeze_y, and with a NaN and
+   an infinite velocity and a NaN final pose: k_grid_gates' flags, dev_raw,
+   v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative;
+   k_grid_predict's outputs bit for bit; k_grid_finalize's bodies, latches
+   and diagnostics lanes identical but the speed lanes (2, 3) within 1e-6
+   relative; each flag takes both values.  Each kernel's time at step 2800
+   beside its plain version's (and its launches), traced and held to one
+   kernel a call, and its bound.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -417,8 +435,8 @@ def unmoved_world(world):
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count to 0 (K1-K7 and the broadphase
-    refresh's two wrappers)."""
+    """Every kernel wrapper's launch count to 0 (K1-K7, the broadphase
+    refresh's two wrappers and the grid step's three stages)."""
     from avbd3d_tpu_torch import solver_cuda, solver_grid
 
     solver_cuda.reset_launch_counts()
@@ -437,7 +455,10 @@ def read_counts() -> dict:
             "solve_loop": solver_cuda.solve_loop.launches,
             "bp_probe": solver_cuda.bp_probe.launches,
             "collide_grid": solver_grid.collide_grid.launches,
-            "iterblock_grid": solver_grid.iterblock_grid.launches}
+            "iterblock_grid": solver_grid.iterblock_grid.launches,
+            "grid_gates": solver_grid.grid_gates.launches,
+            "grid_predict": solver_grid.grid_predict.launches,
+            "grid_finalize": solver_grid.grid_finalize.launches}
 
 
 def grid_phase(card: str) -> dict:
@@ -477,11 +498,14 @@ def grid_phase(card: str) -> dict:
           f"refresh steps {refreshes}; launches {launches}; host reads {host_reads}")
     if paths != {"grid"}:
         fail(f"Stress4096 did not take the grid tier at every step: {paths}")
-    # A grid step reads the refresh predicate (one launch) and, when it
-    # holds, refreshes the lists (one call of the refresh kernels).
-    want = {"candidate_lists": refreshes, "refresh_needed": n_steps, "step_kernel": 0,
+    # A grid step runs the gates (one launch: the fall-freeze, the refresh
+    # predicate, the speed gates) and, when the predicate holds, refreshes
+    # the lists (one call of the refresh kernels); then the prediction, K5,
+    # K6 and the finalize.
+    want = {"candidate_lists": refreshes, "refresh_needed": 0, "step_kernel": 0,
             "control_lanes": 0, "collide_and_init": 0, "solve_loop": 0,
-            "bp_probe": 0, "collide_grid": n_steps, "iterblock_grid": 5 * n_steps}
+            "bp_probe": 0, "collide_grid": n_steps, "iterblock_grid": 5 * n_steps,
+            "grid_gates": n_steps, "grid_predict": n_steps, "grid_finalize": n_steps}
     if launches != want or refreshes == 0:
         fail(f"Stress4096 launch counts {launches}, expected {want} ({refreshes} refresh steps)")
     if host_reads != n_steps:
@@ -492,6 +516,7 @@ def grid_phase(card: str) -> dict:
           f"{int(diag['active_contacts'])}, max_pen {diag['max_penetration']:.6f}, "
           f"max_lin {diag['max_linear_speed']:.4f}")
     saved["settled"] = w
+    traced = grid_step_trace(card, w, p, cap)
 
     k5_err, k6_err = 0.0, 0.0
     for label in ("landing", "settled"):
@@ -541,9 +566,62 @@ def grid_phase(card: str) -> dict:
         len(a6[2]) * (slots * OPS_CONTACT_SLOT_SWEEP + wi.bodies.n * OPS_BODY_SWEEP))
     return {"settled": w, "params": p, "step 800": saved["step 800"], "scene": scene,
             "refreshes": refreshes, "launches": launches, "k5_err": k5_err, "k6_err": k6_err,
+            "traced": traced,
             "k5_ms": k5_ms,
             "k5_plain_ms": k5_plain_ms, "k6_ms": k6_ms, "k6_plain_ms": k6_plain_ms,
             "k5_bound": k5_bound, "k6_bound": k6_bound, "k5_trace": k5_trace, "k6_args": a6}
+
+
+# The most launches a Stress4096 grid step may make in a trace: K5's 2, K6's
+# 5, the gates, the prediction and the finalize, the refresh kernels' 2 on a
+# refresh step, and room for 3 more.
+GRID_STEP_LAUNCHES = 16
+
+
+def grid_step_trace(card, w, p, cap, steps: int = 20) -> dict:
+    """``steps`` grid steps from ``w`` traced (utils/profile_phases.trace):
+    every kernel on the card a step, held to GRID_STEP_LAUNCHES, and the
+    port's own kernels to one each of the stage kernels and K5's, five of
+    K6 and the refresh kernels once a refresh step; one host read a step.
+    A trace that lost records is taken again, up to twice."""
+    from avbd3d_tpu_torch import solver
+    from avbd3d_tpu_torch.utils import profile_phases
+
+    for attempt in range(3):
+        before = solver.step.host_reads
+        r = profile_phases.trace(w, p, cap, steps)
+        reads = (solver.step.host_reads - before) / (2 * steps)
+        per = r["launches"] / steps
+        own = collections.Counter()
+        for name, _us, c in r["kernels"]:
+            if own_kernel(name):
+                own[kernel_name(name).split("<")[0]] += c / steps
+        other = {kernel_name(name)[:60]: c / steps for name, _us, c in r["kernels"]
+                 if not own_kernel(name)}
+        lists = own.pop("k_bp_tables", 0.0)
+        want = {"k_grid_gates": 1.0, "k_grid_predict": 1.0, "k_filter_cull": 1.0,
+                "k_collide": 1.0, "k_sweeps": 5.0, "k_grid_finalize": 1.0}
+        if lists:
+            want["k_bp_lists"] = lists
+        counts_ok = {k: round(v, 6) for k, v in own.items()} == {
+            k: round(v, 6) for k, v in want.items()}
+        if counts_ok or attempt == 2:
+            break
+        print(f"Stress4096 traced grid steps: the trace lost records ({dict(own)}); "
+              "tracing again")
+    print(f"[{card}] Stress4096 grid steps, traced ({steps} steps from the settled state): "
+          f"{per:.2f} launches a step ({dict(own)}, refresh kernels {lists:.2f} a step, "
+          f"torch's {other}), device {r['device_us'] / steps:.1f} us a step, idle share "
+          f"{100.0 * (1.0 - r['busy']):.1f}%, {r['wall_s'] * 1e3 / steps:.3f} ms a step "
+          f"traced, {r['untraced_s'] * 1e3 / steps:.3f} untraced; host reads a step {reads:g}")
+    if per > GRID_STEP_LAUNCHES or not counts_ok or reads != 1:
+        fail(f"Stress4096 traced grid steps: {per} launches a step (at most "
+             f"{GRID_STEP_LAUNCHES}), the port's {dict(own)} (expected {want}), host reads "
+             f"{reads} a step")
+    return {"launches_per_step": per, "device_us_per_step": r["device_us"] / steps,
+            "idle_share": 1.0 - r["busy"], "ms_per_step": r["wall_s"] * 1e3 / steps,
+            "untraced_ms_per_step": r["untraced_s"] * 1e3 / steps, "own": dict(own),
+            "torch": other}
 
 
 def low_drop_gate():
@@ -573,6 +651,7 @@ def low_drop_gate():
           f"max_lin {d['max_linear_speed']:.3f}")
     if not worst <= LOW_DROP_PEN_LIMIT:
         fail(f"low-drop gate: penetration {worst} > {LOW_DROP_PEN_LIMIT}")
+    return w, p, cap
 
 
 def stress2048_phase(card: str):
@@ -1914,11 +1993,11 @@ def swept_run(label, scene, window, n_steps, hold_from, most: bool):
            "refresh_steps": refreshes, "swept": c.swept - base[0],
            "fallbacks": c.fallbacks - base[1], "world": w}
     # The matrix runs on the card where the sweep falls back; the grid tier
-    # reads its refresh predicate every step.
+    # reads its refresh predicate every step (the gates kernel).
     want = (out["fallbacks"], n_steps if paths == {"grid"} else 0)
-    if (out["launches"]["candidate_lists"], out["launches"]["refresh_needed"]) != want:
+    if (out["launches"]["candidate_lists"], out["launches"]["grid_gates"]) != want:
         fail(f"{label}, swept: refresh kernel launches {out['launches']}, expected "
-             f"candidate_lists {want[0]} (the fallbacks), refresh_needed {want[1]}")
+             f"candidate_lists {want[0]} (the fallbacks), grid_gates {want[1]}")
     print(f"{label}, bp_window {window}: {n_steps} steps in {out['seconds']:.2f} s; paths "
           f"{sorted(paths)}; refresh steps {refreshes}: {out['swept']} swept, "
           f"{out['fallbacks']} fell back; launches {out['launches']}")
@@ -1967,7 +2046,9 @@ def swept_phase(card, landing, settled, grid) -> dict:
     # steps all fall in its first 200), so here the sweep is held to "some".
     gridded = swept_run("Stress4096", s4096, w4, 200, 200, most=False)
     lg = gridded["launches"]
-    if gridded["paths"] != {"grid"} or (lg["collide_grid"], lg["iterblock_grid"]) != (200, 1000):
+    if gridded["paths"] != {"grid"} or (
+            lg["collide_grid"], lg["iterblock_grid"], lg["grid_gates"], lg["grid_predict"],
+            lg["grid_finalize"]) != (200, 1000, 200, 200, 200):
         fail(f"Stress4096 with the sweep: paths {gridded['paths']}, launches {lg}")
 
     p4 = s4096.params
@@ -2232,7 +2313,7 @@ def refresh_phase_states(card, scene, saved, init, w2048, s2048, grid, jointed, 
              "Stress2048 step 800": (s800, c48.max_degree, p48),
              "Stress4096 step 2800": (g2800, c4.max_degree, p4),
              "pile 31x17x31 compressed": (big, pile.cap.max_degree, ppile)}
-    return refresh_phase(card, lists, predicate, timed)
+    return {**refresh_phase(card, lists, predicate, timed), "g2800": g2800}
 
 
 def refresh_phase(card, lists: dict, predicate: dict, timed: dict) -> dict:
@@ -2257,13 +2338,252 @@ def refresh_phase(card, lists: dict, predicate: dict, timed: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The grid step's stage kernels on the card (phase 20)
+# ---------------------------------------------------------------------------
+
+# The kernels of csrc/grid_stages.cu by wrapper (solver_grid), once a call;
+# what of the reference each replaces (no Pallas kernel: XLA stages of its
+# jitted step), and the kernels line's note on each.
+STAGE_KERNELS = {"grid_gates": "k_grid_gates", "grid_predict": "k_grid_predict",
+                 "grid_finalize": "k_grid_finalize"}
+STAGE_REPLACES = {"grid_gates": "avbd3d_tpu/solver.py:322",
+                  "grid_predict": "avbd3d_tpu/solver.py:194",
+                  "grid_finalize": "avbd3d_tpu/solver.py:234"}
+STAGE_NOTES = {
+    "grid_gates": "no Pallas kernel: the reference's fall-freeze (solver.py:322-330), "
+                  "refresh_or_reuse's predicate (ops/broadphase.py:153-188) and "
+                  "stale_lhs_ok(refine=False) (solver.py:73-112) in XLA; timed at Stress4096 "
+                  "step 2800 (N = 5120); max_abs_err: dev_mm (flags, dev_raw, v^2 max and "
+                  "frozen fields bit for bit at the seven states of phase 20)",
+    "grid_predict": "no Pallas kernel: the reference's predict (solver.py:194-231) in XLA; "
+                    "timed at Stress4096 step 2800 (N = 5120); every output bit for bit at the "
+                    "seven states of phase 20",
+    "grid_finalize": "no Pallas kernel: the reference's pose sanitizes (solver_tpu.py:"
+                     "1808-1817) and finalize (solver.py:234-317) in XLA; timed at Stress4096 "
+                     "step 2800 (N = 5120); max_abs_err: the speed lanes' relative difference "
+                     "(torch's vector_norm), bodies, latches and the other lanes identical at "
+                     "the seven states of phase 20"}
+# Float operations a unit, from csrc/grid_stages.cu's statements, rounded
+# down: k_grid_gates' freeze, anchor terms, partials and deviation pass of
+# a body; k_grid_predict's sanitizes, clamp, inertial pose, normalize and
+# warm start of a body; k_grid_finalize's sanitizes, velocities and speeds
+# of a body and its maxima of a contact slot (4 contacts).
+OPS_GATES_BODY = 70
+OPS_PREDICT_BODY = 110
+OPS_FINALIZE_BODY = 70
+OPS_FINALIZE_SLOT = 16
+
+
+def stage_args(world, params, cap) -> dict:
+    """The three stage kernels' operands at the next grid step of ``world``,
+    prepared by the plain versions as ``solver._grid_step`` and
+    ``solver_grid.step_grid`` prepare them (the refresh or reuse, K5, the
+    step's launches of K6): {"gates": (world, params), "predict": (bodies,
+    stick, params), "finalize": grid_finalize's arguments}."""
+    from avbd3d_tpu_torch import solver_cuda, solver_grid
+    from avbd3d_tpu_torch.ops.broadphase import refresh_or_reuse
+
+    wf, gates = solver_grid.grid_gates_plain(world, params)
+    b = wf.bodies
+    flags = [bool(x) for x in gates[:3].tolist()]
+    bp, _ = refresh_or_reuse(wf.bp, flags[0], b, wf.exclusions, cap.max_degree, params.bp_margin)
+    lv, av, ip, iq, ps, stickf, san = solver_grid.grid_predict_plain(b, wf.contacts.stick, params)
+    c, kept, once, dropped = solver_grid.collide_grid(wf.contacts, bp.nb, bp.key, bp.thr, b,
+                                                      params, stickf=stickf)
+    pos, quat, lam, pen, sf = ps, iq, c.lam, c.penalty, c.stick
+    n_iters, k = solver_cuda.select_variant(params, flags[1], flags[2])
+    for spec in solver_grid.grid_specs(params, n_iters, k, cap.grid_residency):
+        pos, quat, lam, pen, sf, sep = solver_grid.iterblock_grid(
+            params, solver_grid.pick_gb(b.g), spec, c, b, pos, quat, lam, pen, sf, ip, iq)
+    c = c.replace(lam=lam, penalty=pen, stick=sf)
+    return {"gates": (world, params), "predict": (b, wf.contacts.stick, params),
+            "finalize": (wf.replace(bp=bp), b, c, pos, quat, lv, av, san, sep, once, kept,
+                         bp.cand, dropped, params)}
+
+
+def compare_stages(label, world, params, cap, nan_pose=False) -> dict:
+    """k_grid_gates, k_grid_predict and k_grid_finalize against their plain
+    versions on the same card tensors at the next grid step of ``world``:
+    the gates' flags, dev_raw, v^2 max and frozen fields bit for bit (a NaN
+    matching a NaN), dev_mm (sums over the world in another order than
+    torch.sum's) within 1e-5 relative, 1e-6 absolute; the prediction's
+    outputs bit for bit; the finalize's bodies and latches bit for bit, its
+    diagnostics lanes identical but the speeds (2, 3: torch's vector_norm)
+    within 1e-6 relative.  ``nan_pose``: K6's last position of one body set
+    to NaN (the finalize's sanitize).  Returns the flags and the largest
+    dev_mm and speed-lane differences."""
+    import torch
+
+    from avbd3d_tpu_torch import solver_grid
+
+    a = stage_args(world, params, cap)
+    if nan_pose:
+        a["finalize"][3].view(3, -1)[1, 11] = float("nan")
+    wk, gk = solver_grid.grid_gates(*a["gates"])
+    wp, gp = solver_grid.grid_gates_plain(*a["gates"])
+    pk = solver_grid.grid_predict(*a["predict"])
+    pp = solver_grid.grid_predict_plain(*a["predict"])
+    fk = solver_grid.grid_finalize(*a["finalize"])
+    fp = solver_grid.grid_finalize_plain(*a["finalize"])
+    sync()
+    bad = []
+    if not same_bits_nan(gk[[0, 1, 2, 4, 5]], gp[[0, 1, 2, 4, 5]]):
+        bad.append(f"gates {gk.tolist()} vs {gp.tolist()}")
+    mm_err = abs(float(gk[3]) - float(gp[3]))
+    if not mm_err <= 1e-6 + 1e-5 * abs(float(gp[3])):
+        bad.append(f"dev_mm {float(gk[3])} vs {float(gp[3])}")
+    bad += [f"frozen {f}" for f in ("linvel", "angvel", "inv_mass")
+            if not same_bits_nan(getattr(wk.bodies, f), getattr(wp.bodies, f))]
+    bad += [f"predict output {i}" for i, (x, y) in enumerate(zip(pk, pp))
+            if not same_bits_nan(x, y)]
+    bad += [f"finalize {f}" for f in ("pos", "quat", "linvel", "angvel", "prev_linvel",
+                                      "prev_angvel")
+            if not same_bits_nan(getattr(fk.bodies, f), getattr(fp.bodies, f))]
+    if not torch.equal(fk.contacts.stick, fp.contacts.stick):
+        bad.append("finalize stick")
+    dk, dp = fk.diagnostics.vec, fp.diagnostics.vec
+    lanes = [0, 1, 4] + list(range(5, 16))
+    if not torch.equal(dk[lanes], dp[lanes]):
+        bad.append(f"diagnostics {dk.tolist()} vs {dp.tolist()}")
+    speed_err = float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max())
+    if not speed_err <= 1e-6:
+        bad.append(f"speed lanes {dk[2:4].tolist()} vs {dp[2:4].tolist()}")
+    flags = [bool(x) for x in gk[:3].tolist()]
+    d = dk.tolist()
+    print(f"grid stages vs plain ({label}, N = {world.bodies.n}): need {flags[0]}, stale_ok "
+          f"{flags[1]}, calm {flags[2]}; dev_mm abs err {mm_err:.3e}; frozen fields, "
+          f"prediction, bodies and latches {'bit for bit' if not bad else 'DIFFER'}; "
+          f"sanitized {int(pk[6])} + {int(d[8]) - int(pk[6])}, manifolds {int(d[6])}, "
+          f"contacts {int(d[5])}, pair overflow {int(d[9])}; speed lanes rel err "
+          f"{speed_err:.3e} (lin {d[2]:.6g}, ang {d[3]:.6g})")
+    if bad:
+        fail(f"grid stages, {label}: {bad}")
+    return {"flags": flags, "mm_err": mm_err, "speed_err": speed_err, "args": a}
+
+
+def same_bits_nan(a, b) -> bool:
+    """``same_bits``, with a NaN matching a NaN (the sanitizes' inputs)."""
+    import torch
+
+    if a.dtype != torch.float32:
+        return same_bits(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and same_bits(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
+def stage_bounds(a) -> dict:
+    """The least time for each stage kernel at ``stage_args`` ``a``: its
+    inputs read once and outputs written once, over 3.35 TB/s, against its
+    float operations over 67 TFLOP/s."""
+    from avbd3d_tpu_torch import solver_grid
+
+    world, params = a["gates"]
+    b, bp = world.bodies, world.bp
+    n = b.n
+    gates_in = nbytes([getattr(b, f) for f in ("pos", "quat", "linvel", "angvel", "inv_mass",
+                                               "radius")], bp.anchor, bp.anchor_quat, bp.slack)
+    gates_out = nbytes([getattr(b, f) for f in ("linvel", "angvel", "inv_mass")]) + 6 * 4
+    pb, stick, _p = a["predict"]
+    pred_in = nbytes([getattr(pb, f) for f in ("pos", "quat", "linvel", "angvel", "prev_linvel",
+                                               "inv_mass")], stick)
+    pred_out = nbytes(solver_grid.grid_predict_plain(*a["predict"]))
+    _w, fb, c, pos, quat, lv, av, san, sep, once, kept, cand, dropped, _p = a["finalize"]
+    fin_in = nbytes(pos, quat, [getattr(fb, f) for f in ("pos", "quat", "linvel", "angvel",
+                                                         "prev_linvel", "prev_angvel",
+                                                         "inv_mass")],
+                    lv, av, san, c.count, c.other, sep, c.lam[0::3], once, c.stick, kept, cand,
+                    dropped)
+    fin_out = nbytes(pos, quat, lv, av, lv, av) + c.stick.numel() + 16 * 4
+    slots = int((c.other >= 0).sum())
+    return {"grid_gates": bound(gates_in + gates_out, n * OPS_GATES_BODY),
+            "grid_predict": bound(pred_in + pred_out, n * OPS_PREDICT_BODY),
+            "grid_finalize": bound(fin_in + fin_out,
+                                   n * OPS_FINALIZE_BODY + slots * OPS_FINALIZE_SLOT)}
+
+
+def stage_world(world, params, kind: str):
+    """``world`` with three dynamic bodies below ``fall_freeze_y``
+    ("fallen") or with a NaN linear and an infinite angular velocity
+    ("nan")."""
+    import torch
+
+    b = world.bodies
+    ids = torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[:3]
+    if kind == "fallen":
+        pos = b.pos.clone()
+        pos.view(3, -1)[1, ids] = params.fall_freeze_y - 1.0
+        return world.replace(bodies=b.replace(pos=pos))
+    lv, av = b.linvel.clone(), b.angvel.clone()
+    lv.view(3, -1)[0, ids[0]] = float("nan")
+    av.view(3, -1)[2, ids[1]] = float("inf")
+    return world.replace(bodies=b.replace(linvel=lv, angvel=av))
+
+
+def stages_phase(card, grid, g2800, low_drop) -> dict:
+    """Phase 20: the three stage kernels against their plain versions at
+    Stress4096 steps 800 and 2800, step 2800 with its lists fresh at its
+    poses (no refresh due), the low-drop 16^3 pile of phase 6, step 800
+    with every body static, with three bodies below fall_freeze_y and with
+    a NaN and an infinite velocity (and a NaN final pose); every flag takes
+    both values.  Then each kernel's time at step 2800 beside its
+    plain version's (traced, held to one kernel a call) and its bound."""
+    from avbd3d_tpu_torch import solver_grid
+    from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
+
+    p4, c4 = grid["params"], grid["scene"].cap
+    g800 = grid["step 800"]
+    wl, pl, cl = low_drop
+    fresh = g2800.replace(bp=build_bp_cache(g2800.bodies, g2800.exclusions, c4.max_degree,
+                                            p4.bp_margin))
+    states = {"Stress4096 step 800": (g800, p4, c4, False),
+              "Stress4096 step 2800": (g2800, p4, c4, False),
+              "Stress4096 step 2800, lists fresh at its poses": (fresh, p4, c4, False),
+              "low-drop 16^3, step 90": (wl, pl, cl, False),
+              "Stress4096 step 800, every body static": (unmoved_world(g800), p4, c4, False),
+              "Stress4096 step 800, three bodies fallen": (stage_world(g800, p4, "fallen"), p4,
+                                                           c4, False),
+              "Stress4096 step 800, NaN velocities and a NaN final pose": (
+                  stage_world(g800, p4, "nan"), p4, c4, True)}
+    out = {label: compare_stages(label, *args) for label, args in states.items()}
+    seen = [{r["flags"][k] for r in out.values()} for k in range(3)]
+    if any(s != {True, False} for s in seen):
+        fail(f"grid stages: the flags (need, stale_ok, calm) took only {seen}")
+    a = out["Stress4096 step 2800"]["args"]
+    bounds = stage_bounds(a)
+    times = {}
+    calls = {"grid_gates": (solver_grid.grid_gates, solver_grid.grid_gates_plain, a["gates"]),
+             "grid_predict": (solver_grid.grid_predict, solver_grid.grid_predict_plain,
+                              a["predict"]),
+             "grid_finalize": (solver_grid.grid_finalize, solver_grid.grid_finalize_plain,
+                               a["finalize"])}
+    for name, (kern, plain, args) in calls.items():
+        t = one_kernel_times(card, f"{name} (Stress4096 step 2800, N = 5120)",
+                             STAGE_KERNELS[name], lambda kern=kern, args=args: kern(*args),
+                             lambda plain=plain, args=args: plain(*args))
+        t["plain_launches"], t["plain_device_us"] = device_launches(
+            lambda plain=plain, args=args: plain(*args), 2)
+        t["bound_ms"], t["bound_by"] = bounds[name]
+        print(f"[{card}] {name}: kernel {t['ms']:.4f} ms a call ({t['device_us']:.2f} us on the "
+              f"card), plain {t['plain_ms']:.4f} ms ({t['plain_launches']:.0f} launches, "
+              f"{t['plain_device_us']:.1f} us on the card); bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_by']})")
+        times[name] = t
+    return {"states": {k: {f: v[f] for f in ("flags", "mm_err", "speed_err")}
+                       for k, v in out.items()},
+            "mm_err": max(v["mm_err"] for v in out.values()),
+            "speed_err": max(v["speed_err"] for v in out.values()), "times": times,
+            "args": a}
+
+
+# ---------------------------------------------------------------------------
 # The sweep kernels' record (phase 13)
 # ---------------------------------------------------------------------------
 
 # The kernels whose ptxas usage the record prints: the tiled sweep kernels,
 # the two collide kernels of K1, K3 and K5, K7's, K2's and the refresh's.
 RECORD_KERNELS = ("k_sweeps", "k_primal", "k_joint_sweeps", "k_filter_cull", "k_collide",
-                  "k_probe", "k_control_lanes", "k_bp_tables", "k_bp_lists", "k_refresh_needed")
+                  "k_probe", "k_control_lanes", "k_bp_tables", "k_bp_lists", "k_refresh_needed",
+                  "k_grid_gates", "k_grid_predict", "k_grid_finalize")
 
 # The last recorded times of these calls (this script's own event times, as
 # PERF.md section 6 records them from one H100 80GB HBM3 at 700 W); printed
@@ -2453,6 +2773,20 @@ def race_routes(states: dict) -> list:
         routes.append((f"refresh predicate {label} (the last block folds and runs the deviation "
                        "pass)", lambda b=b, w=w, p=p: list(kernels.launch_refresh_needed(
                            b, w.bp.anchor, w.bp.anchor_quat, w.bp.slack, p.bp_margin))))
+    # The grid step's stage kernels: a ticket fold each (the gates' also
+    # runs the deviation pass).
+    for label, a in states["stages"].items():
+        world, p = a["gates"]
+        b = world.bodies
+        routes.append((f"k_grid_gates {label} (the last block folds and runs the deviation "
+                       "pass)", lambda b=b, w=world, p=p: list(kernels.launch_grid_gates(
+                           b, w.bp.anchor, w.bp.anchor_quat, w.bp.slack, p))))
+        routes.append((f"k_grid_predict {label} (the last block folds the sanitize count)",
+                       lambda a=a: list(kernels.launch_grid_predict(*a["predict"]))))
+        fin = a["finalize"]
+        routes.append((f"k_grid_finalize {label} (the last block folds the diagnostics)",
+                       lambda f=fin: list(kernels.launch_grid_finalize(
+                           f[1], *f[3:8], f[2], *f[8:]))))
     return routes
 
 
@@ -2869,7 +3203,7 @@ def main() -> int:
     b, bp = w.bodies, w.bp
 
     grid = grid_phase(card)
-    low_drop_gate()
+    low_drop = low_drop_gate()
     w2048, p2048, k1_2048_err = stress2048_phase(card)
     jointed = jointed_phases(card)
     prof = profiler_phase(w, scene, card)
@@ -2888,6 +3222,7 @@ def main() -> int:
     swept = swept_phase(card, saved["landing"], w, grid)
     refresh = refresh_phase_states(card, scene, saved, init, w2048, s2048, grid, jointed,
                                    swept["pile"])
+    stages = stages_phase(card, grid, refresh["g2800"], low_drop)
     traced = app_phase(card, scene, saved["landing"], w)
     portable = portable_phase(card, w)
     chains = chains_phase(card)
@@ -2901,7 +3236,8 @@ def main() -> int:
                              "refresh": {"Stress1000 settled": (w, cap.max_degree, p),
                                          "Stress4096 settled": (grid["settled"],
                                                                 grid["scene"].cap.max_degree,
-                                                                grid["params"])}})
+                                                                grid["params"])},
+                             "stages": {"Stress4096 step 2800": stages["args"]}})
     sweeps = sweep_record(card, lib, {"k1_settled_ms": k1_ms, "k1_sheets_ms": jointed["ms"],
                                       "k4_ms": {"20": prof["ms4"]}, "k6_ms": grid["k6_ms"]})
     bench = bench_phase(card)
@@ -3066,9 +3402,11 @@ def main() -> int:
                      t4["predicate"]["ms"], t4["predicate"]["plain_ms"],
                      (t4["predicate"]["bound_ms"], t4["predicate"]["bound_by"]),
                      note="no Pallas kernel: the reference's refresh_or_reuse computes its "
-                          "predicate in XLA; the grid tier's main path (Stress4096, phase 5: "
-                          "once a step); timed at Stress4096 step 2800 (N = 5120); max_abs_err: "
-                          "dev_mm, dev_raw bit for bit",
+                          "predicate in XLA; on no main path since the grid step folds the same "
+                          "predicate into k_grid_gates (launches: phase 5's count, 0), kept as "
+                          "ops.broadphase.refresh_needed's one launch and compared in phase 19; "
+                          "timed at Stress4096 step 2800 (N = 5120); max_abs_err: dev_mm, "
+                          "dev_raw bit for bit",
                      kernel=PREDICATE_KERNEL, kernels_per_call=1,
                      device_us=t4["predicate"]["device_us"],
                      plain_launches=t4["predicate"]["plain_launches"],
@@ -3076,6 +3414,24 @@ def main() -> int:
                          "ms", "plain_ms", "device_us", "plain_launches", "bound_ms", "bound_by")}
                                for k, v in refresh["times"].items()},
                      **sweeps["usage"][PREDICATE_KERNEL]),
+        *(kernel_entry(name, csrc + "grid_stages.cu", STAGE_REPLACES[name],
+                       grid["launches"][name],
+                       stages["mm_err"] if name == "grid_gates" else (
+                           stages["speed_err"] if name == "grid_finalize" else 0.0),
+                       stages["times"][name]["ms"], stages["times"][name]["plain_ms"],
+                       (stages["times"][name]["bound_ms"], stages["times"][name]["bound_by"]),
+                       note=STAGE_NOTES[name], kernel=STAGE_KERNELS[name], kernels_per_call=1,
+                       device_us=stages["times"][name]["device_us"],
+                       plain_launches=stages["times"][name]["plain_launches"],
+                       plain_device_us=stages["times"][name]["plain_device_us"],
+                       paths={"grid tier": {"launches": grid["launches"][name], "steps": 1000,
+                                            "note": "Stress4096, phase 5: once a step"},
+                              "swept broadphase": {
+                                  "launches": swept["grid"][name], "steps": 200,
+                                  "note": f"Stress4096 with bp_window "
+                                          f"{SWEPT_WINDOWS['Stress4096']}, phase 17"}},
+                       states=stages["states"], **sweeps["usage"][STAGE_KERNELS[name]])
+          for name in STAGE_KERNELS),
     ]}
     print(f"race gate: {race['routes']} resident routes, {RACE_REPS} repetitions each and the "
           f"delayed build bit-identical; compute-sanitizer: {json.dumps(race['sanitizer'])}")

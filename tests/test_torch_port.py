@@ -387,6 +387,89 @@ def test_cuda_iterblock_grid_matches_plain(cuda_grid):
         assert float(((outs_p[i] - outs_k[i]).abs() / (outs_p[i].abs() + 1.0)).max()) <= 1e-5
 
 
+GRID_STAGE_STATES = ("pile", "fallen", "static", "nan velocity")
+
+
+def grid_stage_world(cuda_grid, name):
+    """The grid pile of ``cuda_grid`` as it is, with three dynamic bodies
+    below ``fall_freeze_y``, with every body static, or with a NaN and an
+    infinite velocity."""
+    w, p, cap = cuda_grid
+    b = w.bodies
+    ids = torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[:3]
+    if name == "fallen":
+        pos = b.pos.clone()
+        pos.view(3, -1)[1, ids] = p.fall_freeze_y - 1.0
+        b = b.replace(pos=pos)
+    if name == "static":
+        b = b.replace(inv_mass=torch.zeros_like(b.inv_mass))
+    if name == "nan velocity":
+        lv, av = b.linvel.clone(), b.angvel.clone()
+        lv.view(3, -1)[0, ids[0]] = float("nan")
+        av.view(3, -1)[1, ids[1]] = float("inf")
+        b = b.replace(linvel=lv, angvel=av)
+    return w.replace(bodies=b)
+
+
+def same_bits(a, b):
+    """Equal tensors, floats as their 32-bit words (a NaN matches a NaN)."""
+    if a.dtype == torch.float32:
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return torch.equal(na, nb) and torch.equal(torch.where(na, 0, a.view(torch.int32)),
+                                                   torch.where(nb, 0, b.view(torch.int32)))
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRID_STAGE_STATES)
+def test_cuda_grid_stages_match_plain(cuda_grid, name):
+    """The grid step's stage kernels (csrc/grid_stages.cu) against their
+    plain versions on the same card tensors: k_grid_gates' flags, dev_raw,
+    v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative;
+    k_grid_predict's outputs bit for bit; k_grid_finalize's bodies and
+    latches bit for bit, its diagnostics lanes identical but the speeds
+    (2, 3: torch's vector_norm) within 1e-6 relative; one count a call."""
+    _w, p, cap = cuda_grid
+    w = grid_stage_world(cuda_grid, name)
+    solver_grid.reset_launch_counts()
+    wk, gk = solver_grid.grid_gates(w, p)
+    wp, gp = solver_grid.grid_gates_plain(w, p)
+    assert same_bits(gk[[0, 1, 2, 4, 5]], gp[[0, 1, 2, 4, 5]]), (gk, gp)
+    assert abs(float(gk[3]) - float(gp[3])) <= 1e-6 + 1e-5 * abs(float(gp[3]))
+    for f in ("linvel", "angvel", "inv_mass"):
+        assert same_bits(getattr(wk.bodies, f), getattr(wp.bodies, f)), f
+    b = wp.bodies
+    pk = solver_grid.grid_predict(b, w.contacts.stick, p)
+    pp = solver_grid.grid_predict_plain(b, w.contacts.stick, p)
+    for i, (x, y) in enumerate(zip(pk, pp)):
+        assert same_bits(x, y), i
+    if name == "nan velocity":
+        assert int(pk[6]) == 2
+    lv, av, ip, iq, ps, stickf, san = pp
+    bp = w.bp
+    c, kept, once, dropped = solver_grid.collide_grid(w.contacts, bp.nb, bp.key, bp.thr, b, p,
+                                                      stickf=stickf)
+    spec = solver_grid.grid_specs(p, p.iterations, p.lhs_rebuild_every, cap.grid_residency)[0]
+    pos, quat, lam, pen, stick, sep = solver_grid.iterblock_grid(
+        p, solver_grid.pick_gb(b.g), spec, c, b, ps, iq, c.lam, c.penalty, c.stick, ip, iq)
+    if name == "nan velocity":
+        pos.view(3, -1)[2, 7] = float("nan")
+    c = c.replace(lam=lam, penalty=pen, stick=stick)
+    args = (w, b, c, pos, quat, lv, av, san, sep, once, kept, bp.cand, dropped, p)
+    fk, fp = solver_grid.grid_finalize(*args), solver_grid.grid_finalize_plain(*args)
+    for f in ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel"):
+        assert same_bits(getattr(fk.bodies, f), getattr(fp.bodies, f)), f
+    assert torch.equal(fk.contacts.stick, fp.contacts.stick)
+    dk, dp = fk.diagnostics.vec, fp.diagnostics.vec
+    lanes = [0, 1, 4] + list(range(5, 16))
+    assert torch.equal(dk[lanes], dp[lanes]), (dk, dp)
+    assert float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max()) <= 1e-6
+    if name == "nan velocity":
+        assert float(dk[8]) >= 3
+    assert (solver_grid.grid_gates.launches, solver_grid.grid_predict.launches,
+            solver_grid.grid_finalize.launches) == (1, 1, 1)
+
+
 def rel_err(a, b):
     return float(((a - b).abs() / (a.abs() + 1.0)).max())
 
