@@ -391,3 +391,211 @@ __device__ __forceinline__ float dev_mm_block(const float4* dv, int n, V3 t, flo
     for (int w = 1; w < (int)(blockDim.x >> 5); ++w) dev_mm = fmaxf(dev_mm, sh_dev[w]);
   return dev_mm;
 }
+
+// ---------------------------------------------------------------------------
+// The stage kernels' shared code (grid_stages.cu: the grid step's gates,
+// prediction and finalize; fused_stages.cu: the fused path's gates and its
+// ballistic step).  Each repeats a torch stage of the port statement for
+// statement: the fall-freeze (solver.freeze_fallen), the prediction of one
+// body (solver.predict) and the velocities of finalize (solver.finalize).
+// ---------------------------------------------------------------------------
+
+#define STAGE_THREADS 256
+#define STAGE_WARPS (STAGE_THREADS / 32)
+
+// The orders of torch's CUDA reductions over a row's few components, which
+// depend on the row's layout: over a component-major (N, C) view (strides
+// (1, N)) one thread adds the components in order; over a contiguous (N, 3)
+// row, threads pair the components by shuffles, (x^2 + z^2) + y^2.
+//   quat_normalize's torch.sum(q * q, dim=-1) (q component-major):
+#define QUAT_MSQ(q) ((((q).x * (q).x + (q).y * (q).y) + (q).z * (q).z) + (q).w * (q).w)
+//   vector_norm of a component-major row (the angular clamp's angvel, the
+//   finalized linvel):
+#define VNORM3(v) sqrtf(((v).x * (v).x + (v).y * (v).y) + (v).z * (v).z)
+//   vector_norm of a contiguous row (the finalized angvel, built by
+//   quat_mul's torch.stack):
+#define VNORM3_XZY(v) sqrtf(((v).x * (v).x + (v).z * (v).z) + (v).y * (v).y)
+
+// torch.max's max: NaN if either is NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+__device__ __forceinline__ bool finite4(Q4 q) {
+  return isfinite(q.x) && isfinite(q.y) && isfinite(q.z) && isfinite(q.w);
+}
+
+// solver.freeze_fallen for one body: a dynamic body below freeze_y becomes
+// static with zeroed velocities (torch.where(frozen, 0.0, x)).
+__device__ __forceinline__ void freeze_body(V3 pos, float freeze_y, V3* lv, V3* av, float* im) {
+  if (*im > F(0.0) && pos.y < freeze_y) {
+    *lv = v3(F(0.0), F(0.0), F(0.0));
+    *av = *lv;
+    *im = F(0.0);
+  }
+}
+
+// solver.predict for one body: the sanitized velocities (the angular one
+// clamped first), the inertial pose, the accel-weighted warm start and the
+// rows sanitized (0-3).
+struct Predicted {
+  V3 lv, av;   // sanitized linvel, clamped and sanitized angvel
+  V3 ip;       // inertial position
+  Q4 iq;       // inertial quaternion (also the iterations' start)
+  V3 ps;       // warm start position
+  int san;
+};
+
+__device__ __forceinline__ Predicted predict_one(V3 pos0, Q4 q0, V3 lv, V3 av, V3 prev_lv, bool dyn,
+                                                 const KParams& p) {
+  Predicted r;
+  const float dt = p.dt;
+  r.san = 0;
+  if (!finite3(lv)) {
+    lv = v3(F(0.0), F(0.0), F(0.0));
+    ++r.san;
+  }
+  // _clamp_angular: w * where(speed > max, max / clamp(speed, 1e-12), 1)
+  const float speed = VNORM3(av);
+  const float scale = speed > p.max_angular_speed
+                          ? p.max_angular_speed / fmaxf(speed, F(1e-12)) : F(1.0);
+  av = vscale(av, scale);
+  if (!finite3(av)) {
+    av = v3(F(0.0), F(0.0), F(0.0));
+    ++r.san;
+  }
+  // pos0 + linvel * dt + gravity * dt * dt
+  const V3 g2 = v3((p.grav[0] * dt) * dt, (p.grav[1] * dt) * dt, (p.grav[2] * dt) * dt);
+  r.ip = dyn ? vadd(vadd(pos0, vscale(lv, dt)), g2) : pos0;
+  // quat_normalize(quat0 + quat_mul(omega_q, quat0) * (0.5 * dt))
+  const Q4 qm = qmul(Q4{av.x, av.y, av.z, F(0.0)}, q0);
+  const Q4 q = Q4{q0.x + qm.x * p.half_dt, q0.y + qm.y * p.half_dt, q0.z + qm.z * p.half_dt,
+                  q0.w + qm.w * p.half_dt};
+  const float msq = QUAT_MSQ(q);
+  const bool bad = msq < F(1e-6);
+  const float safe = sqrtf(bad ? F(1.0) : msq);
+  r.iq = bad ? Q4{F(0.0), F(0.0), F(0.0), F(1.0)}
+             : Q4{q.x / safe, q.y / safe, q.z / safe, q.w / safe};
+  if (!dyn) r.iq = q0;
+  float aw = F(0.0);
+  if (p.has_gravity != F(0.0)) {
+    const V3 acc = vsub(lv, prev_lv);  // cm.div(linvel - prev_linvel, dt)
+    const V3 accel = v3(acc.x / dt, acc.y / dt, acc.z / dt);
+    const float projected = (accel.x * p.ghat[0] + accel.y * p.ghat[1]) + accel.z * p.ghat[2];
+    aw = clipf(projected / p.g_len, F(0.0), F(1.0));
+    if (!isfinite(aw)) aw = F(0.0);
+  }
+  // pos0 + (linvel * dt + gravity * (accel_weight * dt * dt)) * dynf
+  const float dynf = dyn ? F(1.0) : F(0.0);
+  const float awdt2 = (aw * dt) * dt;
+  r.ps = v3(pos0.x + (lv.x * dt + p.grav[0] * awdt2) * dynf,
+            pos0.y + (lv.y * dt + p.grav[1] * awdt2) * dynf,
+            pos0.z + (lv.z * dt + p.grav[2] * awdt2) * dynf);
+  if (!finite3(r.ps)) {
+    r.ps = pos0;
+    ++r.san;
+  }
+  r.lv = lv;
+  r.av = av;
+  return r;
+}
+
+// solver.finalize's velocities of one body from its final pose (pf, qf)
+// and its start (pos0, q0): damped, a static body keeping its own (lv0,
+// av0), each sanitized (adds to *san).
+__device__ __forceinline__ void finalize_velocities(V3 pf, Q4 qf, V3 pos0, Q4 q0, V3 lv0, V3 av0,
+                                                    bool dyn, const KParams& p, V3* nl_out,
+                                                    V3* na_out, int* san) {
+  const float dt = p.dt;
+  // cm.div(pos_f - pos0, dt) * linear_damping
+  const V3 dp = vsub(pf, pos0);
+  V3 nl = vscale(v3(dp.x / dt, dp.y / dt, dp.z / dt), p.linear_damping);
+  // quat_vec_doubled(quat_f (x) conj(quat0)) / dt * angular_damping
+  const Q4 dq = qmul(qf, qconj(q0));
+  const float sign = dq.w < F(0.0) ? F(-1.0) : F(1.0);
+  const V3 vd = v3((F(2.0) * dq.x) * sign, (F(2.0) * dq.y) * sign, (F(2.0) * dq.z) * sign);
+  V3 na = vscale(v3(vd.x / dt, vd.y / dt, vd.z / dt), p.angular_damping);
+  if (!dyn) {
+    nl = lv0;
+    na = av0;
+  }
+  if (!finite3(nl)) {
+    nl = v3(F(0.0), F(0.0), F(0.0));
+    ++*san;
+  }
+  if (!finite3(na)) {
+    na = v3(F(0.0), F(0.0), F(0.0));
+    ++*san;
+  }
+  *nl_out = nl;
+  *na_out = na;
+}
+
+// The ticket fold of a stage kernel's lanes: NF float maxima (max_nan,
+// from 0) and NI int sums over every thread of the launch.  Called by every
+// thread of every block (STAGE_THREADS a block) with its values in fv / iv.
+// Each block folds its warps (a shuffle tree, then the warps in order, a
+// thread a quantity), writes its partials, fences and takes a ticket; the
+// last block folds every block's partials in index order (warp w takes
+// quantities w, w + STAGE_WARPS, ...: lane l over blocks l, l + 32, ...,
+// then a shuffle tree) and returns true with the totals in shf[k][0] /
+// shi[k][0]; every other block returns false.  The caller's last block
+// writes the lanes and resets the ticket to 0.  Integer sums are exact in
+// any order and the maxima propagate NaN as torch.max does.
+template <int NF, int NI>
+__device__ __forceinline__ bool ticket_fold(float (&fv)[NF], int (&iv)[NI],
+                                            float (&shf)[NF][STAGE_WARPS],
+                                            int (&shi)[NI][STAGE_WARPS], bool& sh_last,
+                                            float* part_f, int* part_i, unsigned int* ticket) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int k = 0; k < NF; ++k) fv[k] = max_nan(fv[k], __shfl_xor_sync(FULL_MASK, fv[k], off));
+    for (int k = 0; k < NI; ++k) iv[k] += __shfl_xor_sync(FULL_MASK, iv[k], off);
+  }
+  if (lane == 0) {
+    for (int k = 0; k < NF; ++k) shf[k][warp] = fv[k];
+    for (int k = 0; k < NI; ++k) shi[k][warp] = iv[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < NF + NI) {  // a thread a quantity, the warps in order
+    const int k = threadIdx.x;
+    if (k < NF) {
+      float v = shf[k][0];
+      for (int w = 1; w < STAGE_WARPS; ++w) v = max_nan(v, shf[k][w]);
+      RACE_DELAY();
+      part_f[blockIdx.x * NF + k] = v;
+    } else {
+      int v = 0;
+      for (int w = 0; w < STAGE_WARPS; ++w) v += shi[k - NF][w];
+      RACE_DELAY();
+      part_i[blockIdx.x * NI + k - NF] = v;
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    RACE_DELAY();
+    sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return false;
+  __threadfence();
+  for (int k = warp; k < NF + NI; k += STAGE_WARPS) {
+    float fvk = F(0.0);
+    int ivk = 0;
+    for (int b = lane; b < (int)gridDim.x; b += 32) {
+      if (k < NF) fvk = max_nan(fvk, __ldcg(part_f + b * NF + k));
+      else ivk += __ldcg(part_i + b * NI + k - NF);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      fvk = max_nan(fvk, __shfl_xor_sync(FULL_MASK, fvk, off));
+      ivk += __shfl_xor_sync(FULL_MASK, ivk, off);
+    }
+    if (lane == 0) {
+      if (k < NF) shf[k][0] = fvk;
+      else shi[k - NF][0] = ivk;
+    }
+  }
+  __syncthreads();
+  return true;
+}

@@ -19,9 +19,11 @@
 // plain version's bits.  Two reductions of the plain version are torch's
 // own: the quaternion's squared norm in quat_normalize (torch.sum over the
 // four components) and the speeds' vector_norm; QUAT_MSQ, VNORM3 and
-// VNORM3_XZY below write the order in which torch's CUDA reductions add
-// those terms (read on the card; the speed lanes are held to 1e-6 relative
-// where a torch build orders them otherwise).
+// VNORM3_XZY (avbd_common.cuh, with the freeze, the prediction and the
+// finalize velocities of one body and the ticket fold, which
+// fused_stages.cu shares) write the order in which torch's CUDA reductions
+// add those terms (read on the card; the speed lanes are held to 1e-6
+// relative where a torch build orders them otherwise).
 //
 // What bounds them on the H100: launch latency.  Their bytes at N = 5120
 // are ~0.4 MB (gates), ~2.5 MB (predict, most of it the stick latches'
@@ -60,31 +62,6 @@
 // CONTROL_RESET in lanes 11-15.
 #include "avbd_common.cuh"
 
-#define GS_THREADS 256
-#define GS_WARPS (GS_THREADS / 32)
-
-// The orders of torch's CUDA reductions over a row's few components, which
-// depend on the row's layout: over a component-major (N, C) view (strides
-// (1, N)) one thread adds the components in order; over a contiguous (N, 3)
-// row, threads pair the components by shuffles, (x^2 + z^2) + y^2.
-//   quat_normalize's torch.sum(q * q, dim=-1) (q component-major):
-#define QUAT_MSQ(q) ((((q).x * (q).x + (q).y * (q).y) + (q).z * (q).z) + (q).w * (q).w)
-//   vector_norm of a component-major row (the angular clamp's angvel, the
-//   finalized linvel):
-#define VNORM3(v) sqrtf(((v).x * (v).x + (v).y * (v).y) + (v).z * (v).z)
-//   vector_norm of a contiguous row (the finalized angvel, built by
-//   quat_mul's torch.stack):
-#define VNORM3_XZY(v) sqrtf(((v).x * (v).x + (v).z * (v).z) + (v).y * (v).y)
-
-// torch.max's max: NaN if either is NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
-
-__device__ __forceinline__ bool finite4(Q4 q) {
-  return isfinite(q.x) && isfinite(q.y) && isfinite(q.z) && isfinite(q.w);
-}
-
 // ---------------------------------------------------------------------------
 // k_grid_gates
 // ---------------------------------------------------------------------------
@@ -114,25 +91,19 @@ struct GatesArgs {
   float calm_th2;         // min(impact_speed_min, lhs_stale_speed_max) ** 2
 };
 
-__global__ void __launch_bounds__(GS_THREADS) k_grid_gates(GatesArgs a) {
-  __shared__ float sh[LANE_PARTS][GS_THREADS];
+__global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
+  __shared__ float sh[LANE_PARTS][STAGE_THREADS];
   __shared__ float sh_fold[LANE_PARTS];
-  __shared__ float sh_dev[GS_WARPS];
+  __shared__ float sh_dev[STAGE_WARPS];
   __shared__ bool sh_last;
   const int n = a.n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * GS_THREADS + threadIdx.x;
+  const int i = blockIdx.x * STAGE_THREADS + threadIdx.x;
   if (i < n) {
     V3 pos = ld3(a.pos, i, n), lv = ld3(a.lv, i, n), av = ld3(a.av, i, n);
     float im = a.inv_mass[i];
     if (a.lv_out != nullptr) {
-      // solver.freeze_fallen: torch.where(frozen, 0.0, x)
-      const bool frozen = im > F(0.0) && pos.y < a.freeze_y;
-      if (frozen) {
-        lv = v3(F(0.0), F(0.0), F(0.0));
-        av = lv;
-        im = F(0.0);
-      }
+      freeze_body(pos, a.freeze_y, &lv, &av, &im);
       st3(a.lv_out, i, n, lv);
       st3(a.av_out, i, n, av);
       a.im_out[i] = im;
@@ -156,7 +127,7 @@ __global__ void __launch_bounds__(GS_THREADS) k_grid_gates(GatesArgs a) {
   __syncthreads();
   // One thread a (group, partial): the group's bodies in order.  Partial 1
   // (v^2) folds with max_nan, 3-7 as K2 folds them.
-  const int groups = GS_THREADS / LANES_WARPS;
+  const int groups = STAGE_THREADS / LANES_WARPS;
   if (threadIdx.x < groups * 6) {
     const int g = threadIdx.x / 6, j = threadIdx.x % 6;
     const int k = j == 0 ? 1 : j + 2;
@@ -235,74 +206,26 @@ struct PredictArgs {
 
 __device__ __forceinline__ int predict_body(const PredictArgs& a, const KParams& p, int i) {
   const int n = a.n;
-  const float dt = p.dt;
-  int san = 0;
-  V3 lv = ld3(a.lv, i, n);
-  if (!finite3(lv)) {
-    lv = v3(F(0.0), F(0.0), F(0.0));
-    ++san;
-  }
-  // _clamp_angular: w * where(speed > max, max / clamp(speed, 1e-12), 1)
-  V3 av = ld3(a.av, i, n);
-  const float speed = VNORM3(av);
-  const float scale = speed > p.max_angular_speed
-                          ? p.max_angular_speed / fmaxf(speed, F(1e-12)) : F(1.0);
-  av = vscale(av, scale);
-  if (!finite3(av)) {
-    av = v3(F(0.0), F(0.0), F(0.0));
-    ++san;
-  }
-  const bool dyn = a.inv_mass[i] > F(0.0);
-  const V3 pos0 = ld3(a.pos, i, n);
-  const Q4 q0 = ld4(a.quat, i, n);
-  // pos0 + linvel * dt + gravity * dt * dt
-  const V3 g2 = v3((p.grav[0] * dt) * dt, (p.grav[1] * dt) * dt, (p.grav[2] * dt) * dt);
-  const V3 ip = dyn ? vadd(vadd(pos0, vscale(lv, dt)), g2) : pos0;
-  // quat_normalize(quat0 + quat_mul(omega_q, quat0) * (0.5 * dt))
-  const Q4 qm = qmul(Q4{av.x, av.y, av.z, F(0.0)}, q0);
-  const Q4 q = Q4{q0.x + qm.x * p.half_dt, q0.y + qm.y * p.half_dt, q0.z + qm.z * p.half_dt,
-                  q0.w + qm.w * p.half_dt};
-  const float msq = QUAT_MSQ(q);
-  const bool bad = msq < F(1e-6);
-  const float safe = sqrtf(bad ? F(1.0) : msq);
-  Q4 iq = bad ? Q4{F(0.0), F(0.0), F(0.0), F(1.0)}
-              : Q4{q.x / safe, q.y / safe, q.z / safe, q.w / safe};
-  if (!dyn) iq = q0;
-  float aw = F(0.0);
-  if (p.has_gravity != F(0.0)) {
-    const V3 acc = vsub(lv, ld3(a.prev_lv, i, n));  // cm.div(linvel - prev_linvel, dt)
-    const V3 accel = v3(acc.x / dt, acc.y / dt, acc.z / dt);
-    const float projected = (accel.x * p.ghat[0] + accel.y * p.ghat[1]) + accel.z * p.ghat[2];
-    aw = clipf(projected / p.g_len, F(0.0), F(1.0));
-    if (!isfinite(aw)) aw = F(0.0);
-  }
-  // pos0 + (linvel * dt + gravity * (accel_weight * dt * dt)) * dynf
-  const float dynf = dyn ? F(1.0) : F(0.0);
-  const float awdt2 = (aw * dt) * dt;
-  V3 ps = v3(pos0.x + (lv.x * dt + p.grav[0] * awdt2) * dynf,
-             pos0.y + (lv.y * dt + p.grav[1] * awdt2) * dynf,
-             pos0.z + (lv.z * dt + p.grav[2] * awdt2) * dynf);
-  if (!finite3(ps)) {
-    ps = pos0;
-    ++san;
-  }
-  st3(a.lv_out, i, n, lv);
-  st3(a.av_out, i, n, av);
-  st3(a.ip, i, n, ip);
-  st4(a.iq, i, n, iq);
-  st3(a.ps, i, n, ps);
-  return san;
+  const Predicted r = predict_one(ld3(a.pos, i, n), ld4(a.quat, i, n), ld3(a.lv, i, n),
+                                  ld3(a.av, i, n), ld3(a.prev_lv, i, n),
+                                  a.inv_mass[i] > F(0.0), p);
+  st3(a.lv_out, i, n, r.lv);
+  st3(a.av_out, i, n, r.av);
+  st3(a.ip, i, n, r.ip);
+  st4(a.iq, i, n, r.iq);
+  st3(a.ps, i, n, r.ps);
+  return r.san;
 }
 
 // Blocks 0 .. body_blocks - 1 take a body a thread and fold the sanitize
 // count (their ticket); every block converts a latch a thread.
-__global__ void __launch_bounds__(GS_THREADS) k_grid_predict(PredictArgs a, KParams p) {
-  __shared__ int sh[GS_WARPS];
+__global__ void __launch_bounds__(STAGE_THREADS) k_grid_predict(PredictArgs a, KParams p) {
+  __shared__ int sh[STAGE_WARPS];
   __shared__ bool sh_last;
-  const int t = blockIdx.x * GS_THREADS + threadIdx.x;
+  const int t = blockIdx.x * STAGE_THREADS + threadIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (t < a.planes * a.n) a.stickf[t] = a.stick[t] ? F(1.0) : F(0.0);
-  const int body_blocks = (a.n + GS_THREADS - 1) / GS_THREADS;
+  const int body_blocks = (a.n + STAGE_THREADS - 1) / STAGE_THREADS;
   if ((int)blockIdx.x >= body_blocks) return;
   int san = t < a.n ? predict_body(a, p, t) : 0;
   for (int off = 16; off > 0; off >>= 1) san += __shfl_xor_sync(FULL_MASK, san, off);
@@ -310,7 +233,7 @@ __global__ void __launch_bounds__(GS_THREADS) k_grid_predict(PredictArgs a, KPar
   __syncthreads();
   if (threadIdx.x == 0) {
     int s = 0;
-    for (int w = 0; w < GS_WARPS; ++w) s += sh[w];
+    for (int w = 0; w < STAGE_WARPS; ++w) s += sh[w];
     RACE_DELAY();
     a.part[blockIdx.x] = s;
     __threadfence();
@@ -375,13 +298,12 @@ struct FinalizeArgs {
   int d;
 };
 
-__global__ void __launch_bounds__(GS_THREADS) k_grid_finalize(FinalizeArgs a, KParams p) {
-  __shared__ float shf[FIN_F][GS_WARPS];
-  __shared__ int shi[FIN_I][GS_WARPS];
+__global__ void __launch_bounds__(STAGE_THREADS) k_grid_finalize(FinalizeArgs a, KParams p) {
+  __shared__ float shf[FIN_F][STAGE_WARPS];
+  __shared__ int shi[FIN_I][STAGE_WARPS];
   __shared__ bool sh_last;
   const int n = a.n;
-  const int t = blockIdx.x * GS_THREADS + threadIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * STAGE_THREADS + threadIdx.x;
   float fv[FIN_F] = {F(0.0), F(0.0), F(0.0), F(0.0), F(0.0)};
   int iv[FIN_I] = {0, 0, 0, 0, 0};
   if (t < n) {  // body t: the pose sanitizes and finalize's velocities
@@ -400,27 +322,9 @@ __global__ void __launch_bounds__(GS_THREADS) k_grid_finalize(FinalizeArgs a, KP
       ++san;
     }
     const bool dyn = a.inv_mass[i] > F(0.0);
-    const float dt = p.dt;
-    // cm.div(pos_f - pos0, dt) * linear_damping
-    const V3 dp = vsub(pf, pos0);
-    V3 nl = vscale(v3(dp.x / dt, dp.y / dt, dp.z / dt), p.linear_damping);
-    // quat_vec_doubled(quat_f (x) conj(quat0)) / dt * angular_damping
-    const Q4 dq = qmul(qf, qconj(q0));
-    const float sign = dq.w < F(0.0) ? F(-1.0) : F(1.0);
-    const V3 vd = v3((F(2.0) * dq.x) * sign, (F(2.0) * dq.y) * sign, (F(2.0) * dq.z) * sign);
-    V3 na = vscale(v3(vd.x / dt, vd.y / dt, vd.z / dt), p.angular_damping);
-    if (!dyn) {
-      nl = ld3(a.lv0, i, n);
-      na = ld3(a.av0, i, n);
-    }
-    if (!finite3(nl)) {
-      nl = v3(F(0.0), F(0.0), F(0.0));
-      ++san;
-    }
-    if (!finite3(na)) {
-      na = v3(F(0.0), F(0.0), F(0.0));
-      ++san;
-    }
+    V3 nl, na;
+    finalize_velocities(pf, qf, pos0, q0, ld3(a.lv0, i, n), ld3(a.av0, i, n), dyn, p, &nl, &na,
+                        &san);
     const float dynf = dyn ? F(1.0) : F(0.0);
     fv[2] = VNORM3(nl) * dynf;
     fv[3] = VNORM3_XZY(na) * dynf;
@@ -450,56 +354,7 @@ __global__ void __launch_bounds__(GS_THREADS) k_grid_finalize(FinalizeArgs a, KP
     iv[1] = once && cnt > 0 ? 1 : 0;
   }
   if (t < a.d * n) iv[4] = (int)a.kept[t];
-  for (int off = 16; off > 0; off >>= 1) {
-    for (int k = 0; k < FIN_F; ++k) fv[k] = max_nan(fv[k], __shfl_xor_sync(FULL_MASK, fv[k], off));
-    for (int k = 0; k < FIN_I; ++k) iv[k] += __shfl_xor_sync(FULL_MASK, iv[k], off);
-  }
-  if (lane == 0) {
-    for (int k = 0; k < FIN_F; ++k) shf[k][warp] = fv[k];
-    for (int k = 0; k < FIN_I; ++k) shi[k][warp] = iv[k];
-  }
-  __syncthreads();
-  if (threadIdx.x < FIN_F + FIN_I) {  // a thread a quantity, the warps in order
-    const int k = threadIdx.x;
-    if (k < FIN_F) {
-      float v = shf[k][0];
-      for (int w = 1; w < GS_WARPS; ++w) v = max_nan(v, shf[k][w]);
-      RACE_DELAY();
-      a.part_f[blockIdx.x * FIN_F + k] = v;
-    } else {
-      int v = 0;
-      for (int w = 0; w < GS_WARPS; ++w) v += shi[k - FIN_F][w];
-      RACE_DELAY();
-      a.part_i[blockIdx.x * FIN_I + k - FIN_F] = v;
-    }
-    __threadfence();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    RACE_DELAY();
-    sh_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!sh_last) return;
-  __threadfence();
-  // Warp w folds quantities w, w + GS_WARPS: lane l over blocks l, l + 32, ...
-  for (int k = warp; k < FIN_F + FIN_I; k += GS_WARPS) {
-    float fvk = F(0.0);
-    int ivk = 0;
-    for (int b = lane; b < (int)gridDim.x; b += 32) {
-      if (k < FIN_F) fvk = max_nan(fvk, __ldcg(a.part_f + b * FIN_F + k));
-      else ivk += __ldcg(a.part_i + b * FIN_I + k - FIN_F);
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      fvk = max_nan(fvk, __shfl_xor_sync(FULL_MASK, fvk, off));
-      ivk += __shfl_xor_sync(FULL_MASK, ivk, off);
-    }
-    if (lane == 0) {
-      if (k < FIN_F) shf[k][0] = fvk;
-      else shi[k - FIN_F][0] = ivk;
-    }
-  }
-  __syncthreads();
+  if (!ticket_fold(fv, iv, shf, shi, sh_last, a.part_f, a.part_i, a.ticket)) return;
   if (threadIdx.x == 0) {
     float* dg = a.diag;
     for (int k = 0; k < FIN_F; ++k) dg[k] = shf[k][0];
@@ -551,8 +406,8 @@ int avbd_grid_gates(void** ptrs, int n, float freeze_y, float half_margin, float
   a.margin = margin;
   a.th2 = th2;
   a.calm_th2 = calm_th2;
-  const int blocks = (n + GS_THREADS - 1) / GS_THREADS;
-  k_grid_gates<<<blocks, GS_THREADS, 0, (cudaStream_t)stream>>>(a);
+  const int blocks = (n + STAGE_THREADS - 1) / STAGE_THREADS;
+  k_grid_gates<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -581,8 +436,8 @@ int avbd_grid_predict(void** ptrs, const float* params, int n, int planes, void*
   a.planes = planes;
   KParams p = *(const KParams*)params;
   const int total = planes * n > n ? planes * n : n;
-  const int blocks = (total + GS_THREADS - 1) / GS_THREADS;
-  k_grid_predict<<<blocks, GS_THREADS, 0, (cudaStream_t)stream>>>(a, p);
+  const int blocks = (total + STAGE_THREADS - 1) / STAGE_THREADS;
+  k_grid_predict<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
@@ -631,8 +486,8 @@ int avbd_grid_finalize(void** ptrs, const float* params, int n, int dc, int d, v
   KParams p = *(const KParams*)params;
   const int rows = dc > d ? dc : d;
   const int total = (rows > 1 ? rows : 1) * n;
-  const int blocks = (total + GS_THREADS - 1) / GS_THREADS;
-  k_grid_finalize<<<blocks, GS_THREADS, 0, (cudaStream_t)stream>>>(a, p);
+  const int blocks = (total + STAGE_THREADS - 1) / STAGE_THREADS;
+  k_grid_finalize<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 

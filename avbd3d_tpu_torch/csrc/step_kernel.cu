@@ -713,7 +713,7 @@ __global__ void __launch_bounds__(BLOCK) k_collide(Dims dm, Cache old, Cache c, 
     m_ra = v3(old.r_a[(j * 3 + 0) * S + ms], old.r_a[(j * 3 + 1) * S + ms], old.r_a[(j * 3 + 2) * S + ms]);
     m_rb = v3(old.r_b[(j * 3 + 0) * S + ms], old.r_b[(j * 3 + 1) * S + ms], old.r_b[(j * 3 + 2) * S + ms]);
     m_mid = vscale(vadd(vadd(pa, qrotate(qa, m_ra)), vadd(pb, qrotate(qb, m_rb))), F(0.5));
-    m_stick = old.stick[j * S + ms] > F(0.5);
+    m_stick = old.stick_b != nullptr ? old.stick_b[j * S + ms] != 0 : old.stick[j * S + ms] > F(0.5);
     for (int k = 0; k < 3; ++k) {
       m_lam[k] = old.lam[(j * 3 + k) * S + ms];
       m_pen[k] = old.pen[(j * 3 + k) * S + ms];
@@ -1815,10 +1815,15 @@ __global__ void __launch_bounds__(BLOCK) k_joint_ema(Dims dm, JointRows jr, Work
 // Phase 5: sanitize + velocities, one thread per body.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(BLOCK) k_final_body(Dims dm, Bodies b, Work w, KParams p) {
+// With w.stick_out (K1) it also stores the body's final latches (``stick``,
+// 0 / 1 floats) as the new cache's bools.
+__global__ void __launch_bounds__(BLOCK) k_final_body(Dims dm, Bodies b, Work w, KParams p,
+                                                      const float* stick) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= dm.n) return;
   const int n = dm.n;
+  if (w.stick_out != nullptr)
+    for (int q = 0; q < 4 * dm.dc; ++q) w.stick_out[q * n + i] = stick[q * n + i] > F(0.5) ? 1 : 0;
   bool dyn = b.inv_mass[i] > F(0.0);
   int san = 0;
   V3 pos0 = ld3(b.pos, i, n);
@@ -1851,6 +1856,13 @@ __global__ void __launch_bounds__(BLOCK) k_final_body(Dims dm, Bodies b, Work w,
 // Phase 6: diagnostics + control lanes, one block.
 // ---------------------------------------------------------------------------
 
+// Row 0 of w.diag holds the kernel's lanes: 0-7 the diagnostics, 8
+// sanitized, 9 kept directed slots, 10-14 the control lanes, 15 dropped
+// manifolds.  With w.cand (K1 on the fused path), row 1 holds the same
+// numbers in the state layout (state.Diagnostics; the reference's
+// solver_tpu.py:1142-1152): 0-8 as row 0, 9 the pair overflow cand - kept
+// (an int32 difference, as the reference takes it), 10 the dropped
+// manifolds, 11-15 the control lanes.  Every other entry is 0.
 // ``with_ctrl`` 0 (K4): lanes 0-8 only, the rest 0, no control lanes.
 __global__ void __launch_bounds__(CTRL_THREADS) k_final_reduce(Dims dm, Cache c, Bodies b, Work w, KParams p,
                                                                CtrlIn ctrl, int with_ctrl) {
@@ -1897,12 +1909,21 @@ __global__ void __launch_bounds__(CTRL_THREADS) k_final_reduce(Dims dm, Cache c,
   }
   for (int j = threadIdx.x; j < 8 * 128; j += blockDim.x) {
     float val = F(0.0);
-    if (j < 8) val = v[j];
-    else if (j == 8) val = (float)w.counters[2];
-    else if (!with_ctrl) val = F(0.0);
-    else if (j == 9) val = (float)w.counters[0];
-    else if (j < 15) val = ctrl_out[j - 10];
-    else if (j == 15) val = (float)w.counters[1];
+    if (j < 16) {  // row 0, the kernel's lanes
+      if (j < 8) val = v[j];
+      else if (j == 8) val = (float)w.counters[2];
+      else if (!with_ctrl) val = F(0.0);
+      else if (j == 9) val = (float)w.counters[0];
+      else if (j < 15) val = ctrl_out[j - 10];
+      else val = (float)w.counters[1];
+    } else if (j >= 128 && j < 144 && w.cand != nullptr) {  // row 1, the state layout
+      const int k = j - 128;
+      if (k < 8) val = v[k];
+      else if (k == 8) val = (float)w.counters[2];
+      else if (k == 9) val = (float)(*w.cand - w.counters[0]);
+      else if (k == 10) val = (float)w.counters[1];
+      else val = ctrl_out[k - 11];
+    }
     w.diag[j] = val;
   }
 }
@@ -2097,7 +2118,7 @@ static JointRows rows_from(void** ptrs, int dj, int ds, int n_colors) {
   jr.dj = dj;
   jr.ds = ds;
   jr.n_colors = n_colors;
-  void** j = ptrs + 54;
+  void** j = ptrs + 56;
   jr.j_other = (const int*)j[0];
   jr.j_world = (const int*)j[1];
   jr.j_side = (const int*)j[2];
@@ -2110,7 +2131,7 @@ static JointRows rows_from(void** ptrs, int dj, int ds, int n_colors) {
   jr.j_lam_in = (const float*)j[9];
   jr.j_pen_in = (const float*)j[10];
   jr.color = (const int*)j[11];
-  void** s = ptrs + 66;
+  void** s = ptrs + 68;
   jr.s_other = (const int*)s[0];
   jr.s_world = (const int*)s[1];
   jr.s_side = (const int*)s[2];
@@ -2119,9 +2140,9 @@ static JointRows rows_from(void** ptrs, int dj, int ds, int n_colors) {
   jr.s_rrest = (const float*)s[5];
   jr.s_rstiff = (const float*)s[6];
   jr.s_pen_in = (const float*)s[7];
-  jr.j_lam = (float*)ptrs[74];
-  jr.j_pen = (float*)ptrs[75];
-  jr.s_pen = (float*)ptrs[76];
+  jr.j_lam = (float*)ptrs[76];
+  jr.j_pen = (float*)ptrs[77];
+  jr.s_pen = (float*)ptrs[78];
   return jr;
 }
 
@@ -2193,30 +2214,32 @@ static cudaError_t solve_phases(const SweepPlan& pl, Dims dm, Cache c, Bodies b,
     w.snap_pos = out_pos;
     w.snap_quat = out_quat;
   }
-  k_final_body<<<nb_body, BLOCK, 0, st>>>(dm, b, w, p);
+  k_final_body<<<nb_body, BLOCK, 0, st>>>(dm, b, w, p, c.stick);
   if (dj > 0 && p.joint_ema_rate > F(0.0)) k_joint_ema<<<blocks_for(dj * n), BLOCK, 0, st>>>(dm, jr, w, p);
   return cudaGetLastError();
 }
 
 // ptrs (in order):
-//   0-11  old cache: other, count, feature, r_a, r_b, normal, stick, c0_n,
-//         c0_t1, c0_t2, lam, penalty
+//   0-11  old cache: other, count, feature, r_a, r_b, normal, stick (bool),
+//         c0_n, c0_t1, c0_t2, lam, penalty
 //   12-14 nb, key, thr
 //   15-28 pos, quat, size, radius, linvel, angvel, prev_linvel, mass,
 //         inv_mass, friction, inertia, inv_inertia, anchor, anchor_quat
-//   29-40 new cache (same order as 0-11)
+//   29-40 new cache (same order as 0-11; stick bool)
 //   41-46 pos, quat, linvel, angvel, prev_linvel, prev_angvel (outputs)
 //   47    diag (8, 128)
 //   48-52 scratch: ip (3N), iq (4N), geom (36 DC N), mat (24 N) floats;
 //         nbc (DC N) ints
 //   53    counters (3 ints)
+//   54    cand (1 int: diag row 1 in the state layout), or null (row 1 0)
+//   55    scratch: the new cache's latches as 0 / 1 floats (4 DC N)
 // and only when dj or ds > 0 (the joint/spring branch):
-//   54-65 joints: other, world, side, anchor_a, anchor_b, rest, stiff_lin,
+//   56-67 joints: other, world, side, anchor_a, anchor_b, rest, stiff_lin,
 //         stiff_ang, rmotor, lam, penalty, color
-//   66-73 springs: other, world, side, anchor_a, anchor_b, rrest, rstiff,
+//   68-75 springs: other, world, side, anchor_a, anchor_b, rrest, rstiff,
 //         penalty
-//   74-76 outputs j_lam, j_pen (6 DJ N), s_pen (DS N)
-//   77-78 scratch: second pose buffer pos (3N), quat (4N)
+//   76-78 outputs j_lam, j_pen (6 DJ N), s_pen (DS N)
+//   79-80 scratch: second pose buffer pos (3N), quat (4N)
 // ``plan``: the shape's sweep plan, PLAN_INTS ints in SweepPlan order.
 // Returns the first non-zero CUDA error code, or 0.
 int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, int ds, int n_colors,
@@ -2229,6 +2252,9 @@ int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, in
   Cache old, c;
   cache_from(ptrs, &old);
   cache_from(ptrs + 29, &c);
+  old.stick_b = (const unsigned char*)ptrs[6];
+  old.stick = nullptr;
+  c.stick = (float*)ptrs[55];
   const int* nb = (const int*)ptrs[12];
   const int* key = (const int*)ptrs[13];
   const int* thr = (const int*)ptrs[14];
@@ -2261,6 +2287,8 @@ int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, in
   w.mat = (float*)ptrs[51];
   w.nbc = (int*)ptrs[52];
   w.counters = (int*)ptrs[53];
+  w.stick_out = (unsigned char*)ptrs[35];
+  w.cand = (const int*)ptrs[54];
   w.keptmask = nullptr;
   w.once = nullptr;
   w.snap_pos = w.pos;
@@ -2273,8 +2301,8 @@ int avbd_step(void** ptrs, const float* params, int n, int d, int dc, int dj, in
   JointRows jr = {};
   if (rows) jr = rows_from(ptrs, dj, ds, dj > 0 ? n_colors : 1);
   if ((err = launch_collide(dm, nb, key, thr, old, c, b, w, p, st)) != cudaSuccess) return (int)err;
-  err = solve_phases(pl, dm, c, b, &w, p, jr, rows ? (float*)ptrs[77] : nullptr,
-                     rows ? (float*)ptrs[78] : nullptr, n_main, iters_end, k_rebuild, st);
+  err = solve_phases(pl, dm, c, b, &w, p, jr, rows ? (float*)ptrs[79] : nullptr,
+                     rows ? (float*)ptrs[80] : nullptr, n_main, iters_end, k_rebuild, st);
   if (err != cudaSuccess) return (int)err;
   CtrlIn ctrl;
   ctrl.nb = nb;

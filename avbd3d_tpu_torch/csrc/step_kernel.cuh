@@ -16,6 +16,8 @@ struct Cache {
   float* r_b;       // (4, 3, DC, N)
   float* normal;    // (3, DC, N)
   float* stick;     // (4, DC, N) 0/1
+  const unsigned char* stick_b;  // (4, DC, N) the old cache's latches as bools
+                                 // (K1), read in place of ``stick``; or null
   float* c0_n;      // (4, DC, N)
   float* c0_t1;
   float* c0_t2;
@@ -52,6 +54,8 @@ struct Work {
   int* nbc;         // (DC, N) culled neighbors
   int* counters;    // [kept, dropped, sanitized]
   float* diag;      // (8, 128)
+  unsigned char* stick_out;  // (4, DC, N) the new cache's latches as bools (K1), or null
+  const int* cand;  // () directed candidates at the refresh (K1: diag row 1), or null
   float* keptmask;  // (D, N) symmetric-filter keep mask, or null
   unsigned char* once;  // (DC, N) once-per-pair mask of the new cache, or null
   // Partner poses: a slot whose partner lies in the same logical block of
@@ -132,6 +136,7 @@ static inline void cache_from(void** a, Cache* c) {
   c->r_b = (float*)a[4];
   c->normal = (float*)a[5];
   c->stick = (float*)a[6];
+  c->stick_b = nullptr;
   c->c0_n = (float*)a[7];
   c->c0_t1 = (float*)a[8];
   c->c0_t2 = (float*)a[9];

@@ -38,7 +38,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 _SOURCES = ("step_kernel.cu", "grid_kernels.cu", "control_lanes.cu", "bp_probe.cu",
-            "bp_refresh.cu", "grid_stages.cu")
+            "bp_refresh.cu", "grid_stages.cu", "fused_stages.cu")
 _HEADERS = ("avbd_common.cuh", "step_kernel.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -165,6 +165,10 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
     cdll.avbd_grid_predict.restype = ci
     cdll.avbd_grid_finalize.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(cf), ci, ci, ci, vp]
     cdll.avbd_grid_finalize.restype = ci
+    cdll.avbd_step_gates.argtypes = [ctypes.POINTER(vp), ci, cf, vp]
+    cdll.avbd_step_gates.restype = ci
+    cdll.avbd_ballistic_step.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(cf), ci, ci, vp]
+    cdll.avbd_ballistic_step.restype = ci
     if cdll.avbd_n_params() != len(_PARAM_NAMES):
         raise RuntimeError(
             f"parameter block mismatch: kernel {cdll.avbd_n_params()} floats, "
@@ -337,8 +341,10 @@ def _check(t, name, shape, dtype, device):
 
 
 def _ptrs(tensors):
-    arr = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    return arr
+    """The data pointers of ``tensors`` as the entry points take them (None:
+    a null pointer)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() if t is not None else None
+                                              for t in tensors])
 
 
 def _stream(device):
@@ -391,9 +397,10 @@ def _body_operands(b, n_groups, device, names, lead=()):
 _CACHE_SHAPES = ((), (), (4,), (4, 3), (4, 3), (3,), (4,), (4,), (4,), (4,), (12,), (12,))
 
 
-def _cache_operands(cache_args, dc, g, device):
-    """The 12 cache leaves (stick as float32), checked."""
-    types = [torch.int32] * 3 + [torch.float32] * 9
+def _cache_operands(cache_args, dc, g, device, stick=torch.float32):
+    """The 12 cache leaves (the stick latches as ``stick``: float32 0 / 1, or
+    the cache's own bool), checked."""
+    types = [torch.int32] * 3 + [torch.float32] * 3 + [stick] + [torch.float32] * 5
     return [_check(t, f"cache[{j}]", s + (dc, g, 128), dt, device)
             for j, (t, s, dt) in enumerate(zip(cache_args, _CACHE_SHAPES, types))]
 
@@ -436,22 +443,25 @@ def _row_operands(rows, fields, width, g, device, what):
 
 def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
                 n_main: int, k_rebuild: int, joints=None, springs=None, n_colors: int = 1,
-                *, plan):
+                *, plan, cand=None):
     """Run the fused step kernel with the sweep plan ``plan``
     (``solver_cuda.sweep_plan``).  ``cache_args``: the 12 old cache leaves
-    (stick as float32); ``joints`` / ``springs``: the containers of a
-    jointed world (None or empty otherwise), whose slot leaves follow the
-    contact operands.  Returns (12 new cache leaves, 6 body leaves, diag
-    (8, 128), (j_lam, j_pen, s_pen) with None for an absent family)."""
-    lib = _lib()
-    dev = _cuda_device(b)
+    in ``solver_cuda.CACHE_FIELDS`` order, the stick latches the cache's own
+    bools; ``joints`` / ``springs``: the containers of a jointed world (None
+    or empty otherwise), whose slot leaves follow the contact operands;
+    ``cand``: the refresh's directed candidates (() int32), given: diag's
+    row 1 holds the step's 16 diagnostics lanes in the state layout (pair
+    overflow cand - kept), else 0.  Returns (12 new cache leaves, stick
+    bool; 6 body leaves; diag (8, 128); (j_lam, j_pen, s_pen) with None for
+    an absent family)."""
+    dev = b.pos.device
     d, g, _ = nb.shape
     dc = cache_args[0].shape[0]
     n = g * 128
     if dc > d:
         raise ValueError(f"cache width {dc} must be <= candidate width {d}")
     f32, i32 = torch.float32, torch.int32
-    old = _cache_operands(cache_args, dc, g, dev)
+    old = _cache_operands(cache_args, dc, g, dev, stick=torch.bool)
     ins = [_check(nb, "nb", (d, g, 128), i32, dev), _check(key, "key", (d, g, 128), i32, dev),
            _check(thr, "thr", (g, 128), i32, dev)]
     ins += _body_operands(b, g, dev, ("pos", "quat", "size", "radius", "linvel", "angvel",
@@ -459,6 +469,8 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
                                       "inertia", "inv_inertia"))
     ins += [_check(anchor, "anchor", (3, g, 128), f32, dev),
             _check(anchor_quat, "anchor_quat", (4, g, 128), f32, dev)]
+    cand = None if cand is None else _check(cand, "cand", (), i32, dev)
+    lib = _card_lib(dev)
     new = _empty_as(old)
     body_out = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 4, 3, 3, 3, 3)]
     diag = torch.empty((8, 128), dtype=f32, device=dev)
@@ -467,6 +479,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
     scratch += [torch.empty((dc, n), dtype=i32, device=dev),
                 torch.empty((3,), dtype=i32, device=dev)]
     tensors = old + ins + new + body_out + [diag] + scratch
+    tensors += [cand, torch.empty((4, dc, n), dtype=f32, device=dev)]
     dj = joints.dj if joints is not None else 0
     ds = springs.ds if springs is not None else 0
     row_out = (None, None, None)
@@ -539,11 +552,12 @@ def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int, *, pla
     return tuple(body_out), rows[0], rows[1], rows[2], diag
 
 
-def launch_control(nb, b, anchor, anchor_quat, params):
+def launch_control(nb, b, anchor, anchor_quat, params, out=None):
     """Run the control-lanes kernel; returns the (5,) float32 lanes, or
-    (B, 5) for a batch of B worlds (every operand with a leading B)."""
-    lib = _lib()
-    dev = _cuda_device(b)
+    (B, 5) for a batch of B worlds (every operand with a leading B).
+    ``out``: a contiguous (5,) float32 tensor (a view, e.g. lanes 11-15 of
+    a diagnostics vector) the kernel writes the lanes into, returned."""
+    dev = b.pos.device
     lead = tuple(nb.shape[:-3])
     batch = lead[0] if lead else 1
     d, g, _ = nb.shape[-3:]
@@ -554,7 +568,11 @@ def launch_control(nb, b, anchor, anchor_quat, params):
     ins += [_check(anchor, "anchor", lead + (3, g, 128), f32, dev),
             _check(anchor_quat, "anchor_quat", lead + (4, g, 128), f32, dev)]
     n = g * 128
-    out = torch.empty(lead + (5,), dtype=f32, device=dev)
+    if out is not None:
+        _check(out, "out", lead + (5,), f32, dev)
+    lib = _card_lib(dev)
+    if out is None:
+        out = torch.empty(lead + (5,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = [_scratch(dev, stream, "lanes_part", batch * _LANE_PARTS * _blocks(n), f32),
                _scratch(dev, stream, "lanes_dv", batch * 4 * n, f32),
@@ -772,7 +790,8 @@ def launch_refresh_needed(b, anchor, anchor_quat, slack, margin: float):
     return need, devs
 
 
-# Threads a block of the grid step's stage kernels (csrc/grid_stages.cu).
+# Threads a block of the stage kernels (csrc/grid_stages.cu,
+# fused_stages.cu: STAGE_THREADS).
 _GS_THREADS = 256
 
 
@@ -883,4 +902,59 @@ def launch_grid_finalize(b, pos, quat, linvel, angvel, sanitized, contacts, sep,
     code = lib.cdll.avbd_grid_finalize(_ptrs(ins + outs + scratch), _fparams(params), n, dc, d,
                                        ctypes.c_void_p(stream))
     _raise_on(code, "grid finalize kernel launch")
+    return tuple(outs)
+
+
+def launch_step_gates(b, diag, slack, dropped, params):
+    """Run k_step_gates on the Bodies ``b``: the fall-freeze (when
+    ``params.fall_freeze_y`` > -1e8) and the step's control vector.
+    ``diag``: the world's 16 diagnostics lanes; ``slack`` / ``dropped``: its
+    broadphase cache's (() float32 / int32).  Returns (linvel, angvel,
+    inv_mass: the frozen fields in new tensors, or ``b``'s own without the
+    freeze; out (18,) float32: lanes 0-15, slack, dropped)."""
+    dev = b.pos.device
+    g = b.mass.shape[-2]
+    n = g * 128
+    ins = _body_operands(b, g, dev, ("pos", "linvel", "angvel", "inv_mass"))
+    ins += [_check(diag, "diag", (16,), torch.float32, dev),
+            _check(slack, "slack", (), torch.float32, dev),
+            _check(dropped, "dropped", (), torch.int32, dev)]
+    lib = _card_lib(dev)
+    freeze = params.fall_freeze_y > -1.0e8
+    frozen = _empty_as(ins[1:4]) if freeze else [None] * 3
+    out = torch.empty((18,), dtype=torch.float32, device=dev)
+    code = lib.cdll.avbd_step_gates(_ptrs(ins + frozen + [out]), n,
+                                    float(params.fall_freeze_y), _stream(dev))
+    _raise_on(code, "step gates kernel launch")
+    lv, av, im = (f if f is not None else t for f, t in zip(frozen, ins[1:4]))
+    return lv, av, im, out
+
+
+def launch_ballistic_step(b, contacts, params):
+    """Run k_ballistic_step: the ballistic step of the Bodies ``b`` but its
+    control lanes, reading ``contacts.count`` / ``other`` / ``lam`` as the
+    cache holds them.  Returns (pos, quat, linvel, angvel, prev_linvel,
+    prev_angvel, diag (16,) float32 with lanes 11-15 at CONTROL_RESET)."""
+    dev = b.pos.device
+    g = b.mass.shape[-2]
+    n = g * 128
+    dc = contacts.other.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    slot = (dc, g, 128)
+    ins = _body_operands(b, g, dev, ("pos", "quat", "linvel", "angvel", "prev_linvel",
+                                     "prev_angvel", "inv_mass"))
+    ins += [_check(contacts.count, "count", slot, i32, dev),
+            _check(contacts.other, "other", slot, i32, dev),
+            _check(contacts.lam, "lam", (12,) + slot, f32, dev)]
+    lib = _card_lib(dev)
+    outs = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 4, 3, 3, 3, 3)]
+    outs.append(torch.empty((16,), dtype=f32, device=dev))
+    blocks = -(-max(dc, 1) * n // _GS_THREADS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = [_scratch(dev, stream, "ballistic_part_f", 5 * blocks, f32),
+               _scratch(dev, stream, "ballistic_part_i", 2 * blocks, i32),
+               _scratch(dev, stream, "ballistic_ticket", 1, i32)]
+    code = lib.cdll.avbd_ballistic_step(_ptrs(ins + outs + scratch), _fparams(params), n, dc,
+                                        ctypes.c_void_p(stream))
+    _raise_on(code, "ballistic step kernel launch")
     return tuple(outs)

@@ -15,12 +15,16 @@ honoured:
 
 - the fused path (N <= 2048, with or without joints and springs): the copy
   is the 16-lane diagnostics vector plus the broadphase cache's ``slack``
-  and ``dropped``; it gates the broadphase refresh, the ballistic fast path
-  and the Hessian cadence / impact-boost variant.  A contact step runs the
-  fused step kernel (``solver_cuda``; its joint/spring branch in a jointed
-  world); a contact-free step of a world without joints or springs runs
-  ``_ballistic_step`` (predict and finalize in torch, then the
-  control-lanes kernel).
+  and ``dropped``, packed by ``step_gates`` with the fall-freeze (on the
+  card one launch of k_step_gates, csrc/fused_stages.cu); it gates the
+  broadphase refresh, the ballistic fast path and the Hessian cadence /
+  impact-boost variant.  A contact step runs the fused step kernel
+  (``solver_cuda``; its joint/spring branch in a jointed world), whose
+  diagnostics come out of K1 in the state layout; a contact-free step of a
+  world without joints or springs runs ``ballistic_step`` (on the card one
+  launch of k_ballistic_step, predict and finalize, then the control-lanes
+  kernel into its lanes 11-15).  No torch operation of this path runs on
+  the card.
 - the grid tier (contact-only, 2048 < N <= 16384, G % 8 == 0): the copy is
   ``solver_grid.grid_gates``' buffer, the refresh predicate and the
   unrefined speed gates (``stale_lhs_ok``) on the state after the
@@ -29,7 +33,8 @@ honoured:
   as in the reference.
 - the portable path ("xla": ``cap.backend == "xla"``, and every scene
   neither of the above covers, as the reference off the TPU): the same
-  copy, refresh and ballistic gate as the fused path, then ``_step_impl``,
+  gates, copy, refresh and ballistic step as the fused path, then
+  ``_step_impl``,
   the reference's whole step in torch ops: its phases around K1's plain
   sweeps (``solver_cuda.sweeps``, with the step's seams and each sweep's
   poses sanitized), and the control lanes from K2 (``attach_control``).
@@ -60,14 +65,55 @@ from .state import World, make_diagnostics
 _F32 = np.float32
 
 
-def read_control(world: World) -> np.ndarray:
-    """The step's one host read: diagnostics lanes 0-15, then bp.slack and
-    bp.dropped, as one float32 vector."""
+def control_vector(world: World):
+    """The step's control vector: diagnostics lanes 0-15, then bp.slack and
+    bp.dropped, as one (18,) float32 tensor on the world's device."""
     bp = world.bp
-    vec = torch.cat([world.diagnostics.vec, bp.slack.reshape(1).to(torch.float32),
-                     bp.dropped.reshape(1).to(torch.float32)])
+    return torch.cat([world.diagnostics.vec, bp.slack.reshape(1).to(torch.float32),
+                      bp.dropped.reshape(1).to(torch.float32)])
+
+
+def host_read(vec) -> np.ndarray:
+    """The step's one host read: the control vector ``vec`` copied to the
+    host (counted in ``step.host_reads``)."""
     step.host_reads += 1
     return vec.cpu().numpy()
+
+
+def read_control(world: World) -> np.ndarray:
+    """``world``'s control vector read to the host (the portable step's
+    own read on a body-sharded world)."""
+    return host_read(control_vector(world))
+
+
+def step_gates_plain(world: World, params: SolverParams):
+    """Plain version of k_step_gates: the fall-freeze (``freeze_fallen``,
+    when ``params.fall_freeze_y`` > -1e8), then the control vector of the
+    frozen world.  Returns (world, (18,) float32)."""
+    if params.fall_freeze_y > -1.0e8:
+        world = freeze_fallen(world, params)
+    return world, control_vector(world)
+
+
+def step_gates(world: World, params: SolverParams):
+    """The fused and portable paths' gates before their one host read (the
+    reference's fall-freeze, solver.py:325-333, and the read's vector): on
+    CUDA tensors one launch of k_step_gates (csrc/fused_stages.cu), the
+    frozen fields in new tensors; on CPU tensors ``step_gates_plain``.
+    Returns what ``step_gates_plain`` returns."""
+    b = world.bodies
+    if b.pos.device.type == "cpu":
+        return step_gates_plain(world, params)
+    from . import kernels
+
+    bp = world.bp
+    lv, av, im, out = kernels.launch_step_gates(b, world.diagnostics.vec, bp.slack, bp.dropped,
+                                                params)
+    step_gates.launches += 1
+    return world.replace(bodies=b.replace(linvel=lv, angvel=av, inv_mass=im)), out
+
+
+step_gates.launches = 0
 
 
 def control_gates(dv, refreshed: bool, params: SolverParams):
@@ -256,8 +302,33 @@ def _ballistic_body(world: World, params: SolverParams) -> World:
 
 
 def _ballistic_step(world: World, params: SolverParams) -> World:
-    """The ballistic fast path: ``_ballistic_body``, then K2."""
+    """The ballistic fast path's plain version: ``_ballistic_body``, then
+    K2's lanes (``attach_control``)."""
     return attach_control(_ballistic_body(world, params), params)
+
+
+def ballistic_step(world: World, params: SolverParams) -> World:
+    """The ballistic fast path (the reference's _ballistic_step,
+    solver.py:418-447).  On CUDA tensors one launch of k_ballistic_step
+    (csrc/fused_stages.cu: ``_ballistic_body``'s predict and finalize, the
+    16 lanes with the control block at CONTROL_RESET), then K2 writing
+    lanes 11-15 into that vector; on CPU tensors ``_ballistic_step``."""
+    b = world.bodies
+    if b.pos.device.type == "cpu":
+        return _ballistic_step(world, params)
+    from . import kernels
+
+    pos, quat, lv, av, plv, pav, vec = kernels.launch_ballistic_step(b, world.contacts, params)
+    ballistic_step.launches += 1
+    bodies = b.replace(pos=pos, quat=quat, linvel=lv, angvel=av, prev_linvel=plv,
+                       prev_angvel=pav)
+    bp = world.bp
+    solver_cuda.control_lanes(bp.nb, bodies, bp.anchor, bp.anchor_quat, params, out=vec[11:])
+    return world.replace(bodies=bodies, step_index=world.step_index + 1,
+                         diagnostics=world.diagnostics.replace(vec=vec))
+
+
+ballistic_step.launches = 0
 
 
 def _step_body(world: World, params: SolverParams, cap: Capacity, plan, gather=gather,
@@ -429,24 +500,23 @@ def step(world: World, params: SolverParams, cap: Capacity) -> World:
     """Advance one step (solver.step of the reference): fall-freeze, then
     the grid tier or, on the fused and portable paths, the scalar-gated
     broadphase refresh and the ballistic fast path (worlds without joints or
-    springs only, as the reference's ``ballistic_able``) or the fused step
-    (``solver_cuda.step_fused``) or the portable one (``_step_impl``).
-    ``step.last_path`` names the path taken; the grid tier applies the
-    fall-freeze with its gates."""
+    springs only, as the reference's ``ballistic_able``,
+    ``ballistic_step``) or the fused step (``solver_cuda.step_fused``) or
+    the portable one (``_step_impl``).  ``step.last_path`` names the path
+    taken; the grid tier applies the fall-freeze with its gates, the others
+    with ``step_gates``."""
     step.last_path = select_path(world, cap)
     if step.last_path == "grid":
         return _grid_step(world, params, cap)
-    if params.fall_freeze_y > -1.0e8:
-        world = freeze_fallen(world, params)
-
-    dv = read_control(world)
+    world, control = step_gates(world, params)
+    dv = host_read(control)
     bp, refreshed = refresh_scalar(world.bp, dv, world.bodies, world.exclusions,
                                    cap.max_degree, params.bp_margin, window=cap.bp_window)
     world = world.replace(bp=bp)
     ballistic = ballistic_ok(params, world, dv, refreshed)
     step.last_gates = {"refreshed": refreshed, "ballistic": ballistic}
     if ballistic:
-        return _ballistic_step(world, params)
+        return ballistic_step(world, params)
     stale_ok, calm = control_gates(dv, refreshed, params)
     step.last_gates.update(stale_ok=stale_ok, calm=calm)
     if step.last_path == "xla":

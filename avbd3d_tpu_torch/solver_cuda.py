@@ -15,7 +15,10 @@ With joints or springs (dj / ds > 0) it decays their rows before the
 prediction, solves each sweep in ``n_colors`` Gauss-Seidel colour sub-passes
 that add the joint and spring terms at the newest poses, runs the joint dual
 after the contact dual and the slow joint dual tracker on the final poses
-(the reference's ``_kernel_b_math`` with joints).
+(the reference's ``_kernel_b_math`` with joints).  K1 reads and writes the
+cache's bool stick latches itself and, given the refresh's ``cand``, also
+writes the step's 16 diagnostics lanes in the state layout (its diag row
+1), which ``step_fused`` hands on as they are.
 
 K3 (``collide_and_init``) and K4 (``solve_loop``) replace
 ``collide_and_init_tpu`` (solver_tpu.py:151-168) and ``solve_loop_tpu``
@@ -192,8 +195,15 @@ def iterblock_kernel_count(plan: SweepPlan, n_iters: int) -> int:
     return 1 if plan.cluster > 0 else 1 + 2 * n_iters
 
 
+def cache_leaves(c: Contacts):
+    """The cache's leaves in CACHE_FIELDS order, as K1 takes them (the stick
+    latches the cache's own bools)."""
+    return [getattr(c, f) for f in CACHE_FIELDS]
+
+
 def cache_to_args(c: Contacts):
-    """Cache leaves as kernel operands (the bool stick latch as float32)."""
+    """Cache leaves as the operands of K3, K4 and K5 (the bool stick latch
+    as float32)."""
     return [getattr(c, f).to(torch.float32) if f == "stick" else getattr(c, f)
             for f in CACHE_FIELDS]
 
@@ -625,12 +635,17 @@ def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
 
 def step_kernel_plain(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
                       params: SolverParams, n_main: int, k_rebuild: int,
-                      joints=None, springs=None, n_colors: int = 1):
+                      joints=None, springs=None, n_colors: int = 1, cand=None):
     """Plain version of K1.  Returns (contacts', body leaves (6), diag
-    (8, 128), (j_lam, j_pen, s_pen)) with the kernel's diag row layout:
-    lanes 0-8 diagnostics, 9 kept directed slots, 10-14 control lanes, 15
-    dropped manifolds; the row outputs are None where the world has no
-    joints / springs."""
+    (8, 128), (j_lam, j_pen, s_pen)) with the kernel's diag row layout in
+    row 0: lanes 0-8 diagnostics, 9 kept directed slots, 10-14 control
+    lanes, 15 dropped manifolds; with ``cand`` (the refresh's directed
+    candidates, () int32) row 1 holds the state layout
+    (``state.Diagnostics``, the reference's solver_tpu.py:1142-1152): lanes
+    0-8 as row 0, 9 the pair overflow cand - kept (an int32 difference, as
+    the reference takes it), 10 the dropped manifolds, 11-15 the control
+    lanes; every other entry is 0.  The row outputs are None where the world
+    has no joints / springs."""
     new, kept, dropped = collide_half(old, nb_raw, keys, thr, b, params)
     outs = solve_half(params, new, b, n_main, k_rebuild, joints, springs, n_colors)
     ctrl = control_lanes_math(
@@ -647,6 +662,11 @@ def step_kernel_plain(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
     diag[0, 9] = kept.to(torch.float32)
     diag[0, 10:15] = ctrl
     diag[0, 15] = dropped.to(torch.float32)
+    if cand is not None:
+        diag[1, :9] = diag[0, :9]
+        diag[1, 9] = (cand - kept).to(torch.float32)
+        diag[1, 10] = diag[0, 15]
+        diag[1, 11:16] = ctrl
     return contacts, outs[:6], diag, outs[10:]
 
 
@@ -656,24 +676,26 @@ def step_kernel_plain(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
 
 def step_kernel(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
                 params: SolverParams, n_main: int, k_rebuild: int,
-                joints=None, springs=None, n_colors: int = 1):
+                joints=None, springs=None, n_colors: int = 1, cand=None):
     """K1: phases 2-6 of one step plus the end-of-step control block, with
     the joint/spring branch when ``joints`` or ``springs`` has slots.
     Returns (contacts', (pos, quat, linvel, angvel, prev_linvel,
-    prev_angvel), diag (8, 128), (j_lam, j_pen, s_pen))."""
+    prev_angvel), diag (8, 128), (j_lam, j_pen, s_pen)); with ``cand``,
+    diag's row 1 holds the state layout (``step_kernel_plain``).  The
+    kernel reads and writes the cache's bool stick latches itself."""
     if b.pos.device.type == "cpu":
         return step_kernel_plain(old, nb_raw, keys, thr, b, anchor, anchor_quat,
-                                 params, n_main, k_rebuild, joints, springs, n_colors)
+                                 params, n_main, k_rebuild, joints, springs, n_colors, cand)
     from . import kernels
 
     plan = sweep_plan(b.n, old.other.shape[0], None, joints.dj if joints is not None else 0,
                       springs.ds if springs is not None else 0)
-    out = kernels.launch_step(cache_to_args(old), nb_raw, keys, thr, b, anchor,
+    out = kernels.launch_step(cache_leaves(old), nb_raw, keys, thr, b, anchor,
                               anchor_quat, params, n_main, k_rebuild, joints, springs,
-                              n_colors, plan=plan)
+                              n_colors, plan=plan, cand=cand)
     step_kernel.launches += 1
     cache_out, body_out, diag, row_out = out
-    return args_to_cache(cache_out), body_out, diag, row_out
+    return Contacts(*cache_out), body_out, diag, row_out
 
 
 step_kernel.launches = 0
@@ -746,14 +768,17 @@ def control_lanes_plain(nb, b, anchor, anchor_quat, params: SolverParams):
     return torch.func.vmap(lanes)(*ops) if nb.dim() == 4 else lanes(*ops)
 
 
-def control_lanes(nb, b, anchor, anchor_quat, params: SolverParams):
+def control_lanes(nb, b, anchor, anchor_quat, params: SolverParams, out=None):
     """K2: the (5,) f32 control block (diagnostics lanes 11-15) on ``b``,
-    or (B, 5) for a batch of B worlds (one launch)."""
+    or (B, 5) for a batch of B worlds (one launch).  ``out``: a contiguous
+    (5,) view the lanes are written into (the ballistic step's diagnostics
+    lanes 11-15), returned."""
     if b.pos.device.type == "cpu":
-        return control_lanes_plain(nb, b, anchor, anchor_quat, params)
+        lanes = control_lanes_plain(nb, b, anchor, anchor_quat, params)
+        return lanes if out is None else out.copy_(lanes)
     from . import kernels
 
-    out = kernels.launch_control(nb, b, anchor, anchor_quat, params)
+    out = kernels.launch_control(nb, b, anchor, anchor_quat, params, out)
     control_lanes.launches += 1
     return out
 
@@ -788,8 +813,14 @@ bp_probe.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Every launch count of this module and of the broadphase refresh's
-    wrappers (``ops.broadphase.candidate_lists`` / ``refresh_needed``) to 0."""
+    """Every launch count of this module, of the fused path's stage wrappers
+    (``solver.step_gates`` / ``ballistic_step``) and of the broadphase
+    refresh's (``ops.broadphase.candidate_lists`` / ``refresh_needed``) to
+    0."""
+    from . import solver
+
+    solver.step_gates.launches = 0
+    solver.ballistic_step.launches = 0
     broadphase.candidate_lists.launches = 0
     broadphase.refresh_needed.launches = 0
     step_kernel.launches = 0
@@ -821,9 +852,11 @@ def select_variant(params: SolverParams, stale_ok: bool, calm: bool):
 def step_fused(world: World, params: SolverParams, cap: Capacity, stale_ok: bool,
                calm: bool) -> World:
     """One step through K1 (the counterpart of ``step_pallas``), joints and
-    springs written back as the reference does (its 1143-1144).
-    ``world.bp`` is the (possibly refreshed) broadphase cache; the gates
-    come from the step's one host read (solver.step)."""
+    springs written back as the reference does (its 1143-1144); the
+    diagnostics are K1's row in the state layout (its diag row 1, pair
+    overflow against ``bp.cand``).  ``world.bp`` is the (possibly
+    refreshed) broadphase cache; the gates come from the step's one host
+    read (solver.step)."""
     bp = world.bp
     b = world.bodies
     n_main, k = select_variant(params, stale_ok, calm)
@@ -831,7 +864,7 @@ def step_fused(world: World, params: SolverParams, cap: Capacity, stale_ok: bool
     contacts, body_out, diag_v, (j_lam, j_pen, s_pen) = step_kernel(
         world.contacts, bp.nb, bp.key, bp.thr, b, bp.anchor, bp.anchor_quat,
         params, n_main, k, joints if joints.dj else None,
-        springs if springs.ds else None, cap.joint_colors)
+        springs if springs.ds else None, cap.joint_colors, cand=bp.cand)
     pos, quat, lv, av, plv, pav = body_out
     bodies = b.replace(pos=pos, quat=quat, linvel=lv, angvel=av,
                        prev_linvel=plv, prev_angvel=pav)
@@ -839,13 +872,7 @@ def step_fused(world: World, params: SolverParams, cap: Capacity, stale_ok: bool
         joints = joints.replace(lam=j_lam, penalty=j_pen)
     if s_pen is not None:
         springs = springs.replace(penalty=s_pen)
-    # Kernel row layout -> state layout (solver_tpu.py:1146-1152): lanes
-    # 0-8 as is, 9 pair_overflow = cand - kept, 10 degree_overflow =
-    # dropped manifolds, 11-15 the control block.
-    dv = diag_v[0]
-    overflow = bp.cand.to(torch.float32) - dv[9]
-    vec = torch.cat([dv[:9], overflow.reshape(1), dv[15:16], dv[10:15]])
     return world.replace(bodies=bodies, contacts=contacts, joints=joints, springs=springs,
                          step_index=world.step_index + 1,
-                         diagnostics=Diagnostics(vec=vec))
+                         diagnostics=Diagnostics(vec=diag_v[1, :16]))
 

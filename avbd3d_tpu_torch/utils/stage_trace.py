@@ -1,14 +1,17 @@
-"""Where a grid step's launches come from: a settled Stress4096 block traced
-with every launch attributed to the stage of the step that queued it.
+"""Where a step's launches come from: a block of steps traced with every
+launch attributed to the stage of the step that queued it.
 
-    python avbd3d_tpu_torch/utils/stage_trace.py [--root DIR] [--warm N]
-        [--steps N] [--out FILE]
+    python avbd3d_tpu_torch/utils/stage_trace.py [--root DIR] [--scene NAME]
+        [--warm N] [--steps N] [--out FILE]
 
 Run by path, not with ``-m``: the package is imported from ``--root``
 (default: the tree this file lies in), so one call can trace two trees in
 turns, e.g. an archive of an earlier commit unpacked beside the working
-tree.  After ``--warm`` steps (default 1000) of Stress4096 on the card,
-``--steps`` steps (default 50) run under ``torch.profiler`` with the
+tree.  After ``--warm`` steps (default 1000; 0 traces from the built scene)
+of ``--scene`` (default Stress4096, the grid tier; Stress1000 the fused
+path: ``--warm 0`` its falling window with the ballistic steps, ``--warm
+700`` a settled one) on the card, ``--steps`` steps (default 50) run under
+``torch.profiler`` with the
 step's stage functions wrapped in ``record_function`` ranges (those of
 ``STAGES`` that the tree has; a stage function called inside another
 stage belongs to the inner one, but ``_sanitize`` counts as its own stage
@@ -18,8 +21,8 @@ innermost range around it; each kernel on the card to its launch call by
 correlation id.  Prints, with the card's name and power limit, a table of
 each stage's launches, kernels' device time, copies and host time a step,
 the kernels by name within each stage, the block's launches and device time
-a step and its idle share, and one JSON line last (``--out`` also writes
-it to a file).
+a step and its idle share, the ballistic and refresh steps among them, and
+one JSON line last (``--out`` also writes it to a file).
 """
 
 from __future__ import annotations
@@ -38,11 +41,21 @@ import time
 STAGES = (
     ("solver", "step", "step (other)", ()),
     ("solver", "freeze_fallen", "freeze", ()),
+    ("solver", "read_control", "control read", ()),
+    ("solver", "step_gates", "step gates", ()),
+    ("solver", "host_read", "control read", ()),
     ("solver", "_grid_step", "gates (stack, host read)", ()),
     ("solver", "refresh_needed", "predicate", ()),
     ("solver", "stale_lhs_ok", "speed gates", ()),
     ("solver_grid", "grid_gates", "gates kernel", ()),
     ("solver", "refresh_or_reuse", "refresh", ()),
+    ("solver", "refresh_scalar", "refresh", ()),
+    ("solver", "_ballistic_step", "ballistic (other)", ()),
+    ("solver", "ballistic_step", "ballistic (other)", ()),
+    ("solver", "attach_control", "control lanes (cat)", ()),
+    ("solver_cuda", "control_lanes", "K2", ()),
+    ("solver_cuda", "step_fused", "step_fused (diagnostics reorder)", ()),
+    ("solver_cuda", "step_kernel", "K1", ()),
     ("solver_grid", "step_grid", "step_grid (layout, stick, overflow)", ()),
     ("solver_grid", "collide_grid", "K5", ()),
     ("solver_cuda", "cache_to_args", "stick conversions", ()),
@@ -142,6 +155,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     here = os.path.dirname(os.path.abspath(__file__))
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    parser.add_argument("--scene", default="Stress4096")
     parser.add_argument("--warm", type=int, default=1000)
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--out", default=None)
@@ -157,7 +171,7 @@ def main(argv=None) -> int:
         return 2
     kernels.build()
     card = card_line()
-    sc = load_scene("Stress4096", device="cuda")
+    sc = load_scene(args.scene, device="cuda")
     w, p, cap = sc.world, sc.params, sc.cap
     for _ in range(args.warm):
         w = solver.step(w, p, cap)
@@ -165,7 +179,7 @@ def main(argv=None) -> int:
     active = []
     mods = {"solver": solver, "solver_grid": solver_grid, "solver_cuda": solver_cuda}
     saved = install(mods, active)
-    refreshes = 0
+    refreshes = ballistic = 0
     try:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -173,6 +187,7 @@ def main(argv=None) -> int:
             for _ in range(args.steps):
                 w = solver.step(w, p, cap)
                 refreshes += int(solver.step.last_gates["refreshed"])
+                ballistic += int(solver.step.last_gates.get("ballistic", False))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -193,8 +208,8 @@ def main(argv=None) -> int:
     n = args.steps
     total = {k: sum(v[k] for v in stages.values()) / n
              for k in ("launches", "kernels", "device_us", "copies")}
-    print(f"stage_trace: {os.path.abspath(args.root)}, Stress4096 steps {args.warm + 1}-"
-          f"{args.warm + n} ({refreshes} refresh steps) [{card}]")
+    print(f"stage_trace: {os.path.abspath(args.root)}, {args.scene} steps {args.warm + 1}-"
+          f"{args.warm + n} ({refreshes} refresh steps, {ballistic} ballistic) [{card}]")
     print(f"  {wall * 1e3 / n:.3f} ms/step traced; {total['launches']:.2f} launches/step "
           f"({total['kernels']:.2f} kernels on the card), {total['device_us']:.1f} us/step "
           f"in kernels, idle share {100.0 * (1.0 - busy / (wall * 1e6)):.1f}%, "
@@ -207,8 +222,9 @@ def main(argv=None) -> int:
               f"{v['device_us'] / n:10.2f} {v['copies'] / n:7.2f} {v['host_us'] / n:9.1f}")
         for k, c in v["by_kernel"].most_common(8):
             print(f"      {k:58s} {c / n:7.2f}")
-    rec = {"root": os.path.abspath(args.root), "card": card, "warm": args.warm, "steps": n,
-           "refresh_steps": refreshes, "ms_per_step": wall * 1e3 / n,
+    rec = {"root": os.path.abspath(args.root), "card": card, "scene": args.scene,
+           "warm": args.warm, "steps": n, "refresh_steps": refreshes,
+           "ballistic_steps": ballistic, "ms_per_step": wall * 1e3 / n,
            "launches_per_step": total["launches"], "kernels_per_step": total["kernels"],
            "device_us_per_step": total["device_us"], "copies_per_step": total["copies"],
            "idle_share": 1.0 - busy / (wall * 1e6),

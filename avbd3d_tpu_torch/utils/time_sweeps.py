@@ -34,8 +34,9 @@ launches, the card's name and power limit beside them, one JSON line last:
                   lanes whose bits differ (lane 3, the deviation from the
                   mean displacement, sums over the world in another order)
 
-``--routes`` (a tree whose launch functions take a sweep plan) also times
-K1 at Stress1000 and at Stack (N = 128) and K6 at Stress4096 with the plan
+``--routes`` (a tree whose launch functions take a sweep plan, and whose K1
+takes the cache's bool latches) also times K1 at Stress1000 and at Stack
+(N = 128) and K6 at Stress4096 with the plan
 forced to each route at tiles of 32 and 64 bodies (K1 also as the summed
 device time of its kernels in a trace of the same calls), beside the route
 ``sweep_plan`` chooses; K1's joint branch at the 20 sheets (step 300),
@@ -184,7 +185,7 @@ def main(argv=None) -> int:
 
         def k1_routes(a, blk):
             old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k = a[:10]
-            cache_args = solver_cuda.cache_to_args(old)
+            cache_args = solver_cuda.cache_leaves(old)
             dc = old.other.shape[0]
             res = {"chosen": repr(solver_cuda.sweep_plan(b.n, dc))}
             plans = [forced(32, dc), forced(64, dc)]
@@ -212,7 +213,7 @@ def main(argv=None) -> int:
             tile that fits: one cluster, or a cooperative launch of 32- or
             16-body tiles; CUDA-event ms and the kernels' own us per call."""
             old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k, j, sp, ncol = a
-            cache_args = solver_cuda.cache_to_args(old)
+            cache_args = solver_cuda.cache_leaves(old)
             dc = old.other.shape[0]
             dj, ds = (j.dj if j is not None else 0), (sp.ds if sp is not None else 0)
             res = {"chosen": repr(solver_cuda.sweep_plan(b.n, dc, None, dj, ds))}

@@ -470,6 +470,109 @@ def test_cuda_grid_stages_match_plain(cuda_grid, name):
             solver_grid.grid_finalize.launches) == (1, 1, 1)
 
 
+@pytest.fixture
+def cuda_rain():
+    """Stress1000 after one step (the rain-in: its next step ballistic) and
+    after 160 (landing), with the next step's broadphase cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    kernels.build()
+    sc = load_scene("Stress1000", device="cuda")
+    rain = run_steps(sc.world, sc.params, sc.cap, 1)
+    land = run_steps(rain, sc.params, sc.cap, 159)
+    land = land.replace(bp=build_bp_cache(land.bodies, land.exclusions, sc.cap.max_degree,
+                                          sc.params.bp_margin))
+    return sc, rain, land
+
+
+def fused_stage_world(w, p, name):
+    """``w`` as it is, with three dynamic bodies below ``fall_freeze_y``,
+    with every body static, or with a NaN and an infinite velocity and a
+    spin above the clamp."""
+    b = w.bodies
+    ids = torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[:3]
+    if name == "fallen":
+        pos = b.pos.clone()
+        pos.view(3, -1)[1, ids] = p.fall_freeze_y - 1.0
+        b = b.replace(pos=pos)
+    if name == "static":
+        b = b.replace(inv_mass=torch.zeros_like(b.inv_mass))
+    if name == "nan velocity":
+        lv, av = b.linvel.clone(), b.angvel.clone()
+        lv.view(3, -1)[0, ids[0]] = float("nan")
+        av.view(3, -1)[1, ids[1]] = float("inf")
+        av.view(3, -1)[2, ids[2]] = 4.0 * p.max_angular_speed
+        b = b.replace(linvel=lv, angvel=av)
+    return w.replace(bodies=b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRID_STAGE_STATES)
+def test_cuda_fused_stages_match_plain(cuda_rain, name):
+    """The fused path's stage kernels (csrc/fused_stages.cu) against their
+    plain versions on the same card tensors at Stress1000's rain-in state:
+    k_step_gates' control vector and frozen fields bit for bit, the world it
+    was given unchanged; k_ballistic_step's bodies bit for bit, its lanes
+    identical but the speeds (2, 3: torch's vector_norm) within 1e-6
+    relative; the ballistic step with K2 writing into its lanes 11-15
+    (``out=``): those lanes the bits of K2's own call, K2's exact lanes the
+    plain version's; one count a call (K2 three: the ballistic step's, its
+    own call's and the plain version's, whose lanes on CUDA tensors are
+    K2's)."""
+    sc, rain, _land = cuda_rain
+    p = sc.params
+    w = fused_stage_world(rain, p, name)
+    linvel = w.bodies.linvel.clone()
+    solver_cuda.reset_launch_counts()
+    wk, gk = solver.step_gates(w, p)
+    wp, gp = solver.step_gates_plain(w, p)
+    assert same_bits(gk, gp), (gk, gp)
+    for f in ("linvel", "angvel", "inv_mass"):
+        assert same_bits(getattr(wk.bodies, f), getattr(wp.bodies, f)), f
+    assert same_bits(w.bodies.linvel, linvel)
+    out = kernels.launch_ballistic_step(wp.bodies, wp.contacts, p)
+    ref = solver._ballistic_body(wp, p)
+    names = ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel")
+    for f, t in zip(names, out[:6]):
+        assert same_bits(t, getattr(ref.bodies, f)), f
+    dk, dp = out[6], ref.diagnostics.vec
+    lanes = [0, 1, 4] + list(range(5, 16))
+    assert torch.equal(dk[lanes].nan_to_num(), dp[lanes].nan_to_num()), (dk, dp)
+    assert float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max()) <= 1e-6
+    full, full_p = solver.ballistic_step(wp, p), solver._ballistic_step(wp, p)
+    own = solver_cuda.control_lanes(wp.bp.nb, full.bodies, wp.bp.anchor, wp.bp.anchor_quat, p)
+    vk, vp = full.diagnostics.vec, full_p.diagnostics.vec
+    assert same_bits(vk[11:], own)
+    assert same_bits(vk[[11, 12, 13, 15]], vp[[11, 12, 13, 15]]), (vk, vp)
+    if name == "nan velocity":
+        assert float(dk[8]) >= 2
+    assert (solver.step_gates.launches, solver.ballistic_step.launches,
+            solver_cuda.control_lanes.launches) == (1, 1, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_step_kernel_state_row_and_latches_match_plain(cuda_rain):
+    """K1 with ``cand`` at a landing Stress1000 state: its new cache's bool
+    latches and its row 1 in the state layout equal the plain version's
+    (lanes 0-10 identical, the control lanes within 1e-5 relative), lane 9
+    both cand - kept in int32 and in float32; a fused step's diagnostics
+    are that row."""
+    sc, _rain, w = cuda_rain
+    bp = w.bp
+    args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
+            sc.params, 20, 4)
+    cp, _bp, dp, _ = solver_cuda.step_kernel_plain(*args, cand=bp.cand)
+    ck, _bk, dk, _ = solver_cuda.step_kernel(*args, cand=bp.cand)
+    torch.cuda.synchronize()
+    assert ck.stick.dtype == torch.bool and torch.equal(cp.stick, ck.stick)
+    assert torch.equal(dp[1, :11], dk[1, :11]), (dp[1, :16], dk[1, :16])
+    assert rel_err(dp[1, 11:16], dk[1, 11:16]) <= 1e-5
+    assert float(dk[1, 9]) == float(bp.cand.float() - dk[0, 9])
+    assert float(dk[1, 9]) == float(bp.cand - dk[0, 9].to(torch.int32))
+    assert not dk[1, 16:].any() and not dk[2:].any()
+    assert not solver_cuda.step_kernel(*args)[2][1].any()
+
+
 def rel_err(a, b):
     return float(((a - b).abs() / (a.abs() + 1.0)).max())
 
@@ -580,7 +683,7 @@ def test_cuda_step_kernel_routes_match_plain(cuda_stress, route, tile):
     assert plan.route == route
     args = (bp.nb, bp.key, bp.thr, b, bp.anchor, bp.anchor_quat, sc.params, 20, 4)
     plain = solver_cuda.step_kernel_plain(w.contacts, *args)
-    new, body, diag, _rows = kernels.launch_step(solver_cuda.cache_to_args(w.contacts), *args,
+    new, body, diag, _rows = kernels.launch_step(solver_cuda.cache_leaves(w.contacts), *args,
                                                  plan=plan)
     torch.cuda.synchronize()
     assert_step_equal(plain, (solver_cuda.args_to_cache(new), body, diag))
@@ -658,7 +761,7 @@ def test_cuda_joint_branch_matches_plain_bitwise(scene, steps, route):
     plain = solver_cuda.step_kernel_plain(w.contacts, *args)
 
     def launch():
-        new, body, diag, rows = kernels.launch_step(solver_cuda.cache_to_args(w.contacts), *args,
+        new, body, diag, rows = kernels.launch_step(solver_cuda.cache_leaves(w.contacts), *args,
                                                     plan=plan)
         return solver_cuda.args_to_cache(new), body, diag, rows
 
@@ -691,7 +794,7 @@ def test_cuda_joint_branch_with_narrow_cache_matches_plain(route):
     args = (bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat, p, 20, 4, j, None,
             cap.joint_colors)
     plain = solver_cuda.step_kernel_plain(w.contacts, *args)
-    new, body, diag, rows = kernels.launch_step(solver_cuda.cache_to_args(w.contacts), *args,
+    new, body, diag, rows = kernels.launch_step(solver_cuda.cache_leaves(w.contacts), *args,
                                                 plan=plan)
     torch.cuda.synchronize()
     assert_step_equal(plain, (solver_cuda.args_to_cache(new), body, diag))
@@ -731,7 +834,7 @@ def test_cuda_cluster_launch_that_cannot_run_raises(cuda_stress):
     w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
                                     sc.params.bp_margin))
     bp = w.bp
-    args = (solver_cuda.cache_to_args(w.contacts), bp.nb, bp.key, bp.thr, w.bodies, bp.anchor,
+    args = (solver_cuda.cache_leaves(w.contacts), bp.nb, bp.key, bp.thr, w.bodies, bp.anchor,
             bp.anchor_quat, sc.params, 20, 4)
     for plan in (forced_plan(64, 12, 512), forced_plan(32, 12, 1024)):
         with pytest.raises(RuntimeError, match="CUDA error"):
@@ -752,7 +855,7 @@ def test_cuda_grid_route_refused_without_rows(cuda_stress):
     plan = solver_cuda.sweep_plan(1024, 12, None, 2)
     assert plan.route == "grid"
     with pytest.raises(RuntimeError, match="CUDA error"):
-        kernels.launch_step(solver_cuda.cache_to_args(w.contacts), bp.nb, bp.key, bp.thr,
+        kernels.launch_step(solver_cuda.cache_leaves(w.contacts), bp.nb, bp.key, bp.thr,
                             w.bodies, bp.anchor, bp.anchor_quat, sc.params, 20, 4, plan=plan)
 
 
