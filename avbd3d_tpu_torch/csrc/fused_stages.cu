@@ -24,9 +24,10 @@
 // to that order bit for bit.
 //
 // What bounds them on the H100: launch latency.  Their bytes at N = 1024,
-// DC = 12 are ~50 KB (gates) and ~0.4 MB (the ballistic step: the bodies'
-// fields, and count, other and the normal duals of the (4, 12, N) slots),
-// 0.02-0.1 us at 3.35 TB/s, far below a launch's own few microseconds.
+// DC = 12 are ~50 KB (gates) and 0.26-0.45 MB (the ballistic step: the
+// bodies' fields, every slot's count and partner, and the normal duals of
+// the live contacts, none to all of the (4, 12, N)), 0.02-0.14 us at
+// 3.35 TB/s, far below a launch's own few microseconds.
 // Design: one launch each over the card, a thread a body (and a thread a
 // slot where the slots are the bytes).
 //

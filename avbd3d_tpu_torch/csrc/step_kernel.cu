@@ -1858,7 +1858,7 @@ __global__ void __launch_bounds__(BLOCK) k_final_body(Dims dm, Bodies b, Work w,
 
 // Row 0 of w.diag holds the kernel's lanes: 0-7 the diagnostics, 8
 // sanitized, 9 kept directed slots, 10-14 the control lanes, 15 dropped
-// manifolds.  With w.cand (K1 on the fused path), row 1 holds the same
+// manifolds.  With w.cand (K1; null in K4's launch), row 1 holds the same
 // numbers in the state layout (state.Diagnostics; the reference's
 // solver_tpu.py:1142-1152): 0-8 as row 0, 9 the pair overflow cand - kept
 // (an int32 difference, as the reference takes it), 10 the dropped
@@ -2231,7 +2231,7 @@ static cudaError_t solve_phases(const SweepPlan& pl, Dims dm, Cache c, Bodies b,
 //   48-52 scratch: ip (3N), iq (4N), geom (36 DC N), mat (24 N) floats;
 //         nbc (DC N) ints
 //   53    counters (3 ints)
-//   54    cand (1 int: diag row 1 in the state layout), or null (row 1 0)
+//   54    cand (1 int: diag row 1 in the state layout)
 //   55    scratch: the new cache's latches as 0 / 1 floats (4 DC N)
 // and only when dj or ds > 0 (the joint/spring branch):
 //   56-67 joints: other, world, side, anchor_a, anchor_b, rest, stiff_lin,

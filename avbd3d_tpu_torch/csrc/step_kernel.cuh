@@ -55,7 +55,7 @@ struct Work {
   int* counters;    // [kept, dropped, sanitized]
   float* diag;      // (8, 128)
   unsigned char* stick_out;  // (4, DC, N) the new cache's latches as bools (K1), or null
-  const int* cand;  // () directed candidates at the refresh (K1: diag row 1), or null
+  const int* cand;  // () directed candidates at the refresh (K1: diag row 1); null in K4
   float* keptmask;  // (D, N) symmetric-filter keep mask, or null
   unsigned char* once;  // (DC, N) once-per-pair mask of the new cache, or null
   // Partner poses: a slot whose partner lies in the same logical block of

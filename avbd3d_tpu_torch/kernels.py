@@ -442,16 +442,16 @@ def _row_operands(rows, fields, width, g, device, what):
 
 
 def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
-                n_main: int, k_rebuild: int, joints=None, springs=None, n_colors: int = 1,
-                *, plan, cand=None):
+                n_main: int, k_rebuild: int, cand, joints=None, springs=None,
+                n_colors: int = 1, *, plan):
     """Run the fused step kernel with the sweep plan ``plan``
     (``solver_cuda.sweep_plan``).  ``cache_args``: the 12 old cache leaves
     in ``solver_cuda.CACHE_FIELDS`` order, the stick latches the cache's own
     bools; ``joints`` / ``springs``: the containers of a jointed world (None
     or empty otherwise), whose slot leaves follow the contact operands;
-    ``cand``: the refresh's directed candidates (() int32), given: diag's
-    row 1 holds the step's 16 diagnostics lanes in the state layout (pair
-    overflow cand - kept), else 0.  Returns (12 new cache leaves, stick
+    ``cand``: the refresh's directed candidates (() int32), from which
+    diag's row 1 holds the step's 16 diagnostics lanes in the state layout
+    (pair overflow cand - kept).  Returns (12 new cache leaves, stick
     bool; 6 body leaves; diag (8, 128); (j_lam, j_pen, s_pen) with None for
     an absent family)."""
     dev = b.pos.device
@@ -469,7 +469,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
                                       "inertia", "inv_inertia"))
     ins += [_check(anchor, "anchor", (3, g, 128), f32, dev),
             _check(anchor_quat, "anchor_quat", (4, g, 128), f32, dev)]
-    cand = None if cand is None else _check(cand, "cand", (), i32, dev)
+    cand = _check(cand, "cand", (), i32, dev)
     lib = _card_lib(dev)
     new = _empty_as(old)
     body_out = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 4, 3, 3, 3, 3)]

@@ -16,7 +16,7 @@ prediction, solves each sweep in ``n_colors`` Gauss-Seidel colour sub-passes
 that add the joint and spring terms at the newest poses, runs the joint dual
 after the contact dual and the slow joint dual tracker on the final poses
 (the reference's ``_kernel_b_math`` with joints).  K1 reads and writes the
-cache's bool stick latches itself and, given the refresh's ``cand``, also
+cache's bool stick latches itself and, from the refresh's ``cand``, also
 writes the step's 16 diagnostics lanes in the state layout (its diag row
 1), which ``step_fused`` hands on as they are.
 
@@ -634,13 +634,13 @@ def solve_half(params: SolverParams, cache: Contacts, b, n_main: int,
 
 
 def step_kernel_plain(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
-                      params: SolverParams, n_main: int, k_rebuild: int,
-                      joints=None, springs=None, n_colors: int = 1, cand=None):
+                      params: SolverParams, n_main: int, k_rebuild: int, cand,
+                      joints=None, springs=None, n_colors: int = 1):
     """Plain version of K1.  Returns (contacts', body leaves (6), diag
     (8, 128), (j_lam, j_pen, s_pen)) with the kernel's diag row layout in
     row 0: lanes 0-8 diagnostics, 9 kept directed slots, 10-14 control
-    lanes, 15 dropped manifolds; with ``cand`` (the refresh's directed
-    candidates, () int32) row 1 holds the state layout
+    lanes, 15 dropped manifolds; row 1 holds, from ``cand`` (the refresh's
+    directed candidates, () int32), the state layout
     (``state.Diagnostics``, the reference's solver_tpu.py:1142-1152): lanes
     0-8 as row 0, 9 the pair overflow cand - kept (an int32 difference, as
     the reference takes it), 10 the dropped manifolds, 11-15 the control
@@ -662,11 +662,10 @@ def step_kernel_plain(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
     diag[0, 9] = kept.to(torch.float32)
     diag[0, 10:15] = ctrl
     diag[0, 15] = dropped.to(torch.float32)
-    if cand is not None:
-        diag[1, :9] = diag[0, :9]
-        diag[1, 9] = (cand - kept).to(torch.float32)
-        diag[1, 10] = diag[0, 15]
-        diag[1, 11:16] = ctrl
+    diag[1, :9] = diag[0, :9]
+    diag[1, 9] = (cand - kept).to(torch.float32)
+    diag[1, 10] = diag[0, 15]
+    diag[1, 11:16] = ctrl
     return contacts, outs[:6], diag, outs[10:]
 
 
@@ -675,24 +674,24 @@ def step_kernel_plain(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
 # ---------------------------------------------------------------------------
 
 def step_kernel(old: Contacts, nb_raw, keys, thr, b, anchor, anchor_quat,
-                params: SolverParams, n_main: int, k_rebuild: int,
-                joints=None, springs=None, n_colors: int = 1, cand=None):
+                params: SolverParams, n_main: int, k_rebuild: int, cand,
+                joints=None, springs=None, n_colors: int = 1):
     """K1: phases 2-6 of one step plus the end-of-step control block, with
     the joint/spring branch when ``joints`` or ``springs`` has slots.
     Returns (contacts', (pos, quat, linvel, angvel, prev_linvel,
-    prev_angvel), diag (8, 128), (j_lam, j_pen, s_pen)); with ``cand``,
-    diag's row 1 holds the state layout (``step_kernel_plain``).  The
+    prev_angvel), diag (8, 128), (j_lam, j_pen, s_pen)); diag's row 1
+    holds the state layout from ``cand`` (``step_kernel_plain``).  The
     kernel reads and writes the cache's bool stick latches itself."""
     if b.pos.device.type == "cpu":
         return step_kernel_plain(old, nb_raw, keys, thr, b, anchor, anchor_quat,
-                                 params, n_main, k_rebuild, joints, springs, n_colors, cand)
+                                 params, n_main, k_rebuild, cand, joints, springs, n_colors)
     from . import kernels
 
     plan = sweep_plan(b.n, old.other.shape[0], None, joints.dj if joints is not None else 0,
                       springs.ds if springs is not None else 0)
     out = kernels.launch_step(cache_leaves(old), nb_raw, keys, thr, b, anchor,
-                              anchor_quat, params, n_main, k_rebuild, joints, springs,
-                              n_colors, plan=plan, cand=cand)
+                              anchor_quat, params, n_main, k_rebuild, cand, joints, springs,
+                              n_colors, plan=plan)
     step_kernel.launches += 1
     cache_out, body_out, diag, row_out = out
     return Contacts(*cache_out), body_out, diag, row_out
@@ -863,8 +862,8 @@ def step_fused(world: World, params: SolverParams, cap: Capacity, stale_ok: bool
     joints, springs = world.joints, world.springs
     contacts, body_out, diag_v, (j_lam, j_pen, s_pen) = step_kernel(
         world.contacts, bp.nb, bp.key, bp.thr, b, bp.anchor, bp.anchor_quat,
-        params, n_main, k, joints if joints.dj else None,
-        springs if springs.ds else None, cap.joint_colors, cand=bp.cand)
+        params, n_main, k, bp.cand, joints if joints.dj else None,
+        springs if springs.ds else None, cap.joint_colors)
     pos, quat, lv, av, plv, pav = body_out
     bodies = b.replace(pos=pos, quat=quat, linvel=lv, angvel=av,
                        prev_linvel=plv, prev_angvel=pav)

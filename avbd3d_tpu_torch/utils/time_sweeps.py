@@ -184,7 +184,7 @@ def main(argv=None) -> int:
             return solver_cuda.SweepPlan(tile, threads, spt, smem, blk // tile)
 
         def k1_routes(a, blk):
-            old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k = a[:10]
+            old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k, cand = a[:11]
             cache_args = solver_cuda.cache_leaves(old)
             dc = old.other.shape[0]
             res = {"chosen": repr(solver_cuda.sweep_plan(b.n, dc))}
@@ -193,7 +193,7 @@ def main(argv=None) -> int:
             for plan in plans:
                 def call():
                     return kernels.launch_step(cache_args, nb, key, thr, b, anchor, anchor_q, pk,
-                                               n_main, k, plan=plan)
+                                               n_main, k, cand, plan=plan)
                 name = f"{plan.route}_tile{plan.tile}"
                 res[name] = cs.event_ms(call, 20)
                 # The same calls traced: the kernels' own time on the card,
@@ -212,7 +212,7 @@ def main(argv=None) -> int:
             """K1's joint branch with its resident launch on each barrier and
             tile that fits: one cluster, or a cooperative launch of 32- or
             16-body tiles; CUDA-event ms and the kernels' own us per call."""
-            old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k, j, sp, ncol = a
+            old, nb, key, thr, b, anchor, anchor_q, pk, n_main, k, cand, j, sp, ncol = a
             cache_args = solver_cuda.cache_leaves(old)
             dc = old.other.shape[0]
             dj, ds = (j.dj if j is not None else 0), (sp.ds if sp is not None else 0)
@@ -228,7 +228,7 @@ def main(argv=None) -> int:
                 for plan in plans:
                     def call():
                         return kernels.launch_step(cache_args, nb, key, thr, b, anchor, anchor_q, pk,
-                                                   n_main, k, j, sp, ncol, plan=plan)
+                                                   n_main, k, cand, j, sp, ncol, plan=plan)
                     name = f"{plan.route}_tile{plan.tile}_threads{plan.threads}"
                     res.setdefault(name, []).append(cs.event_ms(call, 20))
                     with torch.profiler.profile(

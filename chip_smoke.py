@@ -192,8 +192,9 @@
    and as the float one.  Each kernel's time at the rain-in and settled
    states beside its plain version's, traced and held to one kernel a call,
    and its bound; then the launches of 20 traced settled steps and of a
-   traced falling window (steps 1-100), held to the port's kernels alone:
-   the gates, K1 or the ballistic kernel and K2, the refresh kernels.
+   traced falling window (steps 1-100), held to the port's kernels alone,
+   kernel by kernel to what the launch counters give: the gates, K1's
+   kernels or the ballistic kernel and K2, the refresh kernels.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -270,10 +271,10 @@ def plain_wrappers():
         solver_cuda.step_kernel, solver_cuda.control_lanes = k1, k2
 
 
-def k1_inputs(world, scene, cand: bool = False):
+def k1_inputs(world, scene):
     """The step kernel's operands for the next step of ``world``, prepared
-    as ``solver.step`` prepares them (refresh, gates, variant); with
-    ``cand``, (the operands, the refreshed cache's ``cand``)."""
+    as ``solver.step`` prepares them (refresh, gates, variant), the
+    refreshed cache's ``cand`` among them (index 10)."""
     from avbd3d_tpu_torch import solver, solver_cuda
     from avbd3d_tpu_torch.ops.broadphase import refresh_scalar
 
@@ -284,10 +285,9 @@ def k1_inputs(world, scene, cand: bool = False):
     world = world.replace(bp=bp)
     n_main, k = solver_cuda.select_variant(p, *solver.control_gates(dv, refreshed, p))
     bp, j, sp = world.bp, world.joints, world.springs
-    args = (world.contacts, bp.nb, bp.key, bp.thr, world.bodies, bp.anchor,
-            bp.anchor_quat, p, n_main, k, j if j.dj else None, sp if sp.ds else None,
+    return (world.contacts, bp.nb, bp.key, bp.thr, world.bodies, bp.anchor,
+            bp.anchor_quat, p, n_main, k, bp.cand, j if j.dj else None, sp if sp.ds else None,
             cap.joint_colors)
-    return (args, bp.cand) if cand else args
 
 
 def event_ms(fn, reps: int) -> float:
@@ -1159,7 +1159,7 @@ def joint_step_trace(card, label, step_fn, args, n_steps: int, refreshed: bool):
     (``refreshed``)."""
     from avbd3d_tpu_torch import solver_cuda
 
-    b, j, sp = args[4], args[10], args[11]
+    b, j, sp = args[4], args[11], args[12]
     dj, ds = (j.dj if j is not None else 0), (sp.ds if sp is not None else 0)
     plan = solver_cuda.sweep_plan(b.n, args[0].other.shape[0], None, dj, ds)
     iters = args[8] + int(args[7].post_stabilize)
@@ -1209,15 +1209,15 @@ def jointed_phases(card) -> dict:
               "20 sheets step 100": k1_inputs(sheets["state"], sheets["scene"])}
     err = 0.0
     for (label, args), route in zip(states.items(), ("cluster", "cluster", "grid")):
-        plan = solver_cuda.sweep_plan(args[4].n, args[0].other.shape[0], None, args[10].dj)
+        plan = solver_cuda.sweep_plan(args[4].n, args[0].other.shape[0], None, args[11].dj)
         if plan.route != route:
             fail(f"{label}: the joint branch's plan is {plan}, expected the {route} route")
         err = max(err, compare_k1(args, f"{label}, {plan.route} route"))
     cw, cp, ccap = narrow_cache_rod()
     cargs = k1_inputs(solver.run_steps(cw, cp, ccap, 20), types.SimpleNamespace(params=cp, cap=ccap))
-    plan = solver_cuda.sweep_plan(cargs[4].n, cargs[0].other.shape[0], None, cargs[10].dj)
-    if (plan.route, cargs[0].other.shape[0], cargs[10].dj, ccap.joint_colors) != ("cluster", 1, 2, 2):
-        fail(f"narrow-cache rod: plan {plan}, DC {cargs[0].other.shape[0]}, DJ {cargs[10].dj}, "
+    plan = solver_cuda.sweep_plan(cargs[4].n, cargs[0].other.shape[0], None, cargs[11].dj)
+    if (plan.route, cargs[0].other.shape[0], cargs[11].dj, ccap.joint_colors) != ("cluster", 1, 2, 2):
+        fail(f"narrow-cache rod: plan {plan}, DC {cargs[0].other.shape[0]}, DJ {cargs[11].dj}, "
              f"{ccap.joint_colors} colours; expected one cluster at DC = 1, DJ = 2, 2 colours")
     err = max(err, compare_k1(cargs, "narrow-cache rod step 20, DC = 1, cluster route"))
     # profile_phases on a named jointed scene, and a trace of sheet steps.
@@ -2652,16 +2652,18 @@ FUSED_NOTES = {
                   "the states of phase 21",
     "ballistic_step": "no Pallas kernel: the reference's ballistic step (solver.py:418-447: "
                       "predict and finalize) in XLA, K2 writing lanes 11-15 into its vector; "
-                      "timed at the rain-in state (Stress1000 step 1, N = 1024, DC = 12); "
+                      "timed at the rain-in state (Stress1000 step 1, N = 1024, DC = 12), "
+                      "its bound from the live contacts' normal duals there; "
                       "max_abs_err: the speed lanes' relative difference, bodies and the other "
                       "lanes identical at the states of phase 21"}
 # Float operations a unit, from csrc/fused_stages.cu's statements, rounded
 # down: k_step_gates' freeze test of a body; k_ballistic_step's prediction
 # (OPS_PREDICT_BODY), finalize velocities and speeds of a body and its
-# maxima of a contact slot (4 contacts).
+# maxima of a live contact (s < count of a slot with a partner: a negation,
+# a subtraction, an abs and three maxes).
 OPS_STEP_GATES_BODY = 1
 OPS_BALLISTIC_BODY = OPS_PREDICT_BODY + 60
-OPS_BALLISTIC_SLOT = 12
+OPS_BALLISTIC_CONTACT = 6
 # The falling window phase 21 traces: steps 1-100 of Stress1000, the
 # rain-in's ballistic steps and the first contact steps.
 FALLING_TRACE_STEPS = 100
@@ -2717,7 +2719,7 @@ def compare_fused(label, world, params, cap, k1_plain: bool = True) -> dict:
     ballistic step's bodies and lanes 0-10 those of ``_ballistic_step``, its
     lanes 11, 12, 13, 15 (K2's exact lanes) bit for bit and 14 within 1e-5
     relative, 1e-6 absolute, and lanes 11-15 the bits of K2's own call on
-    the same bodies; K1 with ``cand``: its cache (the bool latches among
+    the same bodies; K1: its cache (the bool latches among
     it), bodies and row 1 in the state layout against ``step_kernel_plain``'s
     (integers identical, floats difference 0, the control lanes 11-15
     within 1e-5 relative as ``compare_k1`` holds them), lane 9 both cand -
@@ -2776,9 +2778,10 @@ def compare_fused(label, world, params, cap, k1_plain: bool = True) -> dict:
             if not same_bits_nan(getattr(full.bodies, f), getattr(full_p.bodies, f))]
 
     # K1's state layout and latches.
-    args, cand = k1_inputs(world, types.SimpleNamespace(params=params, cap=cap), cand=True)
-    cp, bp_, rp, _ = solver_cuda.step_kernel_plain(*args, cand=cand)
-    ck, bk, rk, _ = solver_cuda.step_kernel(*args, cand=cand)
+    args = k1_inputs(world, types.SimpleNamespace(params=params, cap=cap))
+    cand = args[10]
+    cp, bp_, rp, _ = solver_cuda.step_kernel_plain(*args)
+    ck, bk, rk, _ = solver_cuda.step_kernel(*args)
     sync()
     k1_differ = []
     for f in solver_cuda.CACHE_FIELDS:
@@ -2823,21 +2826,51 @@ def fused_bounds(gates_world, wp, b, params) -> dict:
     """The least time for each fused stage kernel: its inputs read once and
     outputs written once, over 3.35 TB/s, against its float operations
     over 67 TFLOP/s; the gates at ``gates_world``, the ballistic step at
-    the frozen world ``wp`` (bodies ``b``)."""
+    the frozen world ``wp`` (bodies ``b``).  The ballistic step needs every
+    slot's count and partner, but the normal dual and the maxima only of
+    the live contacts (s < count where the slot has a partner), which this
+    state's cache gives."""
+    import torch
+
     gb, gbp = gates_world.bodies, gates_world.bp
     gates_in = nbytes([getattr(gb, f) for f in ("pos", "linvel", "angvel", "inv_mass")],
                       gates_world.diagnostics.vec, gbp.slack, gbp.dropped)
     gates_out = nbytes([getattr(gb, f) for f in ("linvel", "angvel", "inv_mass")]) + 18 * 4
     c = wp.contacts
+    s = torch.arange(4, device=c.count.device).view(4, *([1] * c.count.dim()))
+    live = int(((s < c.count) & (c.other >= 0)).sum())
     bal_in = nbytes([getattr(b, f) for f in ("pos", "quat", "linvel", "angvel", "prev_linvel",
                                              "prev_angvel", "inv_mass")],
-                    c.count, c.other, c.lam[0::3])
+                    c.count, c.other) + live * c.lam.element_size()
     bal_out = nbytes([getattr(b, f) for f in ("pos", "quat", "linvel", "angvel", "prev_linvel",
                                               "prev_angvel")]) + 16 * 4
-    slots = int((c.other >= 0).sum())
     return {"step_gates": bound(gates_in + gates_out, gb.n * OPS_STEP_GATES_BODY),
             "ballistic_step": bound(bal_in + bal_out,
-                                    b.n * OPS_BALLISTIC_BODY + slots * OPS_BALLISTIC_SLOT)}
+                                    b.n * OPS_BALLISTIC_BODY + live * OPS_BALLISTIC_CONTACT),
+            "live_contacts": live}
+
+
+def block_kernels(w, p, cap, steps: int) -> dict:
+    """The port's kernels, by name without template arguments, in a
+    ``torch.profiler`` trace of ``steps`` steps from ``w``.  The session
+    opens with one launch of K7 (``k_probe``, which no step launches) and
+    leaves it out of the count: on the H100 the profiler drops the first
+    record of the port's kernels in a session, whatever torch ran before
+    it (there, a fused block's first ``k_step_gates``)."""
+    import torch
+
+    from avbd3d_tpu_torch import solver, solver_cuda
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solver_cuda.bp_probe(w.bp.nb, w.bodies, p)
+        solver.run_steps(w, p, cap, steps)
+        sync()
+    got = collections.Counter()
+    for e in prof.key_averages():
+        name = kernel_name(e.key).split("<")[0]
+        if own_kernel(e.key) and name != "k_probe":
+            got[name] += e.count
+    return dict(got)
 
 
 def fused_step_trace(card, label, w, p, cap, steps: int, want_ballistic: bool) -> dict:
@@ -2848,12 +2881,15 @@ def fused_step_trace(card, label, w, p, cap, steps: int, want_ballistic: bool) -
     kernel and K2 once a ballistic step (some when ``want_ballistic``, none
     otherwise), the refresh kernels on refresh steps, by the counters; in
     the trace no kernel but the port's (the host read's copy and K1's
-    counter memset aside) and no more of them than the counters give
-    (``step_kernel_count``'s K1 kernels a contact step, 3 a ballistic step,
-    2 a refresh; the profiler may drop a record, never add one).  Returns
-    the launches a step by the counters and in the trace, a contact and a
-    ballistic step's, device us and idle share."""
-    from avbd3d_tpu_torch import solver_cuda
+    counter memset aside).  The port's kernels of the same block, traced
+    again in a session of their own (``block_kernels``), must be what the
+    counters give, kernel by kernel: ``k_step_gates`` a step,
+    ``k_ballistic_step`` and ``k_control_lanes`` a ballistic step, the two
+    refresh kernels a refresh, and K1's ``step_kernel_count`` kernels a
+    contact step; a trace that lost records is taken again, up to twice.
+    Returns the launches a step, a contact and a ballistic step as that
+    trace counted them, device us and idle share."""
+    from avbd3d_tpu_torch import solver, solver_cuda
     from avbd3d_tpu_torch.utils import profile_phases
 
     plan = solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0])
@@ -2863,27 +2899,42 @@ def fused_step_trace(card, label, w, p, cap, steps: int, want_ballistic: bool) -
     c = {k: v // 2 for k, v in read_counts().items()}   # the untraced and the traced block
     gates, contact, ballistic = c["step_gates"], c["step_kernel"], c["ballistic_step"]
     refresh = c["candidate_lists"]
-    counted = gates + per_contact * contact + 2 * ballistic + 2 * refresh
-    own = sum(n for name, _us, n in r["kernels"] if own_kernel(name))
     other = {kernel_name(name)[:60]: n for name, _us, n in r["kernels"]
              if not own_kernel(name) and not name.startswith(("Memcpy", "Memset"))}
-    per = r["launches"] / steps
-    print(f"[{card}] {label}, traced ({steps} steps): {counted / steps:.2f} launches a step by "
-          f"the counters, {per:.2f} in the trace ({contact} contact steps: 1 + {per_contact} "
-          f"each; {ballistic} ballistic: 3 each; {refresh} refreshes: 2 each), torch's {other}; "
-          f"device {r['device_us'] / steps:.1f} us a step, idle share "
+    if not (gates == steps and contact + ballistic == steps and c["control_lanes"] == ballistic
+            and (ballistic > 0) == want_ballistic and not other and not c["bp_probe"]):
+        fail(f"{label}: counters {c}, torch's {other}; expected the gates {steps}, a contact or "
+             "a ballistic step each step, K2 a ballistic step, no K7 and no torch kernel")
+    want = {"k_step_gates": gates, "k_ballistic_step": ballistic, "k_control_lanes": ballistic,
+            "k_bp_tables": refresh, "k_bp_lists": refresh}
+    for attempt in range(3):
+        got = collections.Counter(block_kernels(w, p, cap, steps))
+        k1 = sum(n for name, n in got.items() if name not in want)
+        ok = {k: got[k] for k in want} == want and k1 == per_contact * contact
+        if ok or attempt == 2:
+            break
+        print(f"{label}: the trace lost records ({dict(got)}); tracing again")
+    if not ok:
+        fail(f"{label}: the trace shows {dict(got)} (K1's {k1}); the counters give {want} and "
+             f"K1's {per_contact} kernels in each of {contact} contact steps")
+    traced = sum(got.values())
+    per_gates = got["k_step_gates"] / steps
+    per_contact_step = per_gates + k1 / contact if contact else None
+    per_ballistic_step = (per_gates + (got["k_ballistic_step"] + got["k_control_lanes"])
+                          / ballistic) if ballistic else None
+    each = {k: "-" if v is None else f"{v:.2f}" for k, v in (("contact", per_contact_step),
+                                                            ("ballistic", per_ballistic_step))}
+    print(f"[{card}] {label}, traced ({steps} steps): {traced / steps:.2f} launches a step "
+          f"({contact} contact steps: {each['contact']} each; {ballistic} ballistic: "
+          f"{each['ballistic']} each; {refresh} refreshes: the 2 refresh kernels each), "
+          f"{r['launches'] / steps:.2f} in the timed trace, torch's {other}; device "
+          f"{r['device_us'] / steps:.1f} us a step, idle share "
           f"{100.0 * (1.0 - r['busy']):.1f}%, {r['wall_s'] * 1e3 / steps:.3f} ms a step traced, "
           f"{r['untraced_s'] * 1e3 / steps:.3f} untraced")
-    if not (gates == steps and contact + ballistic == steps and c["control_lanes"] == ballistic
-            and (ballistic > 0) == want_ballistic and not other and own == r["launches"]
-            and r["launches"] <= counted):
-        fail(f"{label}: counters {c}, the trace's {r['launches']} launches ({own} of the "
-             f"port's), torch's {other}; expected the gates {steps}, K1's {per_contact} a "
-             "contact step, 3 a ballistic step, 2 a refresh and no torch kernel")
-    return {"launches_per_step": counted / steps, "traced_launches_per_step": per,
+    return {"launches_per_step": traced / steps, "by_kernel": dict(got),
             "contact_steps": contact, "ballistic_steps": ballistic, "refresh_steps": refresh,
-            "launches_per_contact_step": 1 + per_contact,
-            "launches_per_ballistic_step": 3 if ballistic else None,
+            "launches_per_contact_step": per_contact_step,
+            "launches_per_ballistic_step": per_ballistic_step,
             "device_us_per_step": r["device_us"] / steps, "idle_share": 1.0 - r["busy"],
             "ms_per_step": r["wall_s"] * 1e3 / steps,
             "untraced_ms_per_step": r["untraced_s"] * 1e3 / steps, "torch": other}
@@ -2926,6 +2977,8 @@ def fused_phase(card, scene, saved, jointed) -> dict:
         fail("fused stages: the non-finite velocities were not sanitized")
     wp, b, _p = out["Stress1000 step 1 (its next step ballistic)"]["args"]
     bounds = fused_bounds(settled, wp, b, p)
+    print(f"k_ballistic_step's bound at Stress1000 step 1: {bounds['live_contacts']} live "
+          f"contacts of {4 * wp.contacts.other.numel()} slots' (their normal duals read)")
     times = {}
     calls = {"step_gates": (lambda: solver.step_gates(settled, p),
                             lambda: solver.step_gates_plain(settled, p),
@@ -2938,6 +2991,8 @@ def fused_phase(card, scene, saved, jointed) -> dict:
                              call, plain)
         t["plain_launches"], t["plain_device_us"] = device_launches(plain, 2)
         t["bound_ms"], t["bound_by"] = bounds[name]
+        if name == "ballistic_step":
+            t["live_contacts"] = bounds["live_contacts"]
         print(f"[{card}] {name}: kernel {t['ms']:.4f} ms a call ({t['device_us']:.2f} us on the "
               f"card), plain {t['plain_ms']:.4f} ms ({t['plain_launches']:.0f} launches, "
               f"{t['plain_device_us']:.1f} us on the card); bound {t['bound_ms'] * 1e3:.3f} us "
@@ -3121,8 +3176,8 @@ def race_routes(states: dict) -> list:
 
     def k1(label, args, plan=None):
         want = solver_cuda.sweep_plan(args[4].n, args[0].other.shape[0], None,
-                                      args[10].dj if args[10] is not None else 0,
-                                      args[11].ds if args[11] is not None else 0)
+                                      args[11].dj if args[11] is not None else 0,
+                                      args[12].ds if args[12] is not None else 0)
         plan = plan or want
         old, rest = args[0], args[1:]
 
@@ -3145,7 +3200,7 @@ def race_routes(states: dict) -> list:
     for name in ("RodJointed step 30", "SoftGrid step 5", "20 sheets step 100"):
         k1(name, states[name])
     rod = states["RodJointed step 30"]
-    plan = solver_cuda.sweep_plan(rod[4].n, rod[0].other.shape[0], None, rod[10].dj)
+    plan = solver_cuda.sweep_plan(rod[4].n, rod[0].other.shape[0], None, rod[11].dj)
     k1("RodJointed step 30, forced", rod, dataclasses.replace(plan, cluster=0, grid=1))
     # K7 and K2: one launch each, whose last block folds every block's
     # partials after a ticket.
@@ -3237,7 +3292,7 @@ a = cs.k1_inputs(w, sc)
 if target.startswith("K3"):
     solver_cuda.collide_and_init(*a[:5], a[7])
 elif "grid" in target:
-    plan = solver_cuda.sweep_plan(a[4].n, a[0].other.shape[0], None, a[10].dj)
+    plan = solver_cuda.sweep_plan(a[4].n, a[0].other.shape[0], None, a[11].dj)
     kernels.launch_step(solver_cuda.cache_leaves(a[0]), *a[1:],
                         plan=dataclasses.replace(plan, cluster=0, grid=1))
 else:
@@ -3355,7 +3410,7 @@ def bound(n_bytes: float, ops: float) -> tuple:
 def k1_bound(args, outs) -> tuple:
     """K1 on ``args`` (k1_inputs): read once, written once; SAT per kept
     directed slot, sweeps over occupied cache slots, bodies and row slots."""
-    old, nb, key, thr, b, anchor, anchor_q, p, n_main, _k, j, sp, n_colors = args
+    old, nb, key, thr, b, anchor, anchor_q, p, n_main, _k, cand, j, sp, n_colors = args
     contacts, body_out, diag, rows = outs
     n, iters = b.n, n_main + (1 if p.post_stabilize else 0)
     slots = int((contacts.other >= 0).sum())
@@ -3377,7 +3432,7 @@ def k1_bound(args, outs) -> tuple:
     if sp is not None:
         rows_in += [getattr(sp, f) for f in ("other", "world", "side", "anchor_a", "anchor_b",
                                              "rrest", "rstiff", "penalty")]
-    return bound(nbytes(old, nb, key, thr, body_in, anchor, anchor_q, rows_in, contacts,
+    return bound(nbytes(old, nb, key, thr, cand, body_in, anchor, anchor_q, rows_in, contacts,
                         body_out, diag, [r for r in rows if r is not None]), ops)
 
 

@@ -217,26 +217,26 @@ def touching():
                                    tp.bp_margin)
     gates = solver.control_gates(dv, refreshed, tp)
     args = (tw.contacts, bp.nb, bp.key, bp.thr, tw.bodies, bp.anchor, bp.anchor_quat, tp,
-            *solver_cuda.select_variant(tp, *gates))
+            *solver_cuda.select_variant(tp, *gates), bp.cand)
     return {"world": tw.replace(bp=bp), "params": tp, "gates": gates, "args": args,
-            "cand": bp.cand, "ref": np.asarray(ref), "ref_up": np.asarray(ref_up)}
+            "ref": np.asarray(ref), "ref_up": np.asarray(ref_up)}
 
 
 def test_k1_state_row_matches_reference(touching):
-    """K1's plain version with ``cand``: row 1 is row 0 in the state layout
-    (lanes 0-8, the pair overflow cand - kept as an int32 difference and as
-    the float one the port took before, the dropped manifolds, the control
-    lanes), the rest of the row 0, and equals the reference's assembled
+    """K1's plain version: row 1 is row 0 in the state layout (lanes 0-8,
+    the pair overflow cand - kept as an int32 difference and as the float
+    one the port took before, the dropped manifolds, the control lanes),
+    the rest of the row 0, and equals the reference's assembled
     diagnostics after step_pallas (count lanes identical, the others within
-    the tolerance of the module docstring); without ``cand`` row 1 is 0."""
-    args, cand = touching["args"], touching["cand"]
-    _c, _b, diag, _rows = solver_cuda.step_kernel_plain(*args, cand=cand)
+    the tolerance of the module docstring)."""
+    args = touching["args"]
+    cand = args[10]
+    _c, _b, diag, _rows = solver_cuda.step_kernel_plain(*args)
     row0, row1 = diag[0], diag[1]
     want = torch.cat([row0[:9], (cand.to(torch.float32) - row0[9]).reshape(1), row0[15:16],
                       row0[10:15]])
     assert torch.equal(row1[:16], want) and not row1[16:].any()
     assert float(row1[9]) == float(cand - row0[9].to(torch.int32))
-    assert not solver_cuda.step_kernel_plain(*args)[2][1].any()
     tv, jv = row1[:16].numpy(), touching["ref"]
     np.testing.assert_array_equal(tv[5:11], jv[5:11])
     assert tv[5] > 50 and tv[7] == 32, tv
@@ -249,8 +249,7 @@ def test_k1_state_row_matches_reference(touching):
 def test_step_fused_diagnostics_are_k1_row(touching):
     """step_fused's diagnostics are K1's row 1 as it is (no reordering op),
     its contacts the kernel's cache with bool latches."""
-    args, cand = touching["args"], touching["cand"]
-    contacts, _b, diag, _rows = solver_cuda.step_kernel_plain(*args, cand=cand)
+    contacts, _b, diag, _rows = solver_cuda.step_kernel_plain(*touching["args"])
     out = solver_cuda.step_fused(touching["world"], touching["params"], Capacity(),
                                  *touching["gates"])
     assert out.contacts.stick.dtype == torch.bool
@@ -266,7 +265,7 @@ class _NoKernels(types.ModuleType):
 
 
 def test_cpu_tensors_take_the_plain_versions(base, monkeypatch):
-    """On CPU tensors the two wrappers, K1 with ``cand`` and K2 with
+    """On CPU tensors the two wrappers, K1 and K2 with
     ``out`` run their plain versions, the kernels module is never touched
     and no count moves; a fused step neither, with one host read."""
     trap = _NoKernels("avbd3d_tpu_torch.kernels")
@@ -331,13 +330,14 @@ def test_fused_launchers_reject_bad_operands_before_building(base, touching, no_
         kernels.launch_ballistic_step(b, c, tp)
     with pytest.raises(ValueError, match="shape"):
         kernels.launch_control(bp.nb, b, bp.anchor, bp.anchor_quat, tp, out=vec[10:])
-    args, cand = touching["args"], touching["cand"]
+    args = touching["args"]
     old, rest = args[0], args[1:]
     plan = solver_cuda.sweep_plan(old.other.shape[1] * 128, old.other.shape[0])
     floats = solver_cuda.cache_to_args(old)
     with pytest.raises(TypeError, match="cache"):
-        kernels.launch_step(floats, *rest, plan=plan, cand=cand)
+        kernels.launch_step(floats, *rest, plan=plan)
     with pytest.raises(TypeError, match="cand"):
-        kernels.launch_step(solver_cuda.cache_leaves(old), *rest, plan=plan, cand=cand.float())
+        kernels.launch_step(solver_cuda.cache_leaves(old), *rest[:9], args[10].float(),
+                            plan=plan)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.launch_step(solver_cuda.cache_leaves(old), *rest, plan=plan, cand=cand)
+        kernels.launch_step(solver_cuda.cache_leaves(old), *rest, plan=plan)

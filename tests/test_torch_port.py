@@ -73,7 +73,7 @@ def test_wrappers_run_plain_versions_on_cpu():
                                     sc.params.bp_margin))
     bp = w.bp
     args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
-            sc.params, 10, 4)
+            sc.params, 10, 4, bp.cand)
     solver_cuda.reset_launch_counts()
     c1, b1, d1, r1 = solver_cuda.step_kernel(*args)
     c2, b2, d2, _r2 = solver_cuda.step_kernel_plain(*args)
@@ -93,7 +93,7 @@ def test_wrappers_run_plain_versions_on_cpu():
     # K3 then K4 at the scene's iterations is K1 without the control lanes.
     assert torch.equal(k3[0].count, c1.count) and int(k3[1]) == int(d1[0, 9])
     plain = solver_cuda.step_kernel_plain(*args[:8], sc.params.iterations,
-                                          sc.params.lhs_rebuild_every)
+                                          sc.params.lhs_rebuild_every, bp.cand)
     assert torch.equal(k4[0].pos, plain[1][0]) and torch.equal(k4[4][0, :9], plain[2][0, :9])
 
 
@@ -243,7 +243,7 @@ def test_cuda_step_kernel_matches_plain(cuda_stress):
                                     sc.params.bp_margin))
     bp = w.bp
     args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
-            sc.params, 20, 4)
+            sc.params, 20, 4, bp.cand)
     cp, bp_, dp, _ = solver_cuda.step_kernel_plain(*args)
     ck, bk, dk, _ = solver_cuda.step_kernel(*args)
     torch.cuda.synchronize()
@@ -552,7 +552,7 @@ def test_cuda_fused_stages_match_plain(cuda_rain, name):
 
 @pytest.mark.cuda
 def test_cuda_step_kernel_state_row_and_latches_match_plain(cuda_rain):
-    """K1 with ``cand`` at a landing Stress1000 state: its new cache's bool
+    """K1 at a landing Stress1000 state: its new cache's bool
     latches and its row 1 in the state layout equal the plain version's
     (lanes 0-10 identical, the control lanes within 1e-5 relative), lane 9
     both cand - kept in int32 and in float32; a fused step's diagnostics
@@ -560,9 +560,9 @@ def test_cuda_step_kernel_state_row_and_latches_match_plain(cuda_rain):
     sc, _rain, w = cuda_rain
     bp = w.bp
     args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
-            sc.params, 20, 4)
-    cp, _bp, dp, _ = solver_cuda.step_kernel_plain(*args, cand=bp.cand)
-    ck, _bk, dk, _ = solver_cuda.step_kernel(*args, cand=bp.cand)
+            sc.params, 20, 4, bp.cand)
+    cp, _bp, dp, _ = solver_cuda.step_kernel_plain(*args)
+    ck, _bk, dk, _ = solver_cuda.step_kernel(*args)
     torch.cuda.synchronize()
     assert ck.stick.dtype == torch.bool and torch.equal(cp.stick, ck.stick)
     assert torch.equal(dp[1, :11], dk[1, :11]), (dp[1, :16], dk[1, :16])
@@ -570,7 +570,6 @@ def test_cuda_step_kernel_state_row_and_latches_match_plain(cuda_rain):
     assert float(dk[1, 9]) == float(bp.cand.float() - dk[0, 9])
     assert float(dk[1, 9]) == float(bp.cand - dk[0, 9].to(torch.int32))
     assert not dk[1, 16:].any() and not dk[2:].any()
-    assert not solver_cuda.step_kernel(*args)[2][1].any()
 
 
 def rel_err(a, b):
@@ -616,7 +615,7 @@ def test_cuda_step_kernel_with_joints_matches_plain():
                                     sc.params.bp_margin))
     bp = w.bp
     args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
-            sc.params, 20, 4, w.joints, None, sc.cap.joint_colors)
+            sc.params, 20, 4, bp.cand, w.joints, None, sc.cap.joint_colors)
     cp, bp_, dp, rp = solver_cuda.step_kernel_plain(*args)
     ck, bk, dk, rk = solver_cuda.step_kernel(*args)
     torch.cuda.synchronize()
@@ -644,7 +643,8 @@ def test_cuda_wrappers_raise_on_bad_operands(cuda_stress):
     bad = rw.joints.replace(side=rw.joints.side.float())
     with pytest.raises(TypeError, match="side"):
         solver_cuda.step_kernel(rw.contacts, rw.bp.nb, rw.bp.key, rw.bp.thr, rw.bodies,
-                                rw.bp.anchor, rw.bp.anchor_quat, rod.params, 20, 4, bad, None, 2)
+                                rw.bp.anchor, rw.bp.anchor_quat, rod.params, 20, 4, rw.bp.cand,
+                                bad, None, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +681,7 @@ def test_cuda_step_kernel_routes_match_plain(cuda_stress, route, tile):
     bp, b = w.bp, w.bodies
     plan = forced_plan(tile, 12, 1024 if route == "cluster" else 0)
     assert plan.route == route
-    args = (bp.nb, bp.key, bp.thr, b, bp.anchor, bp.anchor_quat, sc.params, 20, 4)
+    args = (bp.nb, bp.key, bp.thr, b, bp.anchor, bp.anchor_quat, sc.params, 20, 4, bp.cand)
     plain = solver_cuda.step_kernel_plain(w.contacts, *args)
     new, body, diag, _rows = kernels.launch_step(solver_cuda.cache_leaves(w.contacts), *args,
                                                  plan=plan)
@@ -705,7 +705,7 @@ def test_cuda_small_world_takes_cluster_route(scene, steps, cluster):
     assert (plan.route, plan.cluster) == ("cluster", cluster)
     bp = w.bp
     args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
-            sc.params, sc.params.iterations, 4)
+            sc.params, sc.params.iterations, 4, bp.cand)
     plain = solver_cuda.step_kernel_plain(*args)
     ck, bk, dk, _ = solver_cuda.step_kernel(*args)
     torch.cuda.synchronize()
@@ -727,7 +727,7 @@ def test_cuda_step_kernel_at_2048_takes_launch_route():
     assert solver_cuda.sweep_plan(w.bodies.n, w.contacts.other.shape[0]).route == "launches"
     bp = w.bp
     args = (w.contacts, bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat,
-            sc.params, 20, 4)
+            sc.params, 20, 4, bp.cand)
     plain = solver_cuda.step_kernel_plain(*args)
     ck, bk, dk, _ = solver_cuda.step_kernel(*args)
     torch.cuda.synchronize()
@@ -756,8 +756,8 @@ def test_cuda_joint_branch_matches_plain_bitwise(scene, steps, route):
     assert (plan.route, plan.cluster) == ("cluster", n // 32)
     if route == "grid":
         plan = dataclasses.replace(plan, cluster=0, grid=1)
-    args = (bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat, sc.params, 20, 4, j,
-            None, sc.cap.joint_colors)
+    args = (bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat, sc.params, 20, 4,
+            bp.cand, j, None, sc.cap.joint_colors)
     plain = solver_cuda.step_kernel_plain(w.contacts, *args)
 
     def launch():
@@ -791,8 +791,8 @@ def test_cuda_joint_branch_with_narrow_cache_matches_plain(route):
     assert (dc, j.dj, plan.route) == (1, 2, "cluster") and int(w.contacts.count.sum()) > 0
     if route == "grid":
         plan = dataclasses.replace(plan, cluster=0, grid=1)
-    args = (bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat, p, 20, 4, j, None,
-            cap.joint_colors)
+    args = (bp.nb, bp.key, bp.thr, w.bodies, bp.anchor, bp.anchor_quat, p, 20, 4, bp.cand, j,
+            None, cap.joint_colors)
     plain = solver_cuda.step_kernel_plain(w.contacts, *args)
     new, body, diag, rows = kernels.launch_step(solver_cuda.cache_leaves(w.contacts), *args,
                                                 plan=plan)
@@ -835,7 +835,7 @@ def test_cuda_cluster_launch_that_cannot_run_raises(cuda_stress):
                                     sc.params.bp_margin))
     bp = w.bp
     args = (solver_cuda.cache_leaves(w.contacts), bp.nb, bp.key, bp.thr, w.bodies, bp.anchor,
-            bp.anchor_quat, sc.params, 20, 4)
+            bp.anchor_quat, sc.params, 20, 4, bp.cand)
     for plan in (forced_plan(64, 12, 512), forced_plan(32, 12, 1024)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernels.launch_step(*args, plan=plan)
@@ -856,7 +856,8 @@ def test_cuda_grid_route_refused_without_rows(cuda_stress):
     assert plan.route == "grid"
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels.launch_step(solver_cuda.cache_leaves(w.contacts), bp.nb, bp.key, bp.thr,
-                            w.bodies, bp.anchor, bp.anchor_quat, sc.params, 20, 4, plan=plan)
+                            w.bodies, bp.anchor, bp.anchor_quat, sc.params, 20, 4, bp.cand,
+                            plan=plan)
 
 
 @pytest.mark.cuda
