@@ -213,7 +213,17 @@ __device__ __forceinline__ V3 half_of(const float* size, int i, int n) {
   return v3(size[i] * F(0.5), size[n + i] * F(0.5), size[2 * n + i] * F(0.5));
 }
 
-// Block tree reduction of 8 lanes: op 0 = max, 1 = min, 2 = sum.
+// torch.max's max and torch.min's min: NaN if either is NaN (fmaxf and
+// fminf drop a NaN); on other values their bits.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+}
+
+// Block tree reduction of 8 lanes: op 0 = max, 1 = min (NaN propagating,
+// as the plain version's torch.max / torch.min), 2 = sum.
 static __device__ void block_reduce(float* vals, const int* ops, int k, float* sh) {
   int tid = threadIdx.x;
   for (int j = 0; j < k; ++j) sh[j * CTRL_THREADS + tid] = vals[j];
@@ -222,7 +232,7 @@ static __device__ void block_reduce(float* vals, const int* ops, int k, float* s
     if (tid < s) {
       for (int j = 0; j < k; ++j) {
         float a = sh[j * CTRL_THREADS + tid], b = sh[j * CTRL_THREADS + tid + s];
-        sh[j * CTRL_THREADS + tid] = ops[j] == 0 ? fmaxf(a, b) : (ops[j] == 1 ? fminf(a, b) : a + b);
+        sh[j * CTRL_THREADS + tid] = ops[j] == 0 ? max_nan(a, b) : (ops[j] == 1 ? min_nan(a, b) : a + b);
       }
     }
     __syncthreads();
@@ -249,10 +259,10 @@ static __device__ void control_lanes_block(const CtrlIn& in, const KParams& p, f
       int idx = valid ? nbv : 0;
       V3 pp = ld3(in.pos, idx, n);
       V3 pwh = world_halves(ld4(in.quat, idx, n), half_of(in.size, idx, n));
-      float gap = fmaxf(fmaxf(fabsf(pp.x - pos.x) - (wh.x + pwh.x),
-                              fabsf(pp.y - pos.y) - (wh.y + pwh.y)),
-                        fabsf(pp.z - pos.z) - (wh.z + pwh.z));
-      if (valid) min_gap = fminf(min_gap, gap);
+      float gap = max_nan(max_nan(fabsf(pp.x - pos.x) - (wh.x + pwh.x),
+                                  fabsf(pp.y - pos.y) - (wh.y + pwh.y)),
+                          fabsf(pp.z - pos.z) - (wh.z + pwh.z));
+      if (valid) min_gap = min_nan(min_gap, gap);
       float reach = (travel_i + travel_of(in, idx, p)) + p.reach_const;
       near = near || (valid && (gap - reach <= p.collision_margin));
     }
@@ -261,8 +271,8 @@ static __device__ void control_lanes_block(const CtrlIn& in, const KParams& p, f
     bool dyn = in.inv_mass[i] > F(0.0);
     bool alive = dyn && (p.has_fall_freeze == F(0.0) || pos.y >= p.fall_freeze_y);
     float v2 = alive ? speed_sq : F(0.0);
-    gate = fmaxf(gate, v2);
-    near_speed = fmaxf(near_speed, near ? v2 : F(0.0));
+    gate = max_nan(gate, v2);
+    near_speed = max_nan(near_speed, near ? v2 : F(0.0));
     V3 disp = vsub(pos, ld3(in.anchor, i, n));
     float disp2 = disp.x * disp.x + disp.y * disp.y + disp.z * disp.z;
     bool moved = dyn || disp2 > F(0.0);
@@ -289,8 +299,8 @@ static __device__ void control_lanes_block(const CtrlIn& in, const KParams& p, f
     float chord = F(2.0) * fminf(svec, F(1.0)) * fmaxf(in.radius[i], F(0.0));
     V3 e = vsub(disp, t);
     float dev = sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + chord;
-    dev_mm = fmaxf(dev_mm, moved ? dev : F(0.0));
-    dev_raw = fmaxf(dev_raw, moved ? sqrtf(disp2) + chord : F(0.0));
+    dev_mm = max_nan(dev_mm, moved ? dev : F(0.0));
+    dev_raw = max_nan(dev_raw, moved ? sqrtf(disp2) + chord : F(0.0));
   }
   float v2r[2] = {dev_mm, dev_raw};
   const int ops2[2] = {0, 0};
@@ -416,10 +426,6 @@ __device__ __forceinline__ float dev_mm_block(const float4* dv, int n, V3 t, flo
 //   quat_mul's torch.stack):
 #define VNORM3_XZY(v) sqrtf(((v).x * (v).x + (v).z * (v).z) + (v).y * (v).y)
 
-// torch.max's max: NaN if either is NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
 
 __device__ __forceinline__ bool finite4(Q4 q) {
   return isfinite(q.x) && isfinite(q.y) && isfinite(q.z) && isfinite(q.w);

@@ -21,25 +21,38 @@
 //
 // What bounds it on the H100: operations.  The pair test is ~15 float
 // operations on each of N^2 pairs (3.9e8 at N = 5120, ~6 us at 67 TFLOP/s);
-// the bytes are the 32-byte column table, N^2 reads of it from L2 and one
-// from device memory.  Design, simple first:
+// the bytes are the 32-byte column table, read once from device memory and
+// once a block from L2.  Design:
 //
 // 1. k_bp_tables, a thread a body: the world-AABB halves (world_halves,
 //    the plain version's operations), written with the centre, radius and
 //    dynamic flag as one 32-byte table row (two float4), and the largest
 //    half extent folded by the last block to finish (a ticket), which fixes
 //    the keys' range and scale.
-// 2. k_bp_lists, a block a row: every column's key, or INT32_MAX for an
-//    unmasked one, into shared memory (N int32: 20 KB at N = 5120, 64 KB at
-//    16384); the block's count and slack; when the row has more than D
-//    candidates, the D-th smallest key by bisection on the key's value (the
-//    keys are unique, so each round counts the keys <= mid); the selected
-//    keys (<= that key) compacted into shared memory, each written at its
-//    rank among them (<= D^2 comparisons).  Rows of static bodies (the
-//    ground, padding) select nothing and skip the columns.  Each block
-//    writes its count, kept slots and slack; the last block to finish folds
-//    them in index order (integer sums and a min: exact in any order) into
-//    cand, kept, dropped = cand - kept and slack.
+// 2. k_bp_lists, a block of 8 warps takes 2 to 32 consecutive rows (a
+//    warp owns 1, 2 or 4 of them, or each of 2 or 4 rows has its columns
+//    split over 4 or 2 warps; the launcher picks the most rows that still
+//    give the SMs 1.5 blocks each).  The column table streams through shared
+//    memory in tiles of BPL_TILE bodies (cp.async, one tile ahead), and
+//    every row of the block tests each staged column: L2 reads fall by the
+//    rows a block.  Each tile's chunks of 32 columns are folded into bounds
+//    (the axes' extents, the radii), and a row passes over a chunk none of
+//    whose columns can be listed or lower its slack (chunk_passes: exact,
+//    with a margin for the float gap's rounding), so a spatially ordered
+//    world tests a few chunks a row.  A warp's lane takes a column; a row's
+//    masked keys go by ballot into the row's buffer of BPL_CAP keys in
+//    shared memory, at the count before them.  A full buffer is cut to its
+//    D smallest keys (bp_cut: each key written at its rank), which is
+//    exact: the keys are unique, and a key outside the D smallest of a
+//    subset is outside the D smallest of the row.  At the end the buffer is
+//    cut once more, which leaves the selection ascending (a split row's
+//    parts are then merged by rank); then the slots, the partners key % N
+//    and the threshold.  Shared memory does not grow with N.  Rows of
+//    static bodies (the ground, padding) select nothing, and a block of
+//    them skips the columns.  Each block writes its count, kept slots and
+//    slack; the last block to finish folds them in index order (integer
+//    sums and a min: exact in any order) into cand, kept, dropped = cand -
+//    kept and slack.
 //
 // The row table and the column table are separate operands (rows with their
 // global offset row0): a body-sharded world passes its all-gathered columns
@@ -59,6 +72,36 @@
 #define BPL_THREADS 256
 #define BPL_WARPS (BPL_THREADS / 32)
 #define BP_MAX_DEGREE 64
+#define BPL_CAP (2 * BP_MAX_DEGREE)  // a row's selection buffer, keys
+#define BPL_TILE 1024                // columns a shared-memory tile (32 chunks of 32)
+#define BPL_RPW 4                    // the most slots (rows or parts of rows) a warp takes
+#define BPL_MAX_SPLIT 4              // the most slots a row's columns are split over
+#define BPL_CHUNKS (BPL_TILE / 32)
+static_assert(BPL_CHUNKS == 32 && BPL_TILE % BPL_THREADS == 0 && BPL_THREADS == 8 * BPL_CHUNKS,
+              "a lane tests a chunk of a tile, 8 threads fold its bounds");
+// Dynamic shared memory of k_bp_lists: two tiles of columns (two float4 a
+// column), filled by cp.async.
+#define BPL_DYN_SMEM (2 * 2 * BPL_TILE * 16)
+
+// cp.async of 16 bytes into shared memory, and its group fence / wait.
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 0;\n" ::);
+#endif
+}
 #define RN_THREADS 256
 #define KEY_NONE 0x7fffffff  // INT32_MAX: no key (an unmasked column; no threshold)
 
@@ -122,22 +165,123 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// A row's selection buffer (cnt unique keys in buf[0 .. cnt)) cut to its
+// ``keep`` smallest keys, each written at its rank: buf[0 .. min(cnt, keep))
+// ascending.  By the whole warp that owns the row; lane l ranks entries l,
+// l + 32, ... against every entry (the keys are unique, so the ranks are
+// distinct).  Returns min(cnt, keep).
+__device__ __forceinline__ int bp_cut(int* buf, int cnt, int keep, int lane) {
+  constexpr int PER = BPL_CAP / 32;
+  int v[PER], rk[PER];
+#pragma unroll
+  for (int s = 0; s < PER; ++s) {
+    v[s] = lane + 32 * s < cnt ? buf[lane + 32 * s] : KEY_NONE;
+    rk[s] = 0;
+  }
+  for (int t = 0; t < cnt; ++t) {
+    const int x = buf[t];
+#pragma unroll
+    for (int s = 0; s < PER; ++s) rk[s] += x < v[s];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < PER; ++s)
+    if (lane + 32 * s < cnt && rk[s] < keep) buf[rk[s]] = v[s];
+  __syncwarp();
+  return cnt < keep ? cnt : keep;
+}
+
+// A chunk of 32 columns (within a tile) as the bounds that decide whether a
+// row can pass over it: per axis the least c - half and the largest c +
+// half (a NaN on an axis in any column makes that axis' bounds NaN, so no
+// row uses it), the largest |c| + |half| over axes and columns, the largest
+// radius, and the largest radius of a static column (-inf without one).
+// Min and max are exact in any order.  By 8 threads a chunk (a thread folds
+// columns sub, sub + 8, ... of the 32, then the 8 fold by shuffles);
+// ``valid``: the chunk lies inside the tile; thread sub 0 writes the
+// CHUNK_FLOATS floats.
+#define CHUNK_FLOATS 12
+__device__ __forceinline__ void chunk_bounds(const float4* chunk, int sub, bool valid, float* out) {
+  float v[9] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY,
+                -INFINITY, -INFINITY, -INFINITY};
+  if (valid) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 pc = chunk[2 * (sub + 8 * q)], pw = chunk[2 * (sub + 8 * q) + 1];
+      v[0] = min_nan(v[0], pc.x - pw.x);
+      v[1] = min_nan(v[1], pc.y - pw.y);
+      v[2] = min_nan(v[2], pc.z - pw.z);
+      v[3] = max_nan(v[3], pc.x + pw.x);
+      v[4] = max_nan(v[4], pc.y + pw.y);
+      v[5] = max_nan(v[5], pc.z + pw.z);
+      v[6] = fmaxf(v[6], fmaxf(fmaxf(fabsf(pc.x) + fabsf(pw.x), fabsf(pc.y) + fabsf(pw.y)),
+                               fabsf(pc.z) + fabsf(pw.z)));
+      v[7] = fmaxf(v[7], pc.w);
+      v[8] = fmaxf(v[8], pw.w == F(0.0) ? pc.w : -INFINITY);
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const float o = __shfl_xor_sync(FULL_MASK, v[k], off, 8);
+      v[k] = k < 3 ? min_nan(v[k], o) : (k < 6 ? max_nan(v[k], o) : fmaxf(v[k], o));
+    }
+  }
+  if (valid && sub == 0)
+#pragma unroll
+    for (int k = 0; k < 9; ++k) out[k] = v[k];
+}
+
+// Whether a dynamic row (centre rc, halves rw, mag: its largest |c| + |half|)
+// can pass over a chunk (chunk_bounds) without changing its list, count or
+// slack: no column of the chunk can be a real pair (the float test
+// rc.w + pc.w + margin > margin rises with pc.w, so the chunk's largest
+// radius decides it), or every column's gap is above 0 and no static column
+// can be real (the slack's candidates).  The gap: on each axis whose
+// bounds are numbers, |rc - pc| - (rw + pw) >= max((rc - rw) - hi,
+// lo - (rc + rw)) for every column, so the Chebyshev gap less the margin is
+// at least their largest less the margin (a column with a NaN term has a
+// NaN gap and counts nowhere); the kernel's float gap differs
+// from the exact one by under 4 ulps of mag + chunk mag + |margin| (each of
+// its roundings is one), and so does the bound, so a bound above 32 ulps of
+// that scale leaves every column's float gap above 0.
+__device__ __forceinline__ bool chunk_passes(float4 rc, float4 rw, float mag, const float* ch,
+                                             float margin) {
+  if (!(rc.w + ch[7] + margin > margin)) return true;
+  if (rc.w + ch[8] + margin > margin) return false;
+  float lb = -INFINITY;
+  lb = fmaxf(lb, fmaxf((rc.x - rw.x) - ch[3], ch[0] - (rc.x + rw.x)));
+  lb = fmaxf(lb, fmaxf((rc.y - rw.y) - ch[4], ch[1] - (rc.y + rw.y)));
+  lb = fmaxf(lb, fmaxf((rc.z - rw.z) - ch[5], ch[2] - (rc.z + rw.z)));
+  return lb - margin > F(32.0) * F(5.9604645e-08) * (mag + ch[6] + fabsf(margin));
+}
+
 // rows: n_rows table rows (global ids row0 ..), cols: n table rows (every
 // body); excl: (n_excl, n_rows) partners each row must not list (-1 none).
-// nb, key: (degree, n_rows); thr: (n_rows); part_cnt: (cand, kept) a row;
-// part_slack: a float a row; ticket: 0 at launch, 0 after; out_i: cand,
-// kept, dropped; out_slack: the slack.  Dynamic shared memory: n + n_excl
-// ints.  Each per world (blockIdx.y).
+// nb, key: (degree, n_rows); thr: (n_rows); part_cnt: (cand, kept) a block;
+// part_slack: a float a block; ticket: 0 at launch, 0 after; out_i: cand,
+// kept, dropped; out_slack: the slack.  R rows a block (2 .. 32): the block
+// has BPL_WARPS * rpw slots (rpw = max(R / BPL_WARPS, 1)), slot u = warp +
+// BPL_WARPS * q of warp ``warp``, and slot u takes row u % R and the chunks
+// c with c % S == u / R (S = BPL_WARPS * rpw / R splits of each row's
+// columns); the S slots of a row are merged at the end.  Each per world
+// (blockIdx.y).
 __global__ void __launch_bounds__(BPL_THREADS)
 k_bp_lists(const float4* rows, const float4* cols, const float* max_wh, const int* excl,
-           int n_excl, int n_rows, int n, int row0, int degree, int q_max, float margin, int* nb,
-           int* key, int* thr, int* part_cnt, float* part_slack, unsigned int* ticket,
+           int n_excl, int n_rows, int n, int row0, int degree, int q_max, float margin, int R,
+           int* nb, int* key, int* thr, int* part_cnt, float* part_slack, unsigned int* ticket,
            int* out_i, float* out_slack) {
-  extern __shared__ int sh_key[];
-  __shared__ int sh_sel[BP_MAX_DEGREE];
+  constexpr int RPW = BPL_RPW;
+  const int rpw = R < BPL_WARPS ? 1 : R / BPL_WARPS;
+  const int S = BPL_WARPS * rpw / R;
+  extern __shared__ float4 sh_dyn[];  // two tiles: 2 * BPL_TILE columns
+  __shared__ float sh_chunk[BPL_CHUNKS][CHUNK_FLOATS];
+  __shared__ int sh_buf[BPL_WARPS * RPW][BPL_CAP];
+  __shared__ int sh_cand[BPL_WARPS * RPW], sh_nsel[BPL_WARPS * RPW];
+  __shared__ float sh_slack[BPL_WARPS * RPW];
   __shared__ int sh_red[2][BPL_WARPS];
   __shared__ float sh_redf[BPL_WARPS];
-  __shared__ int sh_nsel;
   __shared__ bool sh_last;
   const size_t w = blockIdx.y;
   rows += w * 2 * n_rows;
@@ -147,128 +291,248 @@ k_bp_lists(const float4* rows, const float4* cols, const float* max_wh, const in
   nb += w * degree * n_rows;
   key += w * degree * n_rows;
   thr += w * n_rows;
-  part_cnt += w * 2 * n_rows;
-  part_slack += w * n_rows;
+  part_cnt += w * 2 * gridDim.x;
+  part_slack += w * gridDim.x;
   ticket += w;
   out_i += w * 3;
   out_slack += w;
-  int* ex = sh_key + n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x;
-  const float4 rc = rows[2 * i], rw = rows[2 * i + 1];
-  const bool dyn_i = rw.w > F(0.0);
-  int cand_row = 0, nsel = 0;
-  float slack_row = F(1.0e9);
-  if (dyn_i) {  // block-uniform
-    const int gi = row0 + i;
+  const unsigned below = (1u << lane) - 1u;
+  const int r_base = blockIdx.x * R;
+  // This warp's slots r: slot r * BPL_WARPS + warp, its row and split.
+  float4 rc[RPW], rw[RPW];
+  bool dyn[RPW];
+  int cnt[RPW], cand[RPW], row_of[RPW], split_of[RPW];
+  float smin[RPW];
+  bool any_dyn = false;
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int u = (r < rpw ? r : 0) * BPL_WARPS + warp;
+    row_of[r] = u % R;
+    split_of[r] = u / R;
+    const int i = r_base + row_of[r];
+    rc[r] = rows[2 * i];
+    rw[r] = rows[2 * i + 1];
+    dyn[r] = r < rpw && rw[r].w > F(0.0);
+    any_dyn |= dyn[r];
+    cnt[r] = 0;
+    cand[r] = 0;
+    smin[r] = F(1.0e9);
+  }
+  // Rows of static bodies select nothing; a block of them skips the columns.
+  if (__syncthreads_or(any_dyn)) {
     // _key_packing: the range and the scale, a float32 division.
     const float gap_range = fmaxf(F(2.0) * *max_wh + margin, F(1e-6));
     const float qmax_f = (float)q_max;
     const float scale = qmax_f / gap_range;
-    for (int e = threadIdx.x; e < n_excl; e += blockDim.x) ex[e] = excl[(size_t)e * n_rows + i];
-    __syncthreads();
-    int cnt = 0;
-    float smin = F(1.0e9);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float4 pc = cols[2 * j], pw = cols[2 * j + 1];
-      // _cheb_gap, _real_pair, the mask and _keys in the plain version's order.
-      float gap = fmaxf(fmaxf(fabsf(rc.x - pc.x) - (rw.x + pw.x),
-                              fabsf(rc.y - pc.y) - (rw.y + pw.y)),
-                        fabsf(rc.z - pc.z) - (rw.z + pw.z)) - margin;
-      bool real = rc.w + pc.w + margin > margin;
-      bool other = j != gi;
-      bool m = gap <= F(0.0) && real && other;
-      for (int e = 0; e < n_excl; ++e) m = m && j != ex[e];
-      int k = KEY_NONE;
-      if (m) {
-        k = (int)clipf((gap + gap_range) * scale, F(0.0), qmax_f) * n + j;
-        ++cnt;
-      }
-      if (pw.w == F(0.0) && real && gap > F(0.0) && other) smin = fminf(smin, gap);
-      sh_key[j] = k;
-    }
-    cnt = warp_sum(cnt);
-    for (int off = 16; off > 0; off >>= 1)
-      smin = fminf(smin, __shfl_xor_sync(FULL_MASK, smin, off));
-    if (lane == 0) {
-      sh_red[0][warp] = cnt;
-      sh_redf[warp] = smin;
-    }
-    __syncthreads();
-    for (int k = 0; k < BPL_WARPS; ++k) {
-      cand_row += sh_red[0][k];
-      slack_row = fminf(slack_row, sh_redf[k]);
-    }
-    if (cand_row > 0) {
-      // Keys <= sel_max are the row's selection: every key when the row has
-      // at most D, else the smallest v with D keys <= v (the D-th key).
-      int sel_max = KEY_NONE - 1;
-      if (cand_row > degree) {
-        int lo = -1, hi = KEY_NONE - 1, buf = 1;
-        while (hi - lo > 1) {
-          const int mid = lo + (hi - lo) / 2;
-          int c = 0;
-          for (int j = threadIdx.x; j < n; j += blockDim.x) c += sh_key[j] <= mid;
-          c = warp_sum(c);
-          if (lane == 0) sh_red[buf][warp] = c;
-          __syncthreads();
-          int tot = 0;
-          for (int k = 0; k < BPL_WARPS; ++k) tot += sh_red[buf][k];
-          if (tot >= degree) hi = mid;
-          else lo = mid;
-          buf ^= 1;
-        }
-        sel_max = hi;
-      }
-      if (threadIdx.x == 0) sh_nsel = 0;
-      __syncthreads();
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        const int k = sh_key[j];
-        if (k <= sel_max) {
-          const int at = atomicAdd(&sh_nsel, 1);
-          if (at < degree) sh_sel[at] = k;
+    // The column table in tiles of BPL_TILE bodies through shared memory,
+    // copied by cp.async one tile ahead of the tests.  Block b starts at
+    // tile b % n_tiles (the blocks' reads spread over L2; the results do not
+    // depend on the order).  After a tile lands the block folds each chunk
+    // of 32 columns into its bounds (chunk_bounds, 8 threads a chunk), which
+    // let a row pass over a chunk none of whose columns can count
+    // (chunk_passes).
+    const int n_tiles = (n + BPL_TILE - 1) / BPL_TILE;
+    const int start = blockIdx.x % n_tiles;
+    auto issue = [&](int it) {
+      const int t = (start + it) % n_tiles;
+      float4* dst = sh_dyn + (it & 1) * 2 * BPL_TILE;
+#pragma unroll
+      for (int q = 0; q < BPL_TILE / BPL_THREADS; ++q) {
+        const int jl = q * BPL_THREADS + threadIdx.x, j = t * BPL_TILE + jl;
+        if (j < n) {
+          cp_async16(dst + 2 * jl, cols + 2 * j);
+          cp_async16(dst + 2 * jl + 1, cols + 2 * j + 1);
         }
       }
+      cp_async_commit();
+    };
+    // A row's largest |c| + |half| over the axes (the rounding bound's scale).
+    float mag_r[RPW];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+      mag_r[r] = fmaxf(fmaxf(fabsf(rc[r].x) + fabsf(rw[r].x), fabsf(rc[r].y) + fabsf(rw[r].y)),
+                       fabsf(rc[r].z) + fabsf(rw[r].z));
+    issue(0);
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait_all();
+      __syncthreads();  // the tile has landed; every warp is done with the other buffer
+      if (it + 1 < n_tiles) issue(it + 1);
+      const float4* tile = sh_dyn + (it & 1) * 2 * BPL_TILE;
+      const int t0 = ((start + it) % n_tiles) * BPL_TILE;
+      const int tile_cols = n - t0 < BPL_TILE ? n - t0 : BPL_TILE;  // a multiple of 32
+      {
+        const int c = threadIdx.x >> 3;  // 8 threads a chunk
+        chunk_bounds(tile + 2 * 32 * c, threadIdx.x & 7, c < tile_cols / 32, &sh_chunk[c][0]);
+      }
       __syncthreads();
-      nsel = min(sh_nsel, degree);
+      // The chunks each row tests: lane c tests chunk c of the tile.
+      unsigned need[RPW];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        bool nd = false;
+        if (dyn[r] && lane < tile_cols / 32 && lane % S == split_of[r])
+          nd = !chunk_passes(rc[r], rw[r], mag_r[r], &sh_chunk[lane][0], margin);
+        need[r] = __ballot_sync(FULL_MASK, nd);
+      }
+      unsigned any = 0;
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) any |= need[r];
+      while (any) {  // warp-uniform
+        const int c = (__ffs(any) - 1) * 32;
+        any &= any - 1;
+        const int j = t0 + c + lane;
+        const float4 pc = tile[2 * (c + lane)], pw = tile[2 * (c + lane) + 1];
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+          if (!((need[r] >> (c / 32)) & 1u)) continue;  // warp-uniform
+          const int i = r_base + row_of[r];
+          // _cheb_gap (torch.amax: a NaN term makes the gap NaN), _real_pair,
+          // the mask and _keys in the plain version's order.
+          const float gap = max_nan(max_nan(fabsf(rc[r].x - pc.x) - (rw[r].x + pw.x),
+                                            fabsf(rc[r].y - pc.y) - (rw[r].y + pw.y)),
+                                    fabsf(rc[r].z - pc.z) - (rw[r].z + pw.z)) - margin;
+          bool m = false;
+          int k = KEY_NONE;
+          if (gap <= F(0.0)) {
+            m = rc[r].w + pc.w + margin > margin && j != row0 + i;
+            for (int e = 0; e < n_excl && m; ++e) m = j != __ldg(excl + (size_t)e * n_rows + i);
+            if (m) k = (int)clipf((gap + gap_range) * scale, F(0.0), qmax_f) * n + j;
+          } else if (gap > F(0.0) && pw.w == F(0.0) && rc[r].w + pc.w + margin > margin &&
+                     j != row0 + i) {
+            smin[r] = fminf(smin[r], gap);
+          }
+          const unsigned bal = __ballot_sync(FULL_MASK, m);
+          if (bal) {  // warp-uniform
+            int* buf = sh_buf[r * BPL_WARPS + warp];
+            const int h = __popc(bal);
+            // A full buffer keeps its D smallest keys: a key outside the D
+            // smallest of a subset is outside the D smallest of the row.
+            if (cnt[r] + h > BPL_CAP) cnt[r] = bp_cut(buf, cnt[r], degree, lane);
+            if (m) buf[cnt[r] + __popc(bal & below)] = k;
+            cnt[r] += h;
+            cand[r] += h;
+            __syncwarp();
+          }
+        }
+      }
     }
   }
-  // Slot d of the row: the selected key of rank d, ascending; -1 / 0 past
-  // the selection.  The threshold: the D-th key, or none.
-  for (int t = threadIdx.x; t < degree; t += blockDim.x) {
-    if (t < nsel) {
-      const int k = sh_sel[t];
-      int rank = 0;
-      for (int s = 0; s < nsel; ++s) rank += sh_sel[s] < k;
-      nb[(size_t)rank * n_rows + i] = k % n;
-      key[(size_t)rank * n_rows + i] = k;
-      if (rank == degree - 1) thr[i] = k;
-    } else {
-      nb[(size_t)t * n_rows + i] = -1;
-      key[(size_t)t * n_rows + i] = 0;
+  // Each slot's selection in ascending order (its D smallest keys, or all),
+  // its count and slack.
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    if (r >= rpw) break;
+    const int u = r * BPL_WARPS + warp;
+    const int nsel = dyn[r] ? bp_cut(sh_buf[u], cnt[r], degree, lane) : 0;
+    float sm = smin[r];
+    for (int off = 16; off > 0; off >>= 1) sm = fminf(sm, __shfl_xor_sync(FULL_MASK, sm, off));
+    if (lane == 0) {
+      sh_nsel[u] = nsel;
+      sh_cand[u] = cand[r];
+      sh_slack[u] = sm;
     }
+  }
+  __syncthreads();
+  // A row split over S slots: its D smallest keys are the D smallest of its
+  // slots' (each slot's D smallest of its columns), ranked by a binary search
+  // in each slot's ascending list and written at their rank into the row's
+  // first slot; its count sums and its slack takes the min.  Warp lr merges
+  // row lr.
+  if (S > 1) {
+    if (warp < R) {
+      const int lr = warp;
+      int pre[BPL_MAX_SPLIT + 1];
+      pre[0] = 0;
+      int c_row = 0;
+      float s_row = F(1.0e9);
+#pragma unroll
+      for (int sp = 0; sp < BPL_MAX_SPLIT; ++sp) {
+        const bool in = sp < S;
+        pre[sp + 1] = pre[sp] + (in ? sh_nsel[lr + R * sp] : 0);
+        c_row += in ? sh_cand[lr + R * sp] : 0;
+        s_row = in ? fminf(s_row, sh_slack[lr + R * sp]) : s_row;
+      }
+      const int tot = pre[BPL_MAX_SPLIT];
+      constexpr int PER = BPL_MAX_SPLIT * BP_MAX_DEGREE / 32;
+      int v[PER], rk[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int p = lane + 32 * k;
+        v[k] = KEY_NONE;
+        rk[k] = 0;
+        if (p < tot) {
+#pragma unroll
+          for (int sp = 0; sp < BPL_MAX_SPLIT; ++sp)
+            if (p >= pre[sp] && p < pre[sp + 1]) v[k] = sh_buf[lr + R * sp][p - pre[sp]];
+#pragma unroll
+          for (int sp = 0; sp < BPL_MAX_SPLIT; ++sp) {
+            if (sp >= S) break;
+            const int* list = sh_buf[lr + R * sp];
+            int lo = 0, hi = pre[sp + 1] - pre[sp];
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              if (list[mid] < v[k]) lo = mid + 1;
+              else hi = mid;
+            }
+            rk[k] += lo;
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (lane + 32 * k < tot && rk[k] < degree) sh_buf[lr][rk[k]] = v[k];
+      __syncwarp();
+      if (lane == 0) {
+        sh_nsel[lr] = tot < degree ? tot : degree;
+        sh_cand[lr] = c_row;
+        sh_slack[lr] = s_row;
+      }
+    }
+    __syncthreads();
+  }
+  // Slot d of row i: the selected key of rank d; -1 / 0 past the selection
+  // (a thread a (slot, row), the block's rows consecutive).  The threshold:
+  // the D-th key, or none.
+  for (int t = threadIdx.x; t < degree * R; t += BPL_THREADS) {
+    const int d = t / R, lr = t - d * R, i = r_base + lr;
+    const bool sel = d < sh_nsel[lr];
+    const int k = sel ? sh_buf[lr][d] : 0;
+    nb[(size_t)d * n_rows + i] = sel ? k % n : -1;
+    key[(size_t)d * n_rows + i] = k;
+  }
+  if (threadIdx.x < R) {
+    const int lr = threadIdx.x;
+    thr[r_base + lr] = sh_nsel[lr] == degree ? sh_buf[lr][degree - 1] : KEY_NONE;
   }
   if (threadIdx.x == 0) {
-    if (nsel < degree) thr[i] = KEY_NONE;
+    int c_blk = 0, k_blk = 0;
+    float s_blk = F(1.0e9);
+    for (int lr = 0; lr < R; ++lr) {
+      c_blk += sh_cand[lr];
+      k_blk += sh_nsel[lr];
+      s_blk = fminf(s_blk, sh_slack[lr]);
+    }
     RACE_DELAY();
-    part_cnt[2 * i] = cand_row;
-    part_cnt[2 * i + 1] = nsel;
-    part_slack[i] = slack_row;
+    part_cnt[2 * blockIdx.x] = c_blk;
+    part_cnt[2 * blockIdx.x + 1] = k_blk;
+    part_slack[blockIdx.x] = s_blk;
     __threadfence();
     RACE_DELAY();
     sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!sh_last) return;
-  // The last block: every row's partials are visible (each fenced before
+  // The last block: every block's partials are visible (each fenced before
   // its ticket); read them from L2, past this SM's L1.
   __threadfence();
   int c_sum = 0, k_sum = 0;
   float s_min = F(1.0e9);
-  for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
-    c_sum += __ldcg(part_cnt + 2 * r);
-    k_sum += __ldcg(part_cnt + 2 * r + 1);
-    s_min = fminf(s_min, __ldcg(part_slack + r));
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += BPL_THREADS) {
+    c_sum += __ldcg(part_cnt + 2 * b);
+    k_sum += __ldcg(part_cnt + 2 * b + 1);
+    s_min = fminf(s_min, __ldcg(part_slack + b));
   }
   c_sum = warp_sum(c_sum);
   k_sum = warp_sum(k_sum);
@@ -377,21 +641,30 @@ int avbd_bp_tables(void** ptrs, int n, int batch, float ext_scale, void* stream)
 }
 
 // ptrs: rows, cols, max_wh, excl, then nb, key, thr, out_i (cand, kept,
-// dropped), out_slack, then scratch: part_cnt (2 ints a row), part_slack (a
-// float a row) and the ticket; each per world of ``batch``.  The dynamic
-// shared memory (n + n_excl ints) is raised past 48 KB when it must be.
+// dropped), out_slack, then scratch: part_cnt (2 ints a block), part_slack
+// (a float a block) and the ticket; each per world of ``batch``.  The
+// blocks take rows_per_block rows each (2, 4, 8, 16 or 32; n_rows a
+// multiple of it); the shared memory is fixed (64 KB of column tiles and
+// ~18 KB of buffers a block, whatever N).
 int avbd_bp_lists(void** ptrs, int n_rows, int n, int row0, int degree, int n_excl, int q_max,
-                  float margin, int batch, void* stream) {
-  if (degree < 1 || degree > BP_MAX_DEGREE) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(n + n_excl) * sizeof(int);
-  if (smem > 48 * 1024) {
+                  float margin, int batch, int rows_per_block, void* stream) {
+  if (degree < 1 || degree > BP_MAX_DEGREE || n % 32 || rows_per_block < 1 ||
+      n_rows % rows_per_block)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_rows / rows_per_block, batch);
+  const int R = rows_per_block;
+  if (R < BPL_WARPS / BPL_MAX_SPLIT || R > BPL_WARPS * BPL_RPW || (R & (R - 1)))
+    return (int)cudaErrorInvalidValue;
+  static bool ready = false;
+  if (!ready) {
     cudaError_t e = cudaFuncSetAttribute(k_bp_lists, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         BPL_DYN_SMEM);
     if (e != cudaSuccess) return (int)e;
+    ready = true;
   }
-  k_bp_lists<<<dim3(n_rows, batch), BPL_THREADS, smem, (cudaStream_t)stream>>>(
+  k_bp_lists<<<grid, BPL_THREADS, BPL_DYN_SMEM, (cudaStream_t)stream>>>(
       (const float4*)ptrs[0], (const float4*)ptrs[1], (const float*)ptrs[2], (const int*)ptrs[3],
-      n_excl, n_rows, n, row0, degree, q_max, margin, (int*)ptrs[4], (int*)ptrs[5],
+      n_excl, n_rows, n, row0, degree, q_max, margin, R, (int*)ptrs[4], (int*)ptrs[5],
       (int*)ptrs[6], (int*)ptrs[9], (float*)ptrs[10], (unsigned int*)ptrs[11], (int*)ptrs[7],
       (float*)ptrs[8]);
   return (int)cudaGetLastError();

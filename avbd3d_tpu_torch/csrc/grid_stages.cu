@@ -43,12 +43,17 @@
 // inv_mass with the frozen bodies zeroed, written when the freeze is on),
 // then on the frozen state the refresh predicate's two deviations through
 // K2's fold (avbd_common.cuh: anchor_terms, fold_group over groups of
-// LANES_WARPS bodies, fold_parts_warp, dev_mm_block: the bits of K2's lanes
-// 3 and 4 and of k_refresh_needed's), and the largest v^2 of a dynamic
-// body, compared with the two speed bounds in float32.  Writes need,
-// stale_ok and calm (1 / 0), dev_mm, dev_raw and v^2 max into one buffer,
-// the grid step's one host read.
-//
+// LANES_WARPS bodies, fold_parts_warp's order, dev_mm_block's terms: the
+// bits of K2's lanes 3 and 4 and of k_refresh_needed's), and the largest v^2
+// of a dynamic body, compared with the two speed bounds in float32.  Writes
+// need, stale_ok and calm (1 / 0), dev_mm, dev_raw and v^2 max into one
+// buffer, the grid step's one host read.  The deviation net of the mean
+// displacement needs the mean first, so the launch is cooperative: after a
+// grid barrier every block folds the group partials itself and takes the
+// largest deviation of its own bodies from registers, and a ticket folds the
+// blocks' maxima (one block once did the whole tail alone, reloading every
+// body from L2).
+
 // k_grid_predict, a thread a body: the sanitized velocities (the angular
 // one clamped), the inertial pose, the accel-weighted warm start and the
 // sanitize count (a ticket fold of the bodies' blocks), written straight
@@ -61,6 +66,10 @@
 // counts of lanes 5-10 (with the pair overflow cand - kept folded in) and
 // CONTROL_RESET in lanes 11-15.
 #include "avbd_common.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
 // k_grid_gates
@@ -81,7 +90,7 @@ struct GatesArgs {
   float* im_out;
   float* out;             // need, stale_ok, calm, dev_mm, dev_raw, v2 max
   float* part;            // LANE_PARTS floats a group of LANES_WARPS bodies
-  float4* dv;             // a body's (disp, chord), chord -1 when it has not moved
+  float* part_dev;        // a block's largest |disp - t| + chord
   unsigned int* ticket;
   int n;
   float freeze_y;
@@ -91,6 +100,40 @@ struct GatesArgs {
   float calm_th2;         // min(impact_speed_min, lhs_stale_speed_max) ** 2
 };
 
+// fold_parts_warp's fold (lane l over groups l, l + 32, ... in index order,
+// then the same shuffle tree), with the loads issued GATES_UNROLL at a time:
+// the same operations in the same order, so the same bits.  Partial 1 (v^2)
+// folds with max_nan.
+#define GATES_UNROLL 8
+__device__ __forceinline__ float fold_parts_ahead(const float* part, int n_groups, int k, int lane) {
+  const int op = part_op(k);
+  float v = F(0.0);
+  for (int b0 = lane; b0 < n_groups; b0 += 32 * GATES_UNROLL) {
+    float x[GATES_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GATES_UNROLL; ++u) {
+      const int b = b0 + 32 * u;
+      x[u] = b < n_groups ? __ldcg(part + b * LANE_PARTS + k) : F(0.0);
+    }
+#pragma unroll
+    for (int u = 0; u < GATES_UNROLL; ++u)
+      if (b0 + 32 * u < n_groups) v = k == 1 ? max_nan(v, x[u]) : fold(op, v, x[u]);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(FULL_MASK, v, off);
+    v = k == 1 ? max_nan(v, o) : fold(op, v, o);
+  }
+  return v;
+}
+
+// One cooperative launch (every block resident; the launcher checks).  Pass
+// 1, a thread a body: the freeze, the anchor terms and the group partials,
+// as before.  Then a grid barrier, after which every block folds the group
+// partials itself in the one fixed order (so every block has the same t),
+// takes the largest |disp - t| + chord over its own bodies from the terms it
+// kept in registers, and hands it on by a ticket: the last block folds the
+// blocks' maxima (a max: exact in any order), writes the six lanes and
+// resets the ticket.
 __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
   __shared__ float sh[LANE_PARTS][STAGE_THREADS];
   __shared__ float sh_fold[LANE_PARTS];
@@ -99,6 +142,8 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
   const int n = a.n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * STAGE_THREADS + threadIdx.x;
+  AnchorTerms t;
+  t.moved = false;
   if (i < n) {
     V3 pos = ld3(a.pos, i, n), lv = ld3(a.lv, i, n), av = ld3(a.av, i, n);
     float im = a.inv_mass[i];
@@ -109,12 +154,9 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
       a.im_out[i] = im;
     }
     const bool dyn = im > F(0.0);
-    AnchorTerms t = anchor_terms(pos, ld4(a.quat, i, n), ld3(a.anchor, i, n),
-                                 ld4(a.anchor_q, i, n), a.radius[i], dyn);
+    t = anchor_terms(pos, ld4(a.quat, i, n), ld3(a.anchor, i, n), ld4(a.anchor_q, i, n),
+                     a.radius[i], dyn);
     const float mf = t.moved ? F(1.0) : F(0.0);
-    RACE_DELAY();
-    a.dv[i] = make_float4(t.disp.x, t.disp.y, t.disp.z, t.moved ? t.chord : F(-1.0));
-    __threadfence();
     sh[1][threadIdx.x] = dyn ? lv.x * lv.x + lv.y * lv.y + lv.z * lv.z : F(0.0);
     sh[3][threadIdx.x] = t.moved ? sqrtf(t.disp2) + t.chord : F(0.0);
     sh[4][threadIdx.x] = mf;
@@ -142,32 +184,44 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
       }
       RACE_DELAY();
       a.part[gg * LANE_PARTS + k] = v;
-      __threadfence();
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    RACE_DELAY();
-    sh_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!sh_last) return;
-  __threadfence();
+  cg::this_grid().sync();
+  RACE_DELAY();
   const int n_groups = (n + LANES_WARPS - 1) / LANES_WARPS;
-  if (warp >= 3 && warp < LANE_PARTS) {
-    float v = fold_parts_warp(a.part, n_groups, warp, lane);
+  if (warp == 1 || (warp >= 3 && warp < LANE_PARTS)) {
+    const float v = fold_parts_ahead(a.part, n_groups, warp, lane);
     if (lane == 0) sh_fold[warp] = v;
-  } else if (warp == 1) {
-    float v = F(0.0);
-    for (int b = lane; b < n_groups; b += 32) v = max_nan(v, __ldcg(a.part + b * LANE_PARTS + 1));
-    for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(FULL_MASK, v, off));
-    if (lane == 0) sh_fold[1] = v;
   }
   __syncthreads();
   const float nmc = fmaxf(sh_fold[4], F(1.0));
   const V3 tm = v3(sh_fold[5] / nmc, sh_fold[6] / nmc, sh_fold[7] / nmc);
-  const float dev_mm = dev_mm_block(a.dv, n, tm, sh_dev);
+  // dev_mm_block's terms, over this block's bodies.
+  float dev_mm = F(0.0);
+  if (t.moved) {
+    const V3 e = v3(t.disp.x - tm.x, t.disp.y - tm.y, t.disp.z - tm.z);
+    dev_mm = fmaxf(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + t.chord);
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
+  if (lane == 0) sh_dev[warp] = dev_mm;
+  __syncthreads();
   if (threadIdx.x == 0) {
+    for (int w = 1; w < STAGE_WARPS; ++w) dev_mm = fmaxf(dev_mm, sh_dev[w]);
+    RACE_DELAY();
+    a.part_dev[blockIdx.x] = dev_mm;
+    __threadfence();
+    RACE_DELAY();
+    sh_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last || warp != 0) return;
+  __threadfence();
+  dev_mm = F(0.0);
+  for (int b = lane; b < (int)gridDim.x; b += 32) dev_mm = fmaxf(dev_mm, __ldcg(a.part_dev + b));
+  for (int off = 16; off > 0; off >>= 1)
+    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
+  if (lane == 0) {
     const float dev_raw = sh_fold[3], v2 = sh_fold[1];
     a.out[0] = (dev_mm > a.half_margin) || (dev_raw > *a.slack + a.margin) ? F(1.0) : F(0.0);
     a.out[1] = v2 <= a.th2 ? F(1.0) : F(0.0);
@@ -379,8 +433,9 @@ extern "C" {
 // ptrs: pos, quat, linvel, angvel, inv_mass, radius, anchor, anchor_quat,
 // slack, then the frozen linvel, angvel, inv_mass (null each without the
 // fall-freeze), out (6 floats), then scratch: the partials (LANE_PARTS floats
-// a group of LANES_WARPS bodies), dv (4 floats a body, 16-byte aligned) and
-// the ticket (0 before the launch and after it).
+// a group of LANES_WARPS bodies), a float a block (its largest deviation)
+// and the ticket (0 before the launch and after it).  A cooperative launch;
+// cudaErrorCooperativeLaunchTooLarge when the blocks cannot all be resident.
 int avbd_grid_gates(void** ptrs, int n, float freeze_y, float half_margin, float margin,
                     float th2, float calm_th2, void* stream) {
   GatesArgs a;
@@ -398,7 +453,7 @@ int avbd_grid_gates(void** ptrs, int n, float freeze_y, float half_margin, float
   a.im_out = (float*)ptrs[11];
   a.out = (float*)ptrs[12];
   a.part = (float*)ptrs[13];
-  a.dv = (float4*)ptrs[14];
+  a.part_dev = (float*)ptrs[14];
   a.ticket = (unsigned int*)ptrs[15];
   a.n = n;
   a.freeze_y = freeze_y;
@@ -407,8 +462,21 @@ int avbd_grid_gates(void** ptrs, int n, float freeze_y, float half_margin, float
   a.th2 = th2;
   a.calm_th2 = calm_th2;
   const int blocks = (n + STAGE_THREADS - 1) / STAGE_THREADS;
-  k_grid_gates<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  // The grid barrier needs every block resident at once: at most this many.
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_grid_gates, STAGE_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = per_sm * sms;
+  }
+  if (blocks > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)k_grid_gates, dim3(blocks), dim3(STAGE_THREADS),
+                                          args, 0, (cudaStream_t)stream);
 }
 
 // ptrs: pos, quat, linvel, angvel, prev_linvel, inv_mass, stick (planes x

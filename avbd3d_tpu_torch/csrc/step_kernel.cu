@@ -598,7 +598,7 @@ __global__ void __launch_bounds__(BLOCK) k_filter_cull(Dims dm, const int* nb, c
                          + par_half[1] * fabsf(par_ax[1].x * nv.x + par_ax[1].y * nv.y + par_ax[1].z * nv.z)
                          + par_half[2] * fabsf(par_ax[2].x * nv.x + par_ax[2].y * nv.y + par_ax[2].z * nv.z);
           float sep = fabsf(delta.x * nv.x + delta.y * nv.y + delta.z * nv.z) - proj_own - proj_par;
-          best = fmaxf(best, sep);
+          best = max_nan(best, sep);  // torch.maximum: a NaN separation culls the slot
         }
         keep2 = v2 && (best <= p.precull_margin);
       }
@@ -1874,8 +1874,8 @@ __global__ void __launch_bounds__(CTRL_THREADS) k_final_reduce(Dims dm, Cache c,
     float dynf = b.inv_mass[i] > F(0.0) ? F(1.0) : F(0.0);
     n_dyn += dynf;
     V3 lv = ld3(w.lv_out, i, n), av = ld3(w.av_out, i, n);
-    max_lin = fmaxf(max_lin, sqrtf(vdot(lv, lv)) * dynf);
-    max_ang = fmaxf(max_ang, sqrtf(vdot(av, av)) * dynf);
+    max_lin = max_nan(max_lin, sqrtf(vdot(lv, lv)) * dynf);
+    max_ang = max_nan(max_ang, sqrtf(vdot(av, av)) * dynf);
     for (int t = 0; t < dm.dc; ++t) {
       int sl = t * n + i;
       int other = c.other[sl];
@@ -1891,9 +1891,9 @@ __global__ void __launch_bounds__(CTRL_THREADS) k_final_reduce(Dims dm, Cache c,
       for (int s = 0; s < 4; ++s) {
         bool ok = (s < count) && valid;
         float sep = w.geom[(24 + s) * S + sl];
-        max_pen = fmaxf(max_pen, ok ? -sep : F(0.0));
-        max_drift = fmaxf(max_drift, ok ? p.penetration_slop - sep : F(0.0));
-        max_lam_n = fmaxf(max_lam_n, ok ? fabsf(c.lam[(s * 3) * S + sl]) : F(0.0));
+        max_pen = max_nan(max_pen, ok ? -sep : F(0.0));
+        max_drift = max_nan(max_drift, ok ? p.penetration_slop - sep : F(0.0));
+        max_lam_n = max_nan(max_lam_n, ok ? fabsf(c.lam[(s * 3) * S + sl]) : F(0.0));
       }
     }
   }

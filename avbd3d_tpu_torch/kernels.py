@@ -153,7 +153,7 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
     cdll.avbd_bp_tables.argtypes = [ctypes.POINTER(vp), ci, ci, ctypes.c_float, vp]
     cdll.avbd_bp_tables.restype = ci
     cdll.avbd_bp_lists.argtypes = [ctypes.POINTER(vp), ci, ci, ci, ci, ci, ci, ctypes.c_float,
-                                   ci, vp]
+                                   ci, ci, vp]
     cdll.avbd_bp_lists.restype = ci
     cdll.avbd_refresh_needed.argtypes = [ctypes.POINTER(vp), ci, ctypes.c_float, ctypes.c_float,
                                          vp]
@@ -673,11 +673,28 @@ def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, para
 
 
 # Threads a block of k_bp_tables and k_refresh_needed (csrc/bp_refresh.cu:
-# a thread a body), the largest candidate width and the shared memory of
-# k_bp_lists (a block a row: N + E int32 keys and exclusions).
+# a thread a body) and the largest candidate width of k_bp_lists.
 _BP_THREADS = 256
 BP_MAX_DEGREE = 64
-_SMEM_MAX = 232448
+# Keys a row's selection buffer holds in k_bp_lists (BPL_CAP); a fuller row
+# is cut to its D smallest.
+BP_ROW_BUFFER = 2 * BP_MAX_DEGREE
+# Rows a block of k_bp_lists may take (csrc/bp_refresh.cu: 8 warps; 32, 16
+# and 8 rows: 4, 2 or 1 a warp; 4 and 2 rows: each row's columns split over
+# 2 or 4 warps).
+BP_ROWS_PER_BLOCK = (32, 16, 8, 4, 2)
+
+
+def bp_rows_per_block(n_rows: int, batch: int, sms: int) -> int:
+    """Rows a block of k_bp_lists: the most that still give the SMs 1.5
+    blocks each (each block reads the column table once from L2, so more
+    rows a block move fewer bytes; fewer blocks leave SMs idle), else the
+    fewest (more warps on each row).  On an H100 (132 SMs) that is the
+    fastest of the five at N = 1024, 2048, 5120 and 16384 (PERF.md §6)."""
+    for r in BP_ROWS_PER_BLOCK:
+        if n_rows % r == 0 and 2 * (n_rows // r) * batch >= 3 * sms:
+            return r
+    return BP_ROWS_PER_BLOCK[-1]
 
 
 def _card_lib(dev) -> _Lib:
@@ -717,14 +734,17 @@ def launch_bp_tables(pos, quat, ext, ext_scale: float, radius, dyn_key):
     return table, max_wh
 
 
-def launch_bp_lists(rows, cols, max_wh, exclusions, degree: int, margin: float, row0: int = 0):
+def launch_bp_lists(rows, cols, max_wh, exclusions, degree: int, margin: float, row0: int = 0,
+                    rows_per_block: int = 0):
     """Run k_bp_lists: the candidate lists of the rows of table ``rows``
     (n_rows, 8) (global ids ``row0`` ..) against every body of table
     ``cols`` (N, 8), keys packed with ``max_wh`` and N; ``exclusions`` (E,
     G_rows, 128) int32.  Returns nb, key (D, G_rows, 128) int32, thr
     (G_rows, 128) int32, cand, slack, kept, dropped (() int32, f32, int32,
     int32; over these rows).  With a leading batch axis B on every
-    operand, each world's (one launch)."""
+    operand, each world's (one launch).  ``rows_per_block`` (one of
+    ``BP_ROWS_PER_BLOCK``; 0: ``bp_rows_per_block``'s choice) sets the
+    blocks' rows; the results do not depend on it."""
     dev = rows.device
     if not 1 <= degree <= BP_MAX_DEGREE:
         raise ValueError(f"candidate width {degree} outside 1..{BP_MAX_DEGREE}")
@@ -736,10 +756,8 @@ def launch_bp_lists(rows, cols, max_wh, exclusions, degree: int, margin: float, 
                          "columns expected")
     g = n_rows // 128
     n_excl = exclusions.shape[-3] if exclusions.dim() == len(lead) + 3 else 0
-    smem = 4 * (n + n_excl)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{n} columns and {n_excl} exclusions need {smem} bytes of shared "
-                         f"memory a block, more than {_SMEM_MAX}")
+    if rows_per_block and rows_per_block not in BP_ROWS_PER_BLOCK:
+        raise ValueError(f"rows a block {rows_per_block}: one of {BP_ROWS_PER_BLOCK} expected")
     f32, i32 = torch.float32, torch.int32
     ins = [_check(rows, "rows", lead + (n_rows, 8), f32, dev),
            _check(cols, "cols", lead + (n, 8), f32, dev),
@@ -752,13 +770,16 @@ def launch_bp_lists(rows, cols, max_wh, exclusions, degree: int, margin: float, 
     counts = torch.empty(lead + (3,), dtype=i32, device=dev)
     slack = torch.empty(lead, dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = [_scratch(dev, stream, "bp_part_cnt", batch * 2 * n_rows, i32),
-               _scratch(dev, stream, "bp_part_slack", batch * n_rows, f32),
+    rpb = rows_per_block or bp_rows_per_block(
+        n_rows, batch, torch.cuda.get_device_properties(dev).multi_processor_count)
+    blocks = n_rows // rpb
+    scratch = [_scratch(dev, stream, "bp_part_cnt", batch * 2 * blocks, i32),
+               _scratch(dev, stream, "bp_part_slack", batch * blocks, f32),
                _scratch(dev, stream, "bp_lists_ticket", batch, i32)]
     q_max = (2**31 - 1) // n - 1
     code = lib.cdll.avbd_bp_lists(_ptrs(ins + [nb, key, thr, counts, slack] + scratch), n_rows,
                                   n, int(row0), int(degree), n_excl, q_max,
-                                  ctypes.c_float(margin), batch, ctypes.c_void_p(stream))
+                                  ctypes.c_float(margin), batch, rpb, ctypes.c_void_p(stream))
     _raise_on(code, "broadphase lists kernel launch")
     cand, kept, dropped = counts.unbind(-1)
     return nb, key, thr, cand, slack, kept, dropped
@@ -816,7 +837,7 @@ def launch_grid_gates(b, anchor, anchor_quat, slack, params):
     out = torch.empty((6,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = [_scratch(dev, stream, "gates_part", _LANE_PARTS * _blocks(n), f32),
-               _scratch(dev, stream, "gates_dv", 4 * n, f32),
+               _scratch(dev, stream, "gates_part_dev", -(-n // _GS_THREADS), f32),
                _scratch(dev, stream, "gates_ticket", 1, torch.int32)]
     ptrs = (ctypes.c_void_p * 16)(*[t.data_ptr() for t in ins],
                                    *[t.data_ptr() if t is not None else None for t in frozen],

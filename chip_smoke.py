@@ -41,7 +41,8 @@
    that in a trace; floats with difference 0) and K6 against their plain
    versions from a landing and a settled state (K6 on its cluster-resident
    route, logical blocks of 1024 bodies, and on its launch-per-half-sweep
-   route, the world as one logical block), their times, and the falling
+   route, the world as one logical block; K5 also with one body's pos.y,
+   then pos.x, NaN), their times, and the falling
    (0-300) and settled (901-1000) steps/s.
 6. The reference's large-N gate (tests/test_large_n_envelope.py): the
    low-drop 16^3 pile with Stress4096's plan, 60 landing + 30 settle steps,
@@ -66,8 +67,8 @@
    of jointed steps (profile_phases on RodJointed, five
    sheet steps) held to ``step_kernel_count``: one resident launch a step.
 9. The profiler path: K3 and K4 against their plain versions at the
-   settled Stress1000 state, utils/profile_cuda's per-phase table, and
-   their times.
+   settled Stress1000 state (K3 also with one body's pos.y, then pos.x,
+   NaN), utils/profile_cuda's per-phase table, and their times.
 10. K7 and the refined stale-Hessian gate: a second Stress1000 run of 300
    steps (counters reset before, read after) that calls
    ``solver.stale_lhs_ok`` refined and unrefined on every pre-step state
@@ -154,7 +155,9 @@
    kernels (``build_bp_cache``) against their plain version on the same
    card tensors at Stress1000's initial, landing and settled states (also
    at D = 4, where rows exceed the width, D = 40, and every body static),
-   Stress2048 steps 700 and 800, Stress4096 steps 800 and 2800, RodJointed
+   Stress2048 steps 700 and 800, Stress4096 steps 800 and 2800 (and 2800
+   with a 2.5 m margin, whose rows overflow the kernel's per-row buffer of
+   128 keys and are cut to their D smallest), RodJointed
    (exclusion columns) and the 16384-body pile compressed: nb, key, thr,
    cand, dropped identical, slack bit for bit; the lists of two halves of
    the rows (a sharded call) equal to the whole's; the refresh predicate
@@ -170,7 +173,10 @@
    low-drop 16^3 pile of phase 6 (step 90), step 800 with every
    body static, with three bodies below fall_freeze_y, and with a NaN and
    an infinite velocity and a NaN final pose: k_grid_gates' flags, dev_raw,
-   v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative;
+   v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative of
+   the torch version's and both deviations bit for bit k_refresh_needed's
+   (the fold the gates kernel ran in one block before its cooperative
+   tail);
    k_grid_predict's outputs bit for bit; k_grid_finalize's bodies, latches
    and diagnostics lanes identical but the speed lanes (2, 3) within 1e-6
    relative; each flag takes both values.  Each kernel's time at step 2800
@@ -180,8 +186,9 @@
    against their plain versions on the same card tensors, at Stress1000
    steps 0, 1 (its next step ballistic) and 700, step 700 with three bodies
    below fall_freeze_y, with a NaN and an infinite velocity and an angular
-   speed above the clamp, with a NaN pose, with every body static, and
-   RodJointed at step 600 through K1's joint branch: k_step_gates' control
+   speed above the clamp, with a NaN pos.y and with a NaN pos.x, with every
+   body static, and RodJointed at step 600 through K1's joint branch:
+   k_step_gates' control
    vector and frozen fields bit for bit (the world it was given unchanged);
    k_ballistic_step's bodies bit for bit and its lanes identical, the speed
    lanes within 1e-6 relative; the ballistic step with K2 writing lanes
@@ -189,7 +196,9 @@
    lanes bit for bit and those lanes equal to K2's own call; K1's row in
    the state layout (diag row 1) and its bool latches against
    ``step_kernel_plain``'s, the pair overflow both as the int32 difference
-   and as the float one.  Each kernel's time at the rain-in and settled
+   and as the float one; K1's cache and bodies too, integers identical and
+   floats difference 0, a NaN matching a NaN (so at the NaN poses as well;
+   K3 and K5 are held so at NaN poses in phases 9 and 5).  Each kernel's time at the rain-in and settled
    states beside its plain version's, traced and held to one kernel a call,
    and its bound; then the launches of 20 traced settled steps and of a
    traced falling window (steps 1-100), held to the port's kernels alone,
@@ -556,6 +565,10 @@ def grid_phase(card: str) -> dict:
             # bodies fits no cluster.
             whole = (a6[0], wi.bodies.g) + a6[2:]
             k6_err = max(k6_err, compare_k6(whole, "settled, one logical block"))
+            # A NaN pose after the lists were built: the precull culls its
+            # slots as the plain version's torch.maximum does.
+            for comp, axis in ((1, "y"), (0, "x")):
+                compare_k5(nan_pose(wi, comp), scene, f"settled, a NaN pos.{axis}")
 
     fall_sps = 300 / marks[300]
     settled_sps = (n_steps - hold_from) / (t_run - marks[hold_from])
@@ -1089,12 +1102,15 @@ def profiled_kernels(scene_name: str, warm: int, steps: int, per_step: int):
     untraced twin and the traced block run the same steps from the same
     state, and a run of the ``warm`` steps of its own counts their
     refreshes.  The gates kernel, one a step, is held by the launch
-    counters, not here: the profiler misses the first kernel of its
-    session (the first step's gates, in PR 15's runs) and on some runs a
-    few more, so a profile whose other kernels are fewer than ``per_step``
-    a step is taken again, up to twice; the callers hold the last one.
-    Returns (profile's numbers, the other kernels, the traced block's
-    refresh steps)."""
+    counters, not here.  The kernels are counted in a session of their own
+    over the same block (``block_kernels``, opened by two K7 launches left
+    out of the count): the profiler loses one of the first records of the
+    port's kernels in a session (seen: the first step's gates, a
+    ``k_filter_cull`` of profile_phases' own session), and on
+    some runs a few more, so a count whose other kernels are fewer than
+    ``per_step`` a step is taken again, up to twice; the callers hold the
+    last one.  Returns (profile's numbers, the other kernels, the traced
+    block's refresh steps)."""
     from avbd3d_tpu_torch import load_scene, solver
     from avbd3d_tpu_torch.utils import profile_phases
 
@@ -1107,10 +1123,7 @@ def profiled_kernels(scene_name: str, warm: int, steps: int, per_step: int):
         reset_counts()
         r = profile_phases.profile(scene_name, warm, steps, "cuda")
         calls = read_counts()["candidate_lists"] - warm_refreshes
-        own = collections.Counter()
-        for name, _us, c in r["kernels"]:
-            if own_kernel(name):
-                own[kernel_name(name)] += c
+        own = collections.Counter(block_kernels(w, sc.params, sc.cap, steps))
         lists = [own.pop(k, 0) for k in REFRESH_KERNELS]
         own.pop("k_step_gates", None)
         whole = (not calls % 2 and lists == [calls // 2] * len(REFRESH_KERNELS)
@@ -1240,6 +1253,31 @@ def jointed_phases(card) -> dict:
             "rod": (rod_scene, rod_world)}
 
 
+def compare_k3(a3, label: str):
+    """K3 (``collide_and_init``) against ``collide_half`` on the same
+    operands: integers identical, floats difference 0 (a NaN matching a
+    NaN).  Returns the kernel's cache, its kept count and the difference."""
+    from avbd3d_tpu_torch import solver_cuda
+
+    cp, kp, dp = solver_cuda.collide_half(*a3)
+    ck, kk, dk = solver_cuda.collide_and_init(*a3)
+    sync()
+    err3 = 0.0
+    for f in solver_cuda.CACHE_FIELDS:
+        a, b = getattr(cp, f), getattr(ck, f)
+        if a.dtype.is_floating_point:
+            err3 = max(err3, float_diff(a, b))
+        elif bool((a != b).any()):
+            fail(f"K3 ({label}): cache.{f} differs in {int((a != b).sum())} entries")
+    if err3 != 0.0:
+        fail(f"K3 ({label}): cache floats differ from the plain version by up to {err3}")
+    if (int(kp), int(dp)) != (int(kk), int(dk)):
+        fail(f"K3 ({label}): kept/dropped {int(kp)}/{int(dp)} vs {int(kk)}/{int(dk)}")
+    print(f"K3 vs plain ({label}): integers identical, kept {int(kk)}, float difference "
+          f"{err3:.1e}")
+    return ck, kk, err3
+
+
 def profiler_phase(w, scene, card) -> dict:
     """K3 and K4 against their plain versions at the settled Stress1000
     state ``w``, then utils/profile_cuda's table (its K3/K4 launches
@@ -1251,20 +1289,9 @@ def profiler_phase(w, scene, card) -> dict:
     p, cap = scene.params, scene.cap
     w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, cap.max_degree, p.bp_margin))
     a3 = (w.contacts, w.bp.nb, w.bp.key, w.bp.thr, w.bodies, p)
-    cp, kp, dp = solver_cuda.collide_half(*a3)
-    ck, kk, dk = solver_cuda.collide_and_init(*a3)
-    sync()
-    err3 = 0.0
-    for f in solver_cuda.CACHE_FIELDS:
-        a, b = getattr(cp, f), getattr(ck, f)
-        if a.dtype.is_floating_point:
-            err3 = max(err3, float_diff(a, b))
-        elif bool((a != b).any()):
-            fail(f"K3: cache.{f} differs in {int((a != b).sum())} entries")
-    if err3 != 0.0:
-        fail(f"K3: cache floats differ from the plain version by up to {err3}")
-    if (int(kp), int(dp)) != (int(kk), int(dk)):
-        fail(f"K3: kept/dropped {int(kp)}/{int(dp)} vs {int(kk)}/{int(dk)}")
+    ck, kk, err3 = compare_k3(a3, "settled Stress1000")
+    for comp, axis in ((1, "y"), (0, "x")):
+        compare_k3((*a3[:4], nan_pose(w, comp).bodies, p), f"settled Stress1000, a NaN pos.{axis}")
     a4 = (ck, w.bodies, p)
     op = solver_cuda.solve_loop_plain(*a4)
     ok = solver_cuda.solve_loop(*a4)
@@ -1278,9 +1305,8 @@ def profiler_phase(w, scene, card) -> dict:
             fail(f"K4: {name} differs")
     if err4 > 1e-5:
         fail(f"K4: body outputs max abs err {err4}")
-    print(f"K3 vs plain (settled Stress1000): integers identical, kept {int(kk)}, float "
-          f"difference {err3:.1e}; K4 vs plain ({p.iterations} iterations): stick identical, body max "
-          f"abs err {err4:.3e}")
+    print(f"K4 vs plain ({p.iterations} iterations): stick identical, body max abs err "
+          f"{err4:.3e}")
     reset_counts()
     rows = profile_cuda.profile("Stress1000", 300, "cuda")
     launches = read_counts()
@@ -2319,6 +2345,36 @@ def refresh_times(card, label, world, degree, params) -> dict:
     return {"lists": lists, "predicate": pred}
 
 
+# The state at which rows hold more masked columns than k_bp_lists' per-row
+# buffer (its cut to the D smallest keys runs): settled Stress4096 with a
+# 2.5 m margin, every interior cube within reach of its 7^3 - 1 nearest.
+OVER_BUFFER = "Stress4096 step 2800, margin 2.5 (rows past the per-row buffer)"
+
+
+def masked_per_row(world, degree, margin):
+    """Each row's masked columns (``candidate_lists_plain``'s mask, rows in
+    blocks of 1024) on the card."""
+    import torch
+
+    from avbd3d_tpu_torch.ops import broadphase as bpm
+
+    b = world.bodies
+    n = b.n
+    c = b.pos.reshape(3, n)
+    wh = bpm.world_halves_rows(b.quat, tuple(b.size[k] * 0.5 for k in range(3))).reshape(3, n)
+    radius, dyn = b.radius.reshape(n), b.dynamic.reshape(n)
+    jj = torch.arange(n, device=c.device)[None]
+    out = []
+    for r0 in range(0, n, 1024):
+        sl = slice(r0, r0 + 1024)
+        gap = bpm._cheb_gap(c[:, sl, None], wh[:, sl, None], c[:, None], wh[:, None], margin)
+        mask = ((gap <= 0.0) & bpm._real_pair(radius[sl, None], radius[None], margin)
+                & (torch.arange(r0, min(r0 + 1024, n), device=c.device)[:, None] != jj)
+                & dyn[sl, None])
+        out.append(mask.sum(1))
+    return torch.cat(out)
+
+
 def refresh_phase_states(card, scene, saved, init, w2048, s2048, grid, jointed, pile) -> dict:
     """Phase 19 at this run's states: Stress1000 (N = 1024, D = 24) at its
     initial, landing (150) and settled (700) states, settled also at D = 4
@@ -2354,6 +2410,7 @@ def refresh_phase_states(card, scene, saved, init, w2048, s2048, grid, jointed, 
         "Stress2048 step 800": (s800, c48.max_degree, p48.bp_margin),
         "Stress4096 step 800": (g800, c4.max_degree, p4.bp_margin),
         "Stress4096 step 2800": (g2800, c4.max_degree, p4.bp_margin),
+        OVER_BUFFER: (g2800, c4.max_degree, 2.5),
         "RodJointed step 600 (exclusions)": (rod, rod_scene.cap.max_degree, pr.bp_margin),
         "pile 31x17x31, spawn compressed to 0.9": (big, pile.cap.max_degree, ppile.bp_margin)}
     predicate = {
@@ -2384,6 +2441,15 @@ def refresh_phase(card, lists: dict, predicate: dict, timed: dict) -> dict:
     first Stress4096 state, and the times of both at the states of
     ``timed`` ({label: (world, degree, params)})."""
     out = {label: compare_lists(label, *args) for label, args in lists.items()}
+    if OVER_BUFFER in lists:
+        over = masked_per_row(*lists[OVER_BUFFER])
+        from avbd3d_tpu_torch import kernels
+
+        full = int((over > kernels.BP_ROW_BUFFER).sum())
+        print(f"refresh lists ({OVER_BUFFER}): {full} rows hold more masked columns than the "
+              f"kernel's buffer of {kernels.BP_ROW_BUFFER} keys (most {int(over.max())})")
+        if full == 0:
+            fail(f"refresh lists, {OVER_BUFFER}: no row past the per-row buffer")
     from avbd3d_tpu_torch.ops import broadphase as bpm
 
     err = max(compare_predicate(label, *args) for label, args in predicate.items())
@@ -2469,12 +2535,13 @@ def compare_stages(label, world, params, cap, nan_pose=False) -> dict:
     torch.sum's) within 1e-5 relative, 1e-6 absolute; the prediction's
     outputs bit for bit; the finalize's bodies and latches bit for bit, its
     diagnostics lanes identical but the speeds (2, 3: torch's vector_norm)
-    within 1e-6 relative.  ``nan_pose``: K6's last position of one body set
-    to NaN (the finalize's sanitize).  Returns the flags and the largest
-    dev_mm and speed-lane differences."""
+    within 1e-6 relative; dev_mm and dev_raw also bit for bit those of
+    k_refresh_needed on the frozen bodies.  ``nan_pose``: K6's last
+    position of one body set to NaN (the finalize's sanitize).  Returns the
+    flags and the largest dev_mm and speed-lane differences."""
     import torch
 
-    from avbd3d_tpu_torch import solver_grid
+    from avbd3d_tpu_torch import kernels, solver_grid
 
     a = stage_args(world, params, cap)
     if nan_pose:
@@ -2492,6 +2559,15 @@ def compare_stages(label, world, params, cap, nan_pose=False) -> dict:
     mm_err = abs(float(gk[3]) - float(gp[3]))
     if not mm_err <= 1e-6 + 1e-5 * abs(float(gp[3])):
         bad.append(f"dev_mm {float(gk[3])} vs {float(gp[3])}")
+    # The deviations' bits are those of the fold k_refresh_needed and K2 run
+    # (fold_parts_warp, dev_mm_block), the one the gates kernel ran alone in
+    # one block before it spread its tail over the card.
+    gw, gparams = a["gates"]
+    _need, devs = kernels.launch_refresh_needed(wk.bodies, gw.bp.anchor, gw.bp.anchor_quat,
+                                                gw.bp.slack, gparams.bp_margin)
+    sync()
+    if not same_bits_nan(gk[3:5], devs):
+        bad.append(f"dev_mm, dev_raw {gk[3:5].tolist()} vs k_refresh_needed's {devs.tolist()}")
     bad += [f"frozen {f}" for f in ("linvel", "angvel", "inv_mass")
             if not same_bits_nan(getattr(wk.bodies, f), getattr(wp.bodies, f))]
     bad += [f"predict output {i}" for i, (x, y) in enumerate(zip(pk, pp))
@@ -2670,12 +2746,13 @@ FALLING_TRACE_STEPS = 100
 
 
 def fused_world(world, params, kind: str):
-    """``world`` with a NaN position on one dynamic body ("nan pose"), or
-    ``stage_world``'s fallen bodies and non-finite velocities, the latter
-    with a third body spinning above ``max_angular_speed`` (the clamp)."""
+    """``world`` with a NaN ``pos.y`` ("nan pose") or ``pos.x`` ("nan pose
+    x") on one dynamic body, or ``stage_world``'s fallen bodies and
+    non-finite velocities, the latter with a third body spinning above
+    ``max_angular_speed`` (the clamp)."""
     import torch
 
-    if kind != "nan pose":
+    if not kind.startswith("nan pose"):
         w = stage_world(world, params, kind)
         if kind == "nan":
             b = w.bodies
@@ -2684,10 +2761,18 @@ def fused_world(world, params, kind: str):
             av.view(3, -1)[0, ids[2]] = 4.0 * params.max_angular_speed
             w = w.replace(bodies=b.replace(angvel=av))
         return w
+    return nan_pose(world, 0 if kind == "nan pose x" else 1)
+
+
+def nan_pose(world, comp: int = 1):
+    """``world`` with the 8th dynamic body's ``pos[comp]`` NaN (its lists,
+    cache and diagnostics those of the finite world)."""
+    import torch
+
     b = world.bodies
     i = int(torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[7])
     pos = b.pos.clone()
-    pos.view(3, -1)[1, i] = float("nan")
+    pos.view(3, -1)[comp, i] = float("nan")
     return world.replace(bodies=b.replace(pos=pos))
 
 
@@ -2709,7 +2794,7 @@ def rel_err_nan(a, b, floor: float = 1.0) -> float:
     return float(torch.where(torch.isnan(d), float("inf"), d).max())
 
 
-def compare_fused(label, world, params, cap, k1_plain: bool = True) -> dict:
+def compare_fused(label, world, params, cap) -> dict:
     """k_step_gates, k_ballistic_step, the ballistic step with K2's ``out=``
     and K1's new tail against their plain versions on the same card tensors
     at the next step of ``world``: the gates' control vector and frozen
@@ -2723,11 +2808,8 @@ def compare_fused(label, world, params, cap, k1_plain: bool = True) -> dict:
     it), bodies and row 1 in the state layout against ``step_kernel_plain``'s
     (integers identical, floats difference 0, the control lanes 11-15
     within 1e-5 relative as ``compare_k1`` holds them), lane 9 both cand -
-    kept in int32 and float(cand) - float(kept).  ``k1_plain`` False (a
-    NaN pose, where K1's collide and its plain version's part ways: ROADMAP
-    Queue 3): K1's row 1 is held to its own row 0 in the state layout and
-    its latches to bools, and the cache entries that differ from the plain
-    version's are counted.  Returns the largest speed-lane and control-lane
+    kept in int32 and float(cand) - float(kept); at a NaN pose too, a NaN
+    matching a NaN.  Returns the largest speed-lane and control-lane
     differences and the ballistic kernel's operands."""
     import torch
 
@@ -2792,10 +2874,8 @@ def compare_fused(label, world, params, cap, k1_plain: bool = True) -> dict:
                   if float_diff(x, y)]
     if ck.stick.dtype != torch.bool:
         bad.append(f"K1 latches of dtype {ck.stick.dtype}")
-    sk = rk[1, :16]
-    sp = rp[1, :16] if k1_plain else sk
-    if k1_plain:
-        bad += [f"K1 {x}" for x in k1_differ]
+    sk, sp = rk[1, :16], rp[1, :16]
+    bad += [f"K1 {x}" for x in k1_differ]
     if not equal_nan(sk[:11], sp[:11]) or not equal_nan(sk[:9], rk[0, :9]):
         bad.append(f"K1 state row {sk.tolist()} vs {sp.tolist()}")
     kept = int(rk[0, 9])
@@ -2803,7 +2883,7 @@ def compare_fused(label, world, params, cap, k1_plain: bool = True) -> dict:
             and float(sk[10]) == float(rk[0, 15])):
         bad.append(f"K1 pair overflow {float(sk[9])}, cand {int(cand)}, kept {kept}")
     ctrl_err = rel_err_nan(sk[11:], rp[1, 11:16])
-    if not (ctrl_err <= 1e-5 or not k1_plain) or not same_bits(sk[11:], rk[0, 10:15]) or (
+    if not ctrl_err <= 1e-5 or not same_bits(sk[11:], rk[0, 10:15]) or (
             rk[1, 16:].any()):
         bad.append(f"K1 state row control lanes {sk[11:].tolist()} vs {sp[11:].tolist()}")
     d = vk.tolist()
@@ -2812,12 +2892,10 @@ def compare_fused(label, world, params, cap, k1_plain: bool = True) -> dict:
           f"{'bit for bit' if not bad else 'DIFFER'}; ballistic lanes: sanitized {int(d[8])}, "
           f"dynamic {int(d[7])}, speeds {d[2]:.6g} / {d[3]:.6g} (rel err {speed_err:.1e}), "
           f"K2's lane 14 abs err {lane14:.1e}; K1 row 1: contacts {int(sk[5])}, pair "
-          f"overflow {int(sk[9])}, control lanes rel err {ctrl_err:.1e}"
-          + ("" if k1_plain else f"; K1 against its plain version: {k1_differ or 'equal'} "
-                                 "(not held: ROADMAP Queue 3)"))
+          f"overflow {int(sk[9])}, control lanes rel err {ctrl_err:.1e}")
     if bad:
         fail(f"fused stages, {label}: {bad}")
-    return {"speed_err": speed_err, "ctrl_err": max(ctrl_err if k1_plain else 0.0, lane14),
+    return {"speed_err": speed_err, "ctrl_err": max(ctrl_err, lane14),
             "k1_differ": k1_differ, "frozen": frozen,
             "sanitized": int(d[8]), "args": (wp, b, params)}
 
@@ -2853,16 +2931,19 @@ def fused_bounds(gates_world, wp, b, params) -> dict:
 def block_kernels(w, p, cap, steps: int) -> dict:
     """The port's kernels, by name without template arguments, in a
     ``torch.profiler`` trace of ``steps`` steps from ``w``.  The session
-    opens with one launch of K7 (``k_probe``, which no step launches) and
-    leaves it out of the count: on the H100 the profiler drops the first
-    record of the port's kernels in a session, whatever torch ran before
-    it (there, a fused block's first ``k_step_gates``)."""
+    opens with two launches of K7 (``k_probe``, which no step launches),
+    each synchronized, and leaves them out of the count: on the H100 the
+    profiler drops one of the first records of the port's kernels in a
+    session, whatever torch ran before it (seen: a fused block's first
+    ``k_step_gates``, with one K7 launch before it)."""
     import torch
 
     from avbd3d_tpu_torch import solver, solver_cuda
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        solver_cuda.bp_probe(w.bp.nb, w.bodies, p)
+        for _ in range(2):
+            solver_cuda.bp_probe(w.bp.nb, w.bodies, p)
+            sync()
         solver.run_steps(w, p, cap, steps)
         sync()
     got = collections.Counter()
@@ -2964,8 +3045,9 @@ def fused_phase(card, scene, saved, jointed) -> dict:
                   fused_world(settled, p, "fallen"), p, cap),
               "Stress1000 step 700, NaN / inf velocities and a spin above the clamp": (
                   fused_world(settled, p, "nan"), p, cap),
-              "Stress1000 step 700, a NaN pose": (fused_world(settled, p, "nan pose"), p, cap,
-                                                  False),
+              "Stress1000 step 700, a NaN pos.y": (fused_world(settled, p, "nan pose"), p, cap),
+              "Stress1000 step 700, a NaN pos.x": (fused_world(settled, p, "nan pose x"), p,
+                                                   cap),
               "Stress1000 step 700, every body static": (unmoved_world(settled), p, cap),
               "RodJointed step 600 (K1's joint branch)": (rod_world, rod_scene.params,
                                                           rod_scene.cap)}
@@ -3221,13 +3303,25 @@ def race_routes(states: dict) -> list:
         routes.append((f"refresh predicate {label} (the last block folds and runs the deviation "
                        "pass)", lambda b=b, w=w, p=p: list(kernels.launch_refresh_needed(
                            b, w.bp.anchor, w.bp.anchor_quat, w.bp.slack, p.bp_margin))))
+    # k_bp_lists with 32 rows a block (the 16384-body pile's choice), and
+    # rows past the per-row buffer (its cut), whole and split over 4 warps
+    # (the merge).
+    w, degree, p = states["refresh"]["Stress4096 settled"]
+    b = w.bodies
+    table, max_wh = kernels.launch_bp_tables(b.pos, b.quat, b.size, 0.5, b.radius, b.inv_mass)
+    for margin, rpb in ((p.bp_margin, 32), (2.5, 16), (2.5, 2)):
+        routes.append((f"refresh lists Stress4096 settled, margin {margin:g}, {rpb} rows a block "
+                       "(k_bp_lists: the last block folds)",
+                       lambda margin=margin, rpb=rpb, table=table, max_wh=max_wh,
+                       ex=w.exclusions, degree=degree: list(kernels.launch_bp_lists(
+                           table, table, max_wh, ex, degree, margin, rows_per_block=rpb))))
     # The grid step's stage kernels: a ticket fold each (the gates' also
     # runs the deviation pass).
     for label, a in states["stages"].items():
         world, p = a["gates"]
         b = world.bodies
-        routes.append((f"k_grid_gates {label} (the last block folds and runs the deviation "
-                       "pass)", lambda b=b, w=world, p=p: list(kernels.launch_grid_gates(
+        routes.append((f"k_grid_gates {label} (a grid barrier, every block folds the partials, "
+                       "the last block folds the blocks' deviations)", lambda b=b, w=world, p=p: list(kernels.launch_grid_gates(
                            b, w.bp.anchor, w.bp.anchor_quat, w.bp.slack, p))))
         routes.append((f"k_grid_predict {label} (the last block folds the sanitize count)",
                        lambda a=a: list(kernels.launch_grid_predict(*a["predict"]))))
@@ -3247,6 +3341,16 @@ def race_routes(states: dict) -> list:
     return routes
 
 
+def tickets_zero(label: str) -> None:
+    """Every kernel's ticket (the counter by which its last block finds
+    itself, held in ``kernels._SCRATCH``) 0 after the launches."""
+    from avbd3d_tpu_torch import kernels
+
+    left = {k[2]: int(t.count_nonzero()) for k, t in kernels._SCRATCH.items() if "ticket" in k[2]}
+    if any(left.values()):
+        fail(f"race gate, {label}: tickets not 0 after the launches: {left}")
+
+
 def race_phase(card, states: dict) -> dict:
     """Each resident route RACE_REPS times on one input, every output
     bit-identical each time; then the same calls through a build whose odd
@@ -3264,6 +3368,7 @@ def race_phase(card, states: dict) -> dict:
         sync()
         if differ:
             fail(f"race gate, {label}: {differ} outputs changed over {RACE_REPS} repetitions")
+        tickets_zero(label)
         firsts.append(first)
         print(f"race gate, {label}: {RACE_REPS} repetitions bit-identical ({len(first)} outputs)")
     lib = kernels.build(defines=(f"AVBD_RACE_DELAY={RACE_DELAY_NS}",))
@@ -3275,6 +3380,7 @@ def race_phase(card, states: dict) -> dict:
             bad = [k for k, (a, b) in enumerate(zip(first, got)) if not same_bits(a, b)]
             if bad:
                 fail(f"race gate, {label}: the delayed build differs in outputs {bad}")
+            tickets_zero(label)
             print(f"race gate, {label}: delayed build bit-identical")
     return {"routes": len(routes), "sanitizer": sanitizer_checks()}
 

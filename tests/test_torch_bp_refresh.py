@@ -82,6 +82,24 @@ def to_jax(arrays):
             for a in arrays]
 
 
+def masked_per_row(arrays, margin):
+    """Each row's masked columns (candidate_lists_plain's mask, rows in
+    blocks of 512)."""
+    pos, quat, half, radius, dynamic, _excl = to_torch(arrays)
+    n = radius.numel()
+    c, wh = pos.reshape(3, n), tbp.world_halves_rows(quat, half).reshape(3, n)
+    radius, dynamic = radius.reshape(n), dynamic.reshape(n)
+    jj = torch.arange(n)[None]
+    out = []
+    for r0 in range(0, n, 512):
+        sl = slice(r0, r0 + 512)
+        gap = tbp._cheb_gap(c[:, sl, None], wh[:, sl, None], c[:, None], wh[:, None], margin)
+        mask = ((gap <= 0.0) & tbp._real_pair(radius[sl, None], radius[None], margin)
+                & (torch.arange(r0, r0 + 512)[:, None] != jj) & dynamic[sl, None])
+        out.append(mask.sum(1))
+    return torch.cat(out)
+
+
 def cache_of(arrays, lists):
     """``cache_from_lists`` of the port's lists (its dropped count)."""
     pos, quat = (torch.from_numpy(a) for a in arrays[:2])
@@ -97,6 +115,9 @@ CASES = {
     "crowded": dict(seed=3, g=8, n_real=1000, box=3.5, degree=8, margin=0.1),
     # Exclusion columns (each body's index neighbours, as a chain lists them).
     "exclusions": dict(seed=4, g=8, n_real=700, box=3.0, degree=24, margin=0.05, n_excl=4),
+    # N = 5120, D = 28, crowded: hundreds of rows hold more masked columns
+    # than the lists kernel's per-row buffer (its exact cut to the D smallest).
+    "n5120_over_buffer": dict(seed=6, g=40, n_real=5000, box=6.0, degree=28, margin=0.1),
     # No dynamic body: nothing listed, no slack.
     "no_dynamic": dict(seed=5, g=8, n_real=900, box=4.0, degree=24, margin=0.05,
                        all_static=True),
@@ -130,6 +151,8 @@ def test_candidate_lists_match_reference(case):
     assert (thr == tbp.INT32_MAX).any() and (nb == -1).any()
     if case == "crowded":
         assert dropped > 0 and (thr < tbp.INT32_MAX).sum() > 500
+    if case == "n5120_over_buffer":
+        assert (masked_per_row(arrays, margin) > kernels.BP_ROW_BUFFER).sum() > 100
     if case == "exclusions":
         free = _ref_lists(*to_jax(arrays[:5] + (arrays[5][:0],)), degree=degree, margin=margin)
         assert int(free[3]) > cand          # the exclusions removed listed pairs
@@ -259,7 +282,11 @@ def test_launchers_reject_bad_operands_before_building(no_build):
         kernels.launch_bp_lists(table, table, max_wh, excl, kernels.BP_MAX_DEGREE + 1, margin)
     with pytest.raises(ValueError, match="multiples of 128"):
         kernels.launch_bp_lists(table[:1000], table, max_wh, excl, degree, margin)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="rows a block"):
+        kernels.launch_bp_lists(table, table, max_wh, excl, degree, margin, rows_per_block=64)
+    # The kernel's shared memory does not grow with N: 60K columns pass the
+    # checks (and meet the device check, these being CPU tensors).
+    with pytest.raises(ValueError, match="CUDA tensors"):
         big = torch.zeros((60 * 1024, 8))
         kernels.launch_bp_lists(table, big, max_wh, excl, degree, margin)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -113,6 +113,17 @@ def test_select_variant_stress1000_has_one_variant():
     assert seen == {(20, 4)}
 
 
+@pytest.mark.parametrize("n_rows, batch, rows", [(1024, 1, 4), (2048, 1, 8), (5120, 1, 16),
+                                                  (16384, 1, 32), (1024, 16, 32), (128, 1, 2)])
+def test_bp_rows_per_block(n_rows, batch, rows):
+    """k_bp_lists' rows a block on a 132-SM card: the most that still give
+    the SMs 1.5 blocks each, else 2 (each row's columns over 4 warps); the
+    per-row buffer holds twice the widest list (its cut keeps the D smallest
+    of a fuller row)."""
+    assert kernels.bp_rows_per_block(n_rows, batch, 132) == rows
+    assert kernels.BP_ROW_BUFFER == 2 * kernels.BP_MAX_DEGREE
+
+
 def test_kernel_parameter_block_matches_struct():
     """kernels._PARAM_NAMES is the field order of struct KParams."""
     with open(os.path.join(REPO, "avbd3d_tpu_torch", "csrc", "avbd_common.cuh")) as f:
@@ -468,6 +479,132 @@ def test_cuda_grid_stages_match_plain(cuda_grid, name):
         assert float(dk[8]) >= 3
     assert (solver_grid.grid_gates.launches, solver_grid.grid_predict.launches,
             solver_grid.grid_finalize.launches) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRID_STAGE_STATES)
+def test_cuda_grid_gates_deviations_are_the_shared_fold(cuda_grid, name):
+    """k_grid_gates (one cooperative launch: a grid barrier, then every
+    block folds the group partials and its own bodies' deviations) gives
+    dev_mm and dev_raw bit for bit k_refresh_needed's on the frozen bodies
+    (the fold K2 and the predicate share, which the gates kernel once ran
+    in one block), in one launch, with its ticket 0 after."""
+    _w, p, _cap = cuda_grid
+    w = grid_stage_world(cuda_grid, name)
+    solver_grid.reset_launch_counts()
+    wk, gk = solver_grid.grid_gates(w, p)
+    bp = w.bp
+    _need, devs = kernels.launch_refresh_needed(wk.bodies, bp.anchor, bp.anchor_quat, bp.slack,
+                                                p.bp_margin)
+    torch.cuda.synchronize()
+    assert same_bits(gk[3:5], devs), (gk, devs)
+    assert solver_grid.grid_gates.launches == 1
+    tickets = {k[2]: int(t.count_nonzero()) for k, t in kernels._SCRATCH.items()
+               if "ticket" in k[2]}
+    assert not any(tickets.values()), tickets
+
+
+def nan_pose(world, comp):
+    """``world`` with the 8th dynamic body's ``pos[comp]`` NaN, its lists,
+    cache and diagnostics those of the finite world."""
+    b = world.bodies
+    i = int(torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[7])
+    pos = b.pos.clone()
+    pos.view(3, -1)[comp, i] = float("nan")
+    return world.replace(bodies=b.replace(pos=pos))
+
+
+def float_diff(a, b):
+    """Largest |a - b|: NaN on both sides counts 0, on one side inf."""
+    both = torch.isnan(a) & torch.isnan(b)
+    d = torch.where(both, 0.0, (a - b).abs())
+    return float(torch.where(torch.isnan(d), float("inf"), d).max())
+
+
+def assert_cache_equal(cp, ck):
+    for f in solver_cuda.CACHE_FIELDS:
+        a, b = getattr(cp, f), getattr(ck, f)
+        if a.dtype.is_floating_point:
+            assert float_diff(a, b) == 0.0, f
+        else:
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp", [1, 0], ids=["pos.y", "pos.x"])
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K5"])
+def test_cuda_kernels_match_plain_at_nan_pose(cuda_stress, cuda_grid, kernel, comp):
+    """K1, K3 and K5 at a NaN pose (one dynamic body's pos.y or pos.x NaN
+    after its lists were built) against their plain versions: integers
+    identical, floats difference 0 with a NaN matching a NaN; the precull
+    (k_filter_cull, which all three run) culls a slot whose separation is
+    NaN, as torch.maximum does."""
+    if kernel == "K5":
+        w, p, _cap = cuda_grid
+        args = (w.contacts, w.bp.nb, w.bp.key, w.bp.thr, nan_pose(w, comp).bodies, p)
+        cp, kp, op, dp = solver_grid.collide_grid_plain(*args)
+        ck, kk, ok, dk = solver_grid.collide_grid(*args)
+        torch.cuda.synchronize()
+        assert_cache_equal(cp, ck)
+        assert torch.equal(kp, kk) and torch.equal(op, ok) and int(dp) == int(dk)
+        return
+    sc, w = cuda_stress
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    b, bp = nan_pose(w, comp).bodies, w.bp
+    if kernel == "K3":
+        args = (w.contacts, bp.nb, bp.key, bp.thr, b, sc.params)
+        cp, kp, dp = solver_cuda.collide_half(*args)
+        ck, kk, dk = solver_cuda.collide_and_init(*args)
+        torch.cuda.synchronize()
+        assert_cache_equal(cp, ck)
+        assert int(kp) == int(kk) and int(dp) == int(dk)
+        return
+    args = (w.contacts, bp.nb, bp.key, bp.thr, b, bp.anchor, bp.anchor_quat, sc.params, 20, 4,
+            bp.cand)
+    cp, bp_, dp, _ = solver_cuda.step_kernel_plain(*args)
+    ck, bk, dk, _ = solver_cuda.step_kernel(*args)
+    torch.cuda.synchronize()
+    assert_cache_equal(cp, ck)
+    for i, (x, y) in enumerate(zip(bp_, bk)):
+        assert float_diff(x, y) == 0.0, i
+    assert torch.equal(dp[0, 5:10], dk[0, 5:10]) and torch.equal(dp[1, 5:11], dk[1, 5:11])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_block", kernels.BP_ROWS_PER_BLOCK)
+def test_cuda_candidate_lists_past_the_row_buffer(cuda_grid, rows_per_block):
+    """k_bp_lists on the 16^3 pile at Stress4096's widths with a 2.5 m
+    margin, whose rows hold more masked columns than the kernel's per-row
+    buffer (its cut to the D smallest keys), with 8, 16 and 32 rows a
+    block and on two halves of the rows (a sharded call, ``row0``): nb,
+    key, thr, cand identical to the plain version, slack bit for bit."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    w, _p, cap = cuda_grid
+    b, degree, margin = w.bodies, cap.max_degree, 2.5
+    assert int(chip_smoke.masked_per_row(w, degree, margin).max()) > kernels.BP_ROW_BUFFER
+    half = tuple(b.size[k] * 0.5 for k in range(3))
+    want = broadphase.candidate_lists_plain(b.pos, b.quat, half, b.radius, b.dynamic,
+                                            w.exclusions, degree, margin)
+    table, max_wh = kernels.launch_bp_tables(b.pos, b.quat, b.size, 0.5, b.radius, b.inv_mass)
+    got = kernels.launch_bp_lists(table, table, max_wh, w.exclusions, degree, margin,
+                                  rows_per_block=rows_per_block)
+    g2 = b.g // 2
+    parts = [kernels.launch_bp_lists(table[g0 * 128:(g0 + g2) * 128], table, max_wh,
+                                     w.exclusions[:, g0:g0 + g2].contiguous(), degree, margin,
+                                     g0 * 128, rows_per_block=rows_per_block)
+             for g0 in (0, g2)]
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+    assert same_bits(got[4], want[4])
+    for k in range(2):
+        assert torch.equal(torch.cat([q[k] for q in parts], dim=-2), want[k]), k
+    assert torch.equal(torch.cat([q[2] for q in parts]), want[2])
+    assert sum(int(q[3]) for q in parts) == int(want[3])
+    assert same_bits(torch.minimum(parts[0][4], parts[1][4]), want[4])
 
 
 @pytest.fixture

@@ -1,18 +1,22 @@
-"""The grid step's stage kernels in one tree: ptxas usage and times, on the card.
+"""The grid step's stage kernels and the refresh lists in one tree: ptxas usage and times, on the card.
 
-    python tools/grid_stage_ab.py [--root DIR] [--steps N]
+    python tools/grid_stage_ab.py [--root DIR] [--steps N] [--what stages,lists]
 
 Builds the tree's kernels, prints the registers and spill bytes that ptxas
 gave every stage kernel (``k_grid_*``, and ``k_step_gates`` /
-``k_ballistic_step`` where the tree has them), steps Stress4096 ``N`` steps
-(default 2800, the state ``chip_smoke.py`` phase 20 times at) and times each
-grid stage kernel at the next step as phase 20 does
-(``chip_smoke.one_kernel_times``: CUDA-event ms a call over 100 calls back
-to back, and the kernel's own us a call in a trace).  The last line is one
-JSON object.  ``--root``: the tree whose package and ``chip_smoke.py`` are
-imported (default: the tree this file lies in), e.g. an unpacked older
-commit; run two trees in turns in one call (parent, change, change, parent)
-to compare them on one card.
+``k_ballistic_step`` where the tree has them) and the refresh kernels
+(``k_bp_*``), steps Stress4096 ``N`` steps (default 2800, the state
+``chip_smoke.py`` phase 20 times at) and times each grid stage kernel at the
+next step as phase 20 does (``chip_smoke.one_kernel_times``: CUDA-event ms
+a call over 100 calls back to back, and the kernel's own us a call in a
+trace).  ``lists``: a refresh (``build_bp_cache``: k_bp_tables and
+k_bp_lists) timed the same way as phase 19 does, with its bound, at N =
+1024 (Stress1000 step 700), 2048 (Stress2048 step 800), 5120 (that
+Stress4096 state) and 16384 (the 31 x 17 x 31 pile's spawn compressed to
+0.9).  The last line is one JSON object.  ``--root``: the tree whose package
+and ``chip_smoke.py`` are imported (default: the tree this file lies in),
+e.g. an unpacked older commit; run two trees in turns in one call (parent,
+change, change, parent) to compare them on one card.
 """
 
 import argparse
@@ -23,19 +27,40 @@ import sys
 STAGES = (("grid_gates", "gates"), ("grid_predict", "predict"), ("grid_finalize", "finalize"))
 
 
+def list_states(cs, g2800, s4096):
+    """{label: (world, degree, margin)} at N = 1024, 2048, 5120 and 16384."""
+    from avbd3d_tpu_torch import load_scene, solver
+    from avbd3d_tpu_torch.convert import world_from_arrays
+    from avbd3d_tpu_torch.models.scenes import _scene_stress_n
+
+    out = {}
+    for name, steps in (("Stress1000", 700), ("Stress2048", 800)):
+        sc = load_scene(name, device="cuda")
+        w = solver.run_steps(sc.world, sc.params, sc.cap, steps)
+        out[f"{name} step {steps}"] = (w, sc.cap.max_degree, sc.params.bp_margin)
+    out["Stress4096 step 2800"] = (g2800, s4096.cap.max_degree, s4096.params.bp_margin)
+    arrays, p, cap, _n = _scene_stress_n(31, 17, 31, max_degree=28, cache_degree=16)
+    big, _before = cs.compressed(world_from_arrays(arrays, "cuda"), p, cap)
+    out["pile 31x17x31 compressed"] = (big, cap.max_degree, p.bp_margin)
+    return out
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here)
     ap.add_argument("--steps", type=int, default=2800)
+    ap.add_argument("--what", default="stages,lists")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
+    what = set(args.what.split(","))
     sys.path.insert(0, root)
 
     import torch
 
     import chip_smoke as cs
     from avbd3d_tpu_torch import kernels, load_scene, solver, solver_grid
+    from avbd3d_tpu_torch.ops import broadphase as bpm
 
     if not torch.cuda.is_available():
         print("grid_stage_ab: CUDA is not available", file=sys.stderr)
@@ -43,18 +68,32 @@ def main(argv=None) -> int:
     card = cs.card_line()
     lib = kernels.build()
     usage = {k: v for k, v in kernels.ptxas_usage(lib.log).items()
-             if k.startswith(("k_grid_", "k_step_gates", "k_ballistic_step"))}
+             if k.startswith(("k_grid_", "k_step_gates", "k_ballistic_step", "k_bp_"))}
     for name, u in sorted(usage.items()):
         print(f"ptxas {name}: {u['registers']} registers, {u['spill_bytes']} spill bytes")
     sc = load_scene("Stress4096", device="cuda")
     w = solver.run_steps(sc.world, sc.params, sc.cap, args.steps)
-    a = cs.stage_args(w, sc.params, sc.cap)
     times = {}
-    for name, key in STAGES:
-        kern, plain = getattr(solver_grid, name), getattr(solver_grid, name + "_plain")
-        times[name] = cs.one_kernel_times(
-            card, f"{name} (Stress4096 step {args.steps})", cs.STAGE_KERNELS[name],
-            lambda kern=kern, key=key: kern(*a[key]), lambda plain=plain, key=key: plain(*a[key]))
+    if "stages" in what:
+        a = cs.stage_args(w, sc.params, sc.cap)
+        for name, key in STAGES:
+            kern, plain = getattr(solver_grid, name), getattr(solver_grid, name + "_plain")
+            times[name] = cs.one_kernel_times(
+                card, f"{name} (Stress4096 step {args.steps})", cs.STAGE_KERNELS[name],
+                lambda kern=kern, key=key: kern(*a[key]),
+                lambda plain=plain, key=key: plain(*a[key]))
+    if "lists" in what:
+        for label, (world, degree, margin) in list_states(cs, w, sc).items():
+            b, ex = world.bodies, world.exclusions
+            t = cs.one_kernel_times(
+                card, f"refresh lists ({label}, N = {b.n}, D = {degree})", cs.REFRESH_KERNELS,
+                lambda b=b, ex=ex, degree=degree, margin=margin: bpm.build_bp_cache(
+                    b, ex, degree, margin),
+                lambda b=b, ex=ex, degree=degree, margin=margin: cs.plain_cache(
+                    b, ex, degree, margin), 100 if b.n <= 5120 else 20)
+            t["bound_ms"], t["bound_by"] = cs.refresh_bounds(world, degree)["lists"]
+            t["n"] = b.n
+            times[f"lists {label}"] = t
     print(json.dumps({"tree": root, "card": card, "steps": args.steps, "ptxas": usage,
                       "times": times}))
     return 0
