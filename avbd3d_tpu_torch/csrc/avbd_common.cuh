@@ -431,10 +431,14 @@ __device__ __forceinline__ bool finite4(Q4 q) {
   return isfinite(q.x) && isfinite(q.y) && isfinite(q.z) && isfinite(q.w);
 }
 
-// solver.freeze_fallen for one body: a dynamic body below freeze_y becomes
-// static with zeroed velocities (torch.where(frozen, 0.0, x)).
+// solver.freeze_fallen for one body: a dynamic body below freeze_y
+// (frozen) becomes static with zeroed velocities (torch.where(frozen, 0.0,
+// x)).
+__device__ __forceinline__ bool frozen(float im, float py, float freeze_y) {
+  return im > F(0.0) && py < freeze_y;
+}
 __device__ __forceinline__ void freeze_body(V3 pos, float freeze_y, V3* lv, V3* av, float* im) {
-  if (*im > F(0.0) && pos.y < freeze_y) {
+  if (frozen(*im, pos.y, freeze_y)) {
     *lv = v3(F(0.0), F(0.0), F(0.0));
     *av = *lv;
     *im = F(0.0);
@@ -508,33 +512,41 @@ __device__ __forceinline__ Predicted predict_one(V3 pos0, Q4 q0, V3 lv, V3 av, V
 
 // solver.finalize's velocities of one body from its final pose (pf, qf)
 // and its start (pos0, q0): damped, a static body keeping its own (lv0,
-// av0), each sanitized (adds to *san).
-__device__ __forceinline__ void finalize_velocities(V3 pf, Q4 qf, V3 pos0, Q4 q0, V3 lv0, V3 av0,
-                                                    bool dyn, const KParams& p, V3* nl_out,
-                                                    V3* na_out, int* san) {
+// av0), each sanitized (adds to *san).  The linear and the angular halves
+// share nothing, so a kernel may run them on two threads.
+__device__ __forceinline__ V3 finalize_linear(V3 pf, V3 pos0, V3 lv0, bool dyn, const KParams& p,
+                                              int* san) {
   const float dt = p.dt;
   // cm.div(pos_f - pos0, dt) * linear_damping
   const V3 dp = vsub(pf, pos0);
   V3 nl = vscale(v3(dp.x / dt, dp.y / dt, dp.z / dt), p.linear_damping);
+  if (!dyn) nl = lv0;
+  if (!finite3(nl)) {
+    nl = v3(F(0.0), F(0.0), F(0.0));
+    ++*san;
+  }
+  return nl;
+}
+__device__ __forceinline__ V3 finalize_angular(Q4 qf, Q4 q0, V3 av0, bool dyn, const KParams& p,
+                                               int* san) {
+  const float dt = p.dt;
   // quat_vec_doubled(quat_f (x) conj(quat0)) / dt * angular_damping
   const Q4 dq = qmul(qf, qconj(q0));
   const float sign = dq.w < F(0.0) ? F(-1.0) : F(1.0);
   const V3 vd = v3((F(2.0) * dq.x) * sign, (F(2.0) * dq.y) * sign, (F(2.0) * dq.z) * sign);
   V3 na = vscale(v3(vd.x / dt, vd.y / dt, vd.z / dt), p.angular_damping);
-  if (!dyn) {
-    nl = lv0;
-    na = av0;
-  }
-  if (!finite3(nl)) {
-    nl = v3(F(0.0), F(0.0), F(0.0));
-    ++*san;
-  }
+  if (!dyn) na = av0;
   if (!finite3(na)) {
     na = v3(F(0.0), F(0.0), F(0.0));
     ++*san;
   }
-  *nl_out = nl;
-  *na_out = na;
+  return na;
+}
+__device__ __forceinline__ void finalize_velocities(V3 pf, Q4 qf, V3 pos0, Q4 q0, V3 lv0, V3 av0,
+                                                    bool dyn, const KParams& p, V3* nl_out,
+                                                    V3* na_out, int* san) {
+  *nl_out = finalize_linear(pf, pos0, lv0, dyn, p, san);
+  *na_out = finalize_angular(qf, q0, av0, dyn, p, san);
 }
 
 // The ticket fold of a stage kernel's lanes: NF float maxima (max_nan,

@@ -28,15 +28,24 @@
 // bodies' fields, every slot's count and partner, and the normal duals of
 // the live contacts, none to all of the (4, 12, N)), 0.02-0.14 us at
 // 3.35 TB/s, far below a launch's own few microseconds.
-// Design: one launch each over the card, a thread a body (and a thread a
-// slot where the slots are the bytes).
+// Design: one launch each over the card, threads over the bodies (and a
+// thread a slot where the slots are the bytes).
 //
-// k_step_gates, a thread a body: the fall-freeze when it is on (linvel,
-// angvel and inv_mass of the frozen bodies written into new buffers, so a
-// world the caller holds keeps its own), and the first 18 threads pack the
-// step's control vector: diagnostics lanes 0-15, bp.slack and
-// float(bp.dropped), the buffer whose copy to the host is the step's one
-// read.  No fold: nothing crosses threads.
+// k_step_gates, a thread a float of the frozen fields (7 planes of N): the
+// fall-freeze when it is on (linvel, angvel and inv_mass of the frozen
+// bodies written into new buffers, so a world the caller holds keeps its
+// own), and a last block whose threads 0-17 pack the step's control
+// vector: diagnostics lanes 0-15, bp.slack and float(bp.dropped), the
+// buffer whose copy to the host is the step's one read.  No fold: nothing
+// crosses threads.  Its time is a launch and one memory round trip, so a
+// thread's loads (its body's inv_mass and pos.y and its one float) are
+// all issued before its one store, no thread carries more than one float
+// of a body, and the pack, whose loads held back the stores of the threads
+// that shared them, runs on a block of its own (a thread a body that
+// packed the vector after its body's stores took 1.72 us on the card,
+// PERF.md section 6).  k_launch_floor is its floor at its grid and block:
+// empty, one load and one store a thread, or k_step_gates' own three loads
+// before its store, timed beside k_step_gates.
 //
 // k_ballistic_step, a thread a (slot, body): the threads of slot 0 take a
 // body each, predict it and finalize it at its inertial target (poses,
@@ -53,6 +62,12 @@
 // ---------------------------------------------------------------------------
 
 #define CONTROL_FLOATS 18  // diagnostics lanes 0-15, slack, dropped
+#define GATES_PLANES 7     // the frozen fields' planes: linvel x, y, z, angvel x, y, z, inv_mass
+#ifdef AVBD_GATES_THREADS  // another block size, for comparisons only (kernels.build's defines)
+#define GATES_THREADS AVBD_GATES_THREADS
+#else
+#define GATES_THREADS 128
+#endif
 
 struct StepGatesArgs {
   const float* pos;       // (3, N)
@@ -70,21 +85,50 @@ struct StepGatesArgs {
   float freeze_y;
 };
 
-__global__ void __launch_bounds__(STAGE_THREADS) k_step_gates(StepGatesArgs a) {
-  const int i = blockIdx.x * STAGE_THREADS + threadIdx.x;
+// Blocks 0 .. B - 2 (only with the fall-freeze on), thread t: plane c =
+// t / N of body i = t mod N, the fall-freeze's test (frozen) and zeroing
+// for that one float (torch.where(frozen, 0.0, x)), its three loads through
+// the read-only path before its store.  The last block, threads 0-17: the
+// control vector, on a block of its own so that no body's store waits
+// behind its loads.
+__global__ void k_step_gates(StepGatesArgs a) {
   const int n = a.n;
-  if (a.lv_out != nullptr && i < n) {
-    V3 lv = ld3(a.lv, i, n), av = ld3(a.av, i, n);
-    float im = a.inv_mass[i];
-    freeze_body(ld3(a.pos, i, n), a.freeze_y, &lv, &av, &im);
-    st3(a.lv_out, i, n, lv);
-    st3(a.av_out, i, n, av);
-    a.im_out[i] = im;
+  if (blockIdx.x == gridDim.x - 1) {
+    // read_control: cat([diagnostics, slack.to(float32), dropped.to(float32)])
+    const int u = threadIdx.x;
+    if (u < 16) a.out[u] = a.diag[u];
+    else if (u == 16) a.out[16] = *a.slack;
+    else if (u == 17) a.out[17] = (float)*a.dropped;
+    return;
   }
-  // read_control: cat([diagnostics, slack.to(float32), dropped.to(float32)])
-  if (i < 16) a.out[i] = a.diag[i];
-  else if (i == 16) a.out[16] = *a.slack;
-  else if (i == 17) a.out[17] = (float)*a.dropped;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < GATES_PLANES * n) {
+    const int c = t / n, i = t - c * n;
+    const float im = __ldg(a.inv_mass + i), py = __ldg(a.pos + n + i);
+    const float* src = c < 3 ? a.lv + c * n : (c < 6 ? a.av + (c - 3) * n : a.inv_mass);
+    const float x = __ldg(src + i);
+    float* dst = c < 3 ? a.lv_out + c * n : (c < 6 ? a.av_out + (c - 3) * n : a.im_out);
+    dst[i] = frozen(im, py, a.freeze_y) ? F(0.0) : x;
+  }
+}
+
+// The launch floor at k_step_gates' grid and block, by ``loads``: 0, empty;
+// 1, thread t < 7N copies src[t] to dst[t] (a load and a store); 3,
+// k_step_gates' access to the bodies without its control vector: thread t
+// loads inv_mass[i] and pos.y[i] of its body i = t mod N and src[t], all
+// before its one store (each load through the read-only path, as
+// k_step_gates' are).
+__global__ void k_launch_floor(const float* src, const float* inv_mass, const float* pos,
+                               float* dst, int n, int loads, float freeze_y) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (loads == 0 || t >= GATES_PLANES * n) return;
+  if (loads == 1) {
+    dst[t] = __ldg(src + t);
+    return;
+  }
+  const int i = t % n;
+  const float im = __ldg(inv_mass + i), py = __ldg(pos + n + i), x = __ldg(src + t);
+  dst[t] = frozen(im, py, freeze_y) ? F(0.0) : x;
 }
 
 // ---------------------------------------------------------------------------
@@ -183,6 +227,13 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_ballistic_step(BallisticArgs 
 
 extern "C" {
 
+// k_step_gates' grid: a thread a float of the frozen fields (none without
+// the fall-freeze), then the control vector's block.
+static_assert(CONTROL_FLOATS <= GATES_THREADS, "the control vector takes one block");
+static int gates_blocks(int n, bool freeze) {
+  return (freeze ? (GATES_PLANES * n + GATES_THREADS - 1) / GATES_THREADS : 0) + 1;
+}
+
 // ptrs: pos, linvel, angvel, inv_mass, diagnostics (16 floats), slack (1
 // float), dropped (1 int), then the frozen linvel, angvel, inv_mass (null
 // each without the fall-freeze), out (CONTROL_FLOATS floats).
@@ -201,9 +252,16 @@ int avbd_step_gates(void** ptrs, int n, float freeze_y, void* stream) {
   a.out = (float*)ptrs[10];
   a.n = n;
   a.freeze_y = freeze_y;
-  const int threads = a.lv_out != nullptr && n > CONTROL_FLOATS ? n : CONTROL_FLOATS;
-  const int blocks = (threads + STAGE_THREADS - 1) / STAGE_THREADS;
-  k_step_gates<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a);
+  k_step_gates<<<gates_blocks(n, a.lv_out != nullptr), GATES_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: src (7 x N floats), inv_mass (N), pos (3 x N), dst (7 x N);
+// k_launch_floor at k_step_gates' grid and block with the fall-freeze on.
+int avbd_launch_floor(void** ptrs, int n, int loads, float freeze_y, void* stream) {
+  k_launch_floor<<<gates_blocks(n, true), GATES_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2], (float*)ptrs[3], n,
+      loads, freeze_y);
   return (int)cudaGetLastError();
 }
 

@@ -32,12 +32,12 @@
 // 0.1-2 us at 3.35 TB/s, below a launch's own few microseconds.  Design:
 // one launch each, spread over the card, a thread a body (and a thread a
 // slot where the slots are the bytes); a cross-block fold, where a stage
-// has one, is a ticket fold as in K2 (k_control_lanes): each block writes
-// its partials, fences, takes a ticket, and the last block folds every
-// block's partials in index order, writes the result and resets the ticket
-// to 0.  Integer sums are exact in any order and the maxima propagate NaN
-// as torch.max does, so the flags, the counts and the max lanes equal the
-// plain version's.
+// has one, ends in a ticket as in K2 (k_control_lanes): each block hands on
+// its partials (the finalize by atomics into ten words), fences, takes a
+// ticket, and the last block reads them, writes the result and resets the
+// ticket to 0.  Integer sums are exact in any order and the maxima
+// propagate NaN as torch.max does, so the flags, the counts and the max
+// lanes equal the plain version's.
 //
 // k_grid_gates, a thread a body: the fall-freeze (linvel, angvel and
 // inv_mass with the frozen bodies zeroed, written when the freeze is on),
@@ -60,11 +60,25 @@
 // into the (C, G, 128) layout K6 reads; and a thread a slot latch: the
 // contact cache's stick latches as the 0 / 1 floats K5 takes.
 //
-// k_grid_finalize, a thread a (slot, body): the pose sanitizes and finalize
-// for the bodies (the threads of slot 0), the latches back to bool, and the
-// 16 diagnostics lanes: the maxima of lanes 0-4 over slots and bodies, the
-// counts of lanes 5-10 (with the pair overflow cand - kept folded in) and
-// CONTROL_RESET in lanes 11-15.
+// k_grid_finalize, over a grid sized to the card (avbd_grid_finalize: at
+// most two blocks an SM; its data would ask for 560 blocks of a thread a
+// slot at Stress4096): eight slot warps a block walk the slots, the kept
+// mask and the six planes of previous velocities (copies), a slot's loads
+// issued together, the latches back to bool (wider loads a thread, tried,
+// bought nothing and cost registers); two body warps a block take 16
+// bodies each in turn (chunk c to block c mod the grid), a lane the linear
+// and a lane the angular half of a body's pose sanitize and finalize (each
+// half a chain of IEEE divisions and a square root), so the bodies run
+// beside the slots on every block instead of after them on the first 20.
+// The 16 diagnostics lanes: the maxima of lanes 0-4 over slots and bodies,
+// the counts of lanes 5-10 (with the pair overflow cand - kept
+// folded in) and CONTROL_RESET in lanes 11-15, by atomic_fold: each block
+// folds its threads by warp reductions, then adds its counts and raises its
+// maxima (as order-keeping integer keys, NaN above all) in ten words by
+// atomics, and the last block to take the ticket reads and clears the
+// words.  A last block that folded every block's partials alone, a lane
+// walking 18 of them with an L2 round trip each, was most of its 15.5 us
+// (PERF.md section 6).
 #include "avbd_common.cuh"
 
 #include <cooperative_groups.h>
@@ -313,6 +327,10 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_predict(PredictArgs a, K
 
 #define FIN_F 5  // max lanes: penetration, violation, linear speed, angular speed, normal dual
 #define FIN_I 5  // counts: contacts, manifolds, dynamic bodies, sanitized rows, kept slots
+#define FIN_BODY_WARPS 2  // warps a block for the bodies, besides STAGE_WARPS for the slots
+#define FIN_BLOCKS_PER_SM 2  // the grid's most blocks an SM (avbd_grid_finalize)
+#define FIN_WARPS (STAGE_WARPS + FIN_BODY_WARPS)
+#define FIN_THREADS (32 * FIN_WARPS)
 
 struct FinalizeArgs {
   const float* pos_k;     // (3, N) K6's last poses
@@ -344,88 +362,185 @@ struct FinalizeArgs {
   float* prev_av_out;
   unsigned char* stick;   // (4, DC, N) bool
   float* diag;            // (16)
-  float* part_f;          // FIN_F floats a block
-  int* part_i;            // FIN_I ints a block
-  unsigned int* ticket;
+  unsigned int* fold;     // FIN_F + FIN_I words, then the ticket: 0 before and after a launch
   int n;
   int dc;
   int d;
 };
 
-__global__ void __launch_bounds__(STAGE_THREADS) k_grid_finalize(FinalizeArgs a, KParams p) {
-  __shared__ float shf[FIN_F][STAGE_WARPS];
-  __shared__ int shi[FIN_I][STAGE_WARPS];
-  __shared__ bool sh_last;
+// max_nan's order on floats as unsigned ints, for atomicMax: a NaN above
+// every float, -0 below +0, and 0 (the fold's start) below every key.
+__device__ __forceinline__ unsigned int max_key(float x) {
+  const unsigned int u = __float_as_uint(x);
+  return x != x ? 0xffffffffu : ((u & 0x80000000u) ? ~u : (u | 0x80000000u));
+}
+__device__ __forceinline__ float max_of_key(unsigned int k) {
+  return k == 0xffffffffu ? __uint_as_float(0x7fffffffu)
+                          : __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The cross-block fold by atomics (ticket_fold keeps one warp a quantity
+// walking every block's partials): each warp reduces its NF maxima as
+// max_key and its NI sums in one instruction each (__reduce_*_sync), warp
+// 0 folds the warps the same way, and its lane k folds quantity k into
+// fold[k] (atomicMax of the key, atomicAdd of the sum: exact in any order),
+// fences, and lane 0 takes the ticket fold[NF + NI].  Returns true in warp
+// 0 of the last block, each lane k < NF + NI holding word k (read and reset
+// to 0); the caller's last block writes the lanes and resets the ticket to
+// 0.  A maximum's key order is max_nan's on values, so the lanes equal the
+// plain version's (a NaN as the canonical NaN, a zero as +0).
+template <int NF, int NI, int W>
+__device__ __forceinline__ bool atomic_fold(const float (&fv)[NF], const int (&iv)[NI],
+                                            unsigned int (&shk)[NF + NI][W], unsigned int* fold,
+                                            unsigned int* word) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned int mine = 0;  // lane k: quantity k's key or sum over the warp, then the block
+#pragma unroll
+  for (int k = 0; k < NF; ++k) {
+    const unsigned int v = __reduce_max_sync(FULL_MASK, max_key(fv[k]));
+    if (lane == k) mine = v;
+  }
+#pragma unroll
+  for (int k = 0; k < NI; ++k) {
+    const unsigned int v = (unsigned int)__reduce_add_sync(FULL_MASK, iv[k]);
+    if (lane == NF + k) mine = v;
+  }
+  if (lane < NF + NI) shk[lane][warp] = mine;
+  __syncthreads();
+  if (warp != 0) return false;
+#pragma unroll
+  for (int k = 0; k < NF + NI; ++k) {
+    const unsigned int x = lane < W ? shk[k][lane] : 0u;
+    const unsigned int v = k < NF ? __reduce_max_sync(FULL_MASK, x)
+                                  : (unsigned int)__reduce_add_sync(FULL_MASK, (int)x);
+    if (lane == k) mine = v;
+  }
+  RACE_DELAY();
+  if (lane < NF) atomicMax(fold + lane, mine);
+  else if (lane < NF + NI) atomicAdd(fold + lane, mine);
+  __threadfence();
+  __syncwarp();
+  unsigned int last = 0;
+  if (lane == 0) {
+    RACE_DELAY();
+    last = atomicAdd(fold + NF + NI, 1u) == gridDim.x - 1 ? 1u : 0u;
+  }
+  if (!__shfl_sync(FULL_MASK, last, 0)) return false;
+  __threadfence();
+  *word = lane < NF + NI ? atomicExch(fold + lane, 0u) : 0u;
+  return true;
+}
+
+// Bodies 16c .. 16c + 15 of chunk c, lane l of a body warp the linear half
+// (l < 16) or the angular half (l >= 16) of body 16c + l % 16: its pose
+// sanitize and finalize velocity, its outputs written, its speed into
+// fv[2] / fv[3], the dynamic count (the linear lane) and its sanitize
+// count into iv[2] / iv[3].  Every load comes before the arithmetic.
+__device__ __forceinline__ void finalize_half(const FinalizeArgs& a, const KParams& p, int i,
+                                              bool angular, float (&fv)[FIN_F],
+                                              int (&iv)[FIN_I]) {
   const int n = a.n;
-  const int t = blockIdx.x * STAGE_THREADS + threadIdx.x;
-  float fv[FIN_F] = {F(0.0), F(0.0), F(0.0), F(0.0), F(0.0)};
-  int iv[FIN_I] = {0, 0, 0, 0, 0};
-  if (t < n) {  // body t: the pose sanitizes and finalize's velocities
-    const int i = t;
-    const V3 pos0 = ld3(a.pos0, i, n);
-    const Q4 q0 = ld4(a.quat0, i, n);
+  const bool dyn = a.inv_mass[i] > F(0.0);
+  int san = 0;
+  if (!angular) {
+    const V3 pos0 = ld3(a.pos0, i, n), lv0 = ld3(a.lv0, i, n);
     V3 pf = ld3(a.pos_k, i, n);
-    Q4 qf = ld4(a.quat_k, i, n);
-    int san = i == 0 ? *a.san_in : 0;  // the prediction's count, once
+    if (i == 0) san = *a.san_in;  // the prediction's count, once
     if (!finite3(pf)) {
       pf = pos0;
       ++san;
     }
+    const V3 nl = finalize_linear(pf, pos0, lv0, dyn, p, &san);
+    fv[2] = max_nan(fv[2], VNORM3(nl) * (dyn ? F(1.0) : F(0.0)));
+    iv[2] += dyn ? 1 : 0;
+    st3(a.pos, i, n, pf);
+    st3(a.lv, i, n, nl);
+  } else {
+    const Q4 q0 = ld4(a.quat0, i, n);
+    const V3 av0 = ld3(a.av0, i, n);
+    Q4 qf = ld4(a.quat_k, i, n);
     if (!finite4(qf)) {
       qf = q0;
       ++san;
     }
-    const bool dyn = a.inv_mass[i] > F(0.0);
-    V3 nl, na;
-    finalize_velocities(pf, qf, pos0, q0, ld3(a.lv0, i, n), ld3(a.av0, i, n), dyn, p, &nl, &na,
-                        &san);
-    const float dynf = dyn ? F(1.0) : F(0.0);
-    fv[2] = VNORM3(nl) * dynf;
-    fv[3] = VNORM3_XZY(na) * dynf;
-    iv[2] = dyn ? 1 : 0;
-    iv[3] = san;
-    st3(a.pos, i, n, pf);
+    const V3 na = finalize_angular(qf, q0, av0, dyn, p, &san);
+    fv[3] = max_nan(fv[3], VNORM3_XZY(na) * (dyn ? F(1.0) : F(0.0)));
     st4(a.quat, i, n, qf);
-    st3(a.lv, i, n, nl);
     st3(a.av, i, n, na);
-    st3(a.prev_lv_out, i, n, dyn ? ld3(a.lv_p, i, n) : ld3(a.prev_lv, i, n));
-    st3(a.prev_av_out, i, n, dyn ? ld3(a.av_p, i, n) : ld3(a.prev_av, i, n));
   }
-  if (t < a.dc * n) {  // slot (d, i): the contact lanes and the latches
-    const int cnt = a.count[t];
-    const bool valid = a.other[t] >= 0;
-    const size_t plane = (size_t)a.dc * n;
-    for (int s = 0; s < 4; ++s) {
-      const bool ok = s < cnt && valid;
-      const float sep = a.sep[s * plane + t];
-      fv[0] = max_nan(fv[0], ok ? -sep : F(0.0));
-      fv[1] = max_nan(fv[1], ok ? p.penetration_slop - sep : F(0.0));
-      fv[4] = max_nan(fv[4], ok ? fabsf(a.lam[3 * s * plane + t]) : F(0.0));
-      a.stick[s * plane + t] = a.stickf[s * plane + t] > F(0.5) ? 1 : 0;
+  iv[3] += san;
+}
+
+// Slot thread t of the grid (STAGE_THREADS a block; stride: all of them)
+// takes slot, kept and previous-velocity entries t, t + stride, ...; body
+// warp w of block b the chunks of 16 bodies c = b + gridDim.x * (w +
+// FIN_BODY_WARPS r) (tests/test_torch_port.py models these loops).
+__global__ void __launch_bounds__(FIN_THREADS) k_grid_finalize(FinalizeArgs a, KParams p) {
+  __shared__ unsigned int shk[FIN_F + FIN_I][FIN_WARPS];
+  const int n = a.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float fv[FIN_F] = {F(0.0), F(0.0), F(0.0), F(0.0), F(0.0)};
+  int iv[FIN_I] = {0, 0, 0, 0, 0};
+  // Lanes 9 and 10 of warp 0 read the counts their lanes subtract and copy
+  // now, so that the last block does not wait on them.
+  int scalar = 0;
+  if (threadIdx.x == 9) scalar = *a.cand;
+  if (threadIdx.x == 10) scalar = *a.dropped;
+  if (warp < STAGE_WARPS) {
+    const int slots = a.dc * n, kept = a.d * n;
+    const int entries = max(max(slots, kept), 6 * n);
+    const int plane = slots;
+    const int stride = gridDim.x * STAGE_THREADS;
+    for (int t = blockIdx.x * STAGE_THREADS + threadIdx.x; t < entries; t += stride) {
+      const float km = t < kept ? a.kept[t] : F(0.0);
+      if (t < 6 * n) {  // a previous velocity: the prediction's for a dynamic body
+        const int c = t / n, i = t - c * n;
+        const bool dyn = a.inv_mass[i] > F(0.0);
+        const float xp = (c < 3 ? a.lv_p : a.av_p)[(c % 3) * n + i];
+        const float xq = (c < 3 ? a.prev_lv : a.prev_av)[(c % 3) * n + i];
+        (c < 3 ? a.prev_lv_out : a.prev_av_out)[(c % 3) * n + i] = dyn ? xp : xq;
+      }
+      if (t < slots) {  // slot t: the contact lanes and the latches
+        const int cnt = a.count[t];
+        const bool valid = a.other[t] >= 0, once = a.once[t] != 0;
+        float sep[4], lam[4], sf[4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          sep[s] = a.sep[s * plane + t];
+          lam[s] = a.lam[3 * s * plane + t];
+          sf[s] = a.stickf[s * plane + t];
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const bool ok = s < cnt && valid;
+          fv[0] = max_nan(fv[0], ok ? -sep[s] : F(0.0));
+          fv[1] = max_nan(fv[1], ok ? p.penetration_slop - sep[s] : F(0.0));
+          fv[4] = max_nan(fv[4], ok ? fabsf(lam[s]) : F(0.0));
+          a.stick[s * plane + t] = sf[s] > F(0.5) ? 1 : 0;
+        }
+        iv[0] += once ? cnt : 0;
+        iv[1] += once && cnt > 0 ? 1 : 0;
+      }
+      iv[4] += (int)km;
     }
-    const bool once = a.once[t] != 0;
-    iv[0] = once ? cnt : 0;
-    iv[1] = once && cnt > 0 ? 1 : 0;
+  } else {
+    const int chunks = (n + 15) / 16;
+    for (int c = blockIdx.x + gridDim.x * (warp - STAGE_WARPS); c < chunks;
+         c += gridDim.x * FIN_BODY_WARPS) {
+      const int i = c * 16 + (lane & 15);
+      if (i < n) finalize_half(a, p, i, lane >= 16, fv, iv);
+    }
   }
-  if (t < a.d * n) iv[4] = (int)a.kept[t];
-  if (!ticket_fold(fv, iv, shf, shi, sh_last, a.part_f, a.part_i, a.ticket)) return;
-  if (threadIdx.x == 0) {
-    float* dg = a.diag;
-    for (int k = 0; k < FIN_F; ++k) dg[k] = shf[k][0];
-    dg[5] = (float)shi[0][0];
-    dg[6] = (float)shi[1][0];
-    dg[7] = (float)shi[2][0];
-    dg[8] = (float)shi[3][0];
-    dg[9] = (float)(*a.cand - shi[4][0]);
-    dg[10] = (float)*a.dropped;
-    // state.CONTROL_RESET
-    dg[11] = F(1.0e9);
-    dg[12] = F(1.0e9);
-    dg[13] = F(0.0);
-    dg[14] = F(1.0e9);
-    dg[15] = F(1.0e9);
-    *a.ticket = 0u;
-  }
+  unsigned int w;
+  if (!atomic_fold(fv, iv, shk, a.fold, &w)) return;
+  // Warp 0 of the last block: lane k writes lane k of the diagnostics.
+  float* dg = a.diag;
+  if (lane < FIN_F) dg[lane] = max_of_key(w);
+  else if (lane < 9) dg[lane] = (float)(int)w;   // contacts, manifolds, dynamic, sanitized
+  else if (lane == 9) dg[9] = (float)(scalar - (int)w);
+  else if (lane == 10) dg[10] = (float)scalar;
+  else if (lane < 16) dg[lane] = lane == 13 ? F(0.0) : F(1.0e9);  // state.CONTROL_RESET
+  if (lane == 0) a.fold[FIN_F + FIN_I] = 0u;
 }
 
 extern "C" {
@@ -513,7 +628,12 @@ int avbd_grid_predict(void** ptrs, const float* params, int n, int planes, void*
 // prev_linvel, prev_angvel, inv_mass, sanitized (1 int), count, other,
 // sep, lam, once, stickf, kept, cand (1 int), dropped (1 int), then pos,
 // quat, linvel, angvel, prev_linvel, prev_angvel, stick (bool), diag (16
-// floats), then scratch: FIN_F floats and FIN_I ints a block, the ticket.
+// floats), then scratch: FIN_F + FIN_I fold words and the ticket (0 before
+// the launch and after it).  The grid: a slot thread (STAGE_THREADS a
+// block) for each entry of the widest plane set (DC or D slots a body, or
+// the 6 planes of previous velocities), at most FIN_BLOCKS_PER_SM blocks an
+// SM; the threads stride over the rest.  AVBD_FIN_BLOCKS (kernels.build's
+// defines, for checks and comparisons only) sets another grid.
 int avbd_grid_finalize(void** ptrs, const float* params, int n, int dc, int d, void* stream) {
   FinalizeArgs a;
   a.pos_k = (const float*)ptrs[0];
@@ -545,17 +665,26 @@ int avbd_grid_finalize(void** ptrs, const float* params, int n, int dc, int d, v
   a.prev_av_out = (float*)ptrs[26];
   a.stick = (unsigned char*)ptrs[27];
   a.diag = (float*)ptrs[28];
-  a.part_f = (float*)ptrs[29];
-  a.part_i = (int*)ptrs[30];
-  a.ticket = (unsigned int*)ptrs[31];
+  a.fold = (unsigned int*)ptrs[29];
   a.n = n;
   a.dc = dc;
   a.d = d;
   KParams p = *(const KParams*)params;
-  const int rows = dc > d ? dc : d;
-  const int total = (rows > 1 ? rows : 1) * n;
-  const int blocks = (total + STAGE_THREADS - 1) / STAGE_THREADS;
-  k_grid_finalize<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a, p);
+#ifdef AVBD_FIN_BLOCKS
+  const int blocks = AVBD_FIN_BLOCKS;
+#else
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int rows = dc > d ? (dc > 6 ? dc : 6) : (d > 6 ? d : 6);
+  const int want = (rows * n + STAGE_THREADS - 1) / STAGE_THREADS;
+  const int blocks = want < FIN_BLOCKS_PER_SM * sms ? want : FIN_BLOCKS_PER_SM * sms;
+#endif
+  k_grid_finalize<<<blocks, FIN_THREADS, 0, (cudaStream_t)stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 

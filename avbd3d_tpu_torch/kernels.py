@@ -85,8 +85,10 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
     compile-time choices, for checks and comparisons only, never the main
     path: ``AVBD_RACE_DELAY=ns`` makes odd thread blocks of the resident
     kernels sleep before each read of other blocks' poses and each pose
-    write (the race check).  The launch functions use such a library only
-    inside ``using(lib)``."""
+    write (the race check); ``AVBD_FIN_BLOCKS=b`` launches k_grid_finalize
+    on b blocks and ``AVBD_GATES_THREADS=t`` k_step_gates on blocks of t
+    threads (the checks and timings of their geometry).  The launch
+    functions use such a library only inside ``using(lib)``."""
     defines = tuple(defines)
     if not force and defines in _LIBS:
         return _LIBS[defines]
@@ -167,6 +169,8 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
     cdll.avbd_grid_finalize.restype = ci
     cdll.avbd_step_gates.argtypes = [ctypes.POINTER(vp), ci, cf, vp]
     cdll.avbd_step_gates.restype = ci
+    cdll.avbd_launch_floor.argtypes = [ctypes.POINTER(vp), ci, ci, cf, vp]
+    cdll.avbd_launch_floor.restype = ci
     cdll.avbd_ballistic_step.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(cf), ci, ci, vp]
     cdll.avbd_ballistic_step.restype = ci
     if cdll.avbd_n_params() != len(_PARAM_NAMES):
@@ -915,12 +919,9 @@ def launch_grid_finalize(b, pos, quat, linvel, angvel, sanitized, contacts, sep,
     outs = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 4, 3, 3, 3, 3)]
     outs.append(torch.empty((4,) + slot, dtype=torch.bool, device=dev))
     outs.append(torch.empty((16,), dtype=f32, device=dev))
-    blocks = -(-max(dc, d, 1) * n // _GS_THREADS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = [_scratch(dev, stream, "finalize_part_f", 5 * blocks, f32),
-               _scratch(dev, stream, "finalize_part_i", 5 * blocks, i32),
-               _scratch(dev, stream, "finalize_ticket", 1, i32)]
-    code = lib.cdll.avbd_grid_finalize(_ptrs(ins + outs + scratch), _fparams(params), n, dc, d,
+    fold = _scratch(dev, stream, "finalize_fold_ticket", 11, i32)   # 10 words, the ticket
+    code = lib.cdll.avbd_grid_finalize(_ptrs(ins + outs + [fold]), _fparams(params), n, dc, d,
                                        ctypes.c_void_p(stream))
     _raise_on(code, "grid finalize kernel launch")
     return tuple(outs)
@@ -949,6 +950,30 @@ def launch_step_gates(b, diag, slack, dropped, params):
     _raise_on(code, "step gates kernel launch")
     lv, av, im = (f if f is not None else t for f, t in zip(frozen, ins[1:4]))
     return lv, av, im, out
+
+
+def launch_floor(b, src, dst, loads: int, freeze_y: float):
+    """Run k_launch_floor at k_step_gates' grid and block with the
+    fall-freeze on, for the Bodies ``b`` (N of them) and float32 ``src`` /
+    ``dst`` of 7 N floats each: ``loads`` 0, empty (the least a launch of
+    that shape takes on the card); 1, a thread copying a float of ``src``
+    to ``dst`` (a load and a store); 3, k_step_gates' own access to the
+    bodies without its control vector: a thread loading its body's
+    inv_mass and pos.y and its float of ``src`` before its one store, the
+    float zeroed where the body is below ``freeze_y``."""
+    dev = b.pos.device
+    g = b.mass.shape[-2]
+    n = g * 128
+    f32 = torch.float32
+    ins = [_check(src, "src", src.shape, f32, dev),
+           _check(b.inv_mass, "inv_mass", (g, 128), f32, dev),
+           _check(b.pos, "pos", (3, g, 128), f32, dev),
+           _check(dst, "dst", src.shape, f32, dev)]
+    if src.numel() != 7 * n or loads not in (0, 1, 3):
+        raise ValueError(f"launch floor: {src.numel()} floats for N = {n}, {loads} loads")
+    lib = _card_lib(dev)
+    code = lib.cdll.avbd_launch_floor(_ptrs(ins), n, loads, float(freeze_y), _stream(dev))
+    _raise_on(code, "launch floor kernel launch")
 
 
 def launch_ballistic_step(b, contacts, params):

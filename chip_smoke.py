@@ -171,15 +171,17 @@
    plain versions on the same card tensors, at Stress4096 steps 800 and
    2800, step 2800 with its lists fresh at its poses (no refresh due), the
    low-drop 16^3 pile of phase 6 (step 90), step 800 with every
-   body static, with three bodies below fall_freeze_y, and with a NaN and
-   an infinite velocity and a NaN final pose: k_grid_gates' flags, dev_raw,
+   body static, with three bodies below fall_freeze_y, with a NaN and
+   an infinite velocity and a NaN final pose, and step 2800 with one live
+   slot's separation NaN and with every separation +0 (the finalize's
+   fold: lanes 0 and 1 NaN; +0 and the slop): k_grid_gates' flags, dev_raw,
    v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative of
    the torch version's and both deviations bit for bit k_refresh_needed's
    (the fold the gates kernel ran in one block before its cooperative
    tail);
    k_grid_predict's outputs bit for bit; k_grid_finalize's bodies, latches
-   and diagnostics lanes identical but the speed lanes (2, 3) within 1e-6
-   relative; each flag takes both values.  Each kernel's time at step 2800
+   and diagnostics lanes identical (a NaN matching a NaN) but the speed
+   lanes (2, 3) within 1e-6 relative; each flag takes both values.  Each kernel's time at step 2800
    beside its plain version's (and its launches), traced and held to one
    kernel a call, and its bound.
 21. The fused path's stage kernels (csrc/fused_stages.cu) and K1's new tail
@@ -198,9 +200,12 @@
    ``step_kernel_plain``'s, the pair overflow both as the int32 difference
    and as the float one; K1's cache and bodies too, integers identical and
    floats difference 0, a NaN matching a NaN (so at the NaN poses as well;
-   K3 and K5 are held so at NaN poses in phases 9 and 5).  Each kernel's time at the rain-in and settled
-   states beside its plain version's, traced and held to one kernel a call,
-   and its bound; then the launches of 20 traced settled steps and of a
+   K3 and K5 are held so at NaN poses in phases 9 and 5).  Each kernel's
+   time at the rain-in and settled states beside its plain version's,
+   traced and held to one kernel a call, and its bound, k_step_gates'
+   beside its launch floor (k_launch_floor at its grid and block: empty,
+   with a load and a store a thread, and with the gates' own three loads
+   before its store); then the launches of 20 traced settled steps and of a
    traced falling window (steps 1-100), held to the port's kernels alone,
    kernel by kernel to what the launch counters give: the gates, K1's
    kernels or the ballistic kernel and K2, the refresh kernels.
@@ -2485,10 +2490,15 @@ STAGE_NOTES = {
                     "timed at Stress4096 step 2800 (N = 5120); every output bit for bit at the "
                     "seven states of phase 20",
     "grid_finalize": "no Pallas kernel: the reference's pose sanitizes (solver_tpu.py:"
-                     "1808-1817) and finalize (solver.py:234-317) in XLA; timed at Stress4096 "
-                     "step 2800 (N = 5120); max_abs_err: the speed lanes' relative difference "
-                     "(torch's vector_norm), bodies, latches and the other lanes identical at "
-                     "the seven states of phase 20"}
+                     "1808-1817) and finalize (solver.py:234-317) in XLA; a grid of at most "
+                     "two blocks an SM (avbd_grid_finalize), eight slot warps and two body "
+                     "warps a block (a lane a body's linear or angular half), the lanes folded "
+                     "by warp reductions and atomics into ten words (a thread a (slot, body) "
+                     "and a one-warp tail took 15.5 us on the card, PERF.md section 6); timed "
+                     "at Stress4096 step 2800 (N = "
+                     "5120); max_abs_err: the speed lanes' relative difference (torch's "
+                     "vector_norm), bodies, latches and the other lanes identical at the nine "
+                     "states of phase 20"}
 # Float operations a unit, from csrc/grid_stages.cu's statements, rounded
 # down: k_grid_gates' freeze, anchor terms, partials and deviation pass of
 # a body; k_grid_predict's sanitizes, clamp, inertial pose, normalize and
@@ -2527,7 +2537,7 @@ def stage_args(world, params, cap) -> dict:
                          bp.cand, dropped, params)}
 
 
-def compare_stages(label, world, params, cap, nan_pose=False) -> dict:
+def compare_stages(label, world, params, cap, nan_pose=False, sep=None) -> dict:
     """k_grid_gates, k_grid_predict and k_grid_finalize against their plain
     versions on the same card tensors at the next grid step of ``world``:
     the gates' flags, dev_raw, v^2 max and frozen fields bit for bit (a NaN
@@ -2537,8 +2547,12 @@ def compare_stages(label, world, params, cap, nan_pose=False) -> dict:
     diagnostics lanes identical but the speeds (2, 3: torch's vector_norm)
     within 1e-6 relative; dev_mm and dev_raw also bit for bit those of
     k_refresh_needed on the frozen bodies.  ``nan_pose``: K6's last
-    position of one body set to NaN (the finalize's sanitize).  Returns the
-    flags and the largest dev_mm and speed-lane differences."""
+    position of one body set to NaN (the finalize's sanitize).  ``sep``:
+    "nan", one live slot's last separation NaN (lanes 0 and 1 NaN); "zero",
+    every separation +0 (lane 0 folds the live slots' -0 against the +0
+    start: +0, lane 1 the slop); the lanes compared with a NaN matching a
+    NaN, and at ``sep`` lanes 0 and 1 to those values bit for bit.  Returns the flags and the largest dev_mm and speed-lane
+    differences."""
     import torch
 
     from avbd3d_tpu_torch import kernels, solver_grid
@@ -2546,6 +2560,12 @@ def compare_stages(label, world, params, cap, nan_pose=False) -> dict:
     a = stage_args(world, params, cap)
     if nan_pose:
         a["finalize"][3].view(3, -1)[1, 11] = float("nan")
+    contacts, seps = a["finalize"][2], a["finalize"][8]
+    if sep == "nan":
+        live = torch.nonzero(((contacts.count > 0) & (contacts.other >= 0)).reshape(-1))
+        seps[0].view(-1)[int(live[len(live) // 2])] = float("nan")
+    if sep == "zero":
+        seps.zero_()
     wk, gk = solver_grid.grid_gates(*a["gates"])
     wp, gp = solver_grid.grid_gates_plain(*a["gates"])
     pk = solver_grid.grid_predict(*a["predict"])
@@ -2579,8 +2599,12 @@ def compare_stages(label, world, params, cap, nan_pose=False) -> dict:
         bad.append("finalize stick")
     dk, dp = fk.diagnostics.vec, fp.diagnostics.vec
     lanes = [0, 1, 4] + list(range(5, 16))
-    if not torch.equal(dk[lanes], dp[lanes]):
+    if not equal_nan(dk[lanes], dp[lanes]):
         bad.append(f"diagnostics {dk.tolist()} vs {dp.tolist()}")
+    pinned = {"nan": [float("nan")] * 2, "zero": [0.0, params.penetration_slop]}.get(sep)
+    if pinned is not None and not same_bits_nan(dk[:2], torch.tensor(pinned, device=dk.device)):
+        bad.append(f"lanes 0, 1 {dk[:2].tolist()} at separations {sep}: expected {pinned} "
+                   f"(a zero as +0)")
     speed_err = float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max())
     if not speed_err <= 1e-6:
         bad.append(f"speed lanes {dk[2:4].tolist()} vs {dp[2:4].tolist()}")
@@ -2660,8 +2684,9 @@ def stages_phase(card, grid, g2800, low_drop) -> dict:
     Stress4096 steps 800 and 2800, step 2800 with its lists fresh at its
     poses (no refresh due), the low-drop 16^3 pile of phase 6, step 800
     with every body static, with three bodies below fall_freeze_y and with
-    a NaN and an infinite velocity (and a NaN final pose); every flag takes
-    both values.  Then each kernel's time at step 2800 beside its
+    a NaN and an infinite velocity (and a NaN final pose), and step 2800
+    with one live slot's separation NaN and with every separation +0 (the
+    finalize's fold); every flag takes both values.  Then each kernel's time at step 2800 beside its
     plain version's (traced, held to one kernel a call) and its bound."""
     from avbd3d_tpu_torch import solver_grid
     from avbd3d_tpu_torch.ops.broadphase import build_bp_cache
@@ -2679,7 +2704,10 @@ def stages_phase(card, grid, g2800, low_drop) -> dict:
               "Stress4096 step 800, three bodies fallen": (stage_world(g800, p4, "fallen"), p4,
                                                            c4, False),
               "Stress4096 step 800, NaN velocities and a NaN final pose": (
-                  stage_world(g800, p4, "nan"), p4, c4, True)}
+                  stage_world(g800, p4, "nan"), p4, c4, True),
+              "Stress4096 step 2800, a live slot's separation NaN": (g2800, p4, c4, False,
+                                                                      "nan"),
+              "Stress4096 step 2800, every separation +0": (g2800, p4, c4, False, "zero")}
     out = {label: compare_stages(label, *args) for label, args in states.items()}
     seen = [{r["flags"][k] for r in out.values()} for k in range(3)]
     if any(s != {True, False} for s in seen):
@@ -2723,8 +2751,13 @@ FUSED_REPLACES = {"step_gates": "avbd3d_tpu/solver.py:325",
                   "ballistic_step": "avbd3d_tpu/solver.py:418"}
 FUSED_NOTES = {
     "step_gates": "no Pallas kernel: the reference's fall-freeze (solver.py:325-333) in XLA and "
-                  "the port's control vector (the step's one host read); timed at settled "
-                  "Stress1000 (N = 1024); the control vector and frozen fields bit for bit at "
+                  "the port's control vector (the step's one host read); a thread a float of "
+                  "the 7 planes of frozen fields, its loads before its one store, the control "
+                  "vector on a block of its own (a thread a body took 1.72 us on the card, "
+                  "PERF.md section 6); timed at settled "
+                  "Stress1000 (N = 1024) beside k_launch_floor at its grid and block, empty, "
+                  "with a load and a store a thread and with the gates' own three loads before "
+                  "its store (floor_us); the control vector and frozen fields bit for bit at "
                   "the states of phase 21",
     "ballistic_step": "no Pallas kernel: the reference's ballistic step (solver.py:418-447: "
                       "predict and finalize) in XLA, K2 writing lanes 11-15 into its vector; "
@@ -3021,6 +3054,33 @@ def fused_step_trace(card, label, w, p, cap, steps: int, want_ballistic: bool) -
             "untraced_ms_per_step": r["untraced_s"] * 1e3 / steps, "torch": other}
 
 
+# k_launch_floor's cases (kernels.launch_floor's ``loads``), each at
+# k_step_gates' grid and block.
+FLOOR_CASES = {"empty": 0, "a load and a store a thread": 1,
+               "the gates' three loads before a store": 3}
+
+
+def launch_floors(card, w, freeze_y: float) -> dict:
+    """k_launch_floor timed as ``one_kernel_times`` times a kernel, at
+    k_step_gates' grid and block for the world ``w``'s bodies, in each of
+    FLOOR_CASES: {case: the kernel's own us a call}."""
+    import torch
+
+    from avbd3d_tpu_torch import kernels
+
+    b = w.bodies
+    src = torch.arange(7 * b.n, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    out = {}
+    for label, loads in FLOOR_CASES.items():
+        t = one_kernel_times(card, f"k_launch_floor ({label})", "k_launch_floor",
+                             lambda loads=loads: kernels.launch_floor(b, src, dst, loads,
+                                                                      freeze_y),
+                             lambda: None)
+        out[label] = t["device_us"]
+    return out
+
+
 def fused_phase(card, scene, saved, jointed) -> dict:
     """Phase 21: the fused path's stage kernels and K1's new tail against
     their plain versions at Stress1000 steps 0, 1 (its next step ballistic)
@@ -3075,6 +3135,8 @@ def fused_phase(card, scene, saved, jointed) -> dict:
         t["bound_ms"], t["bound_by"] = bounds[name]
         if name == "ballistic_step":
             t["live_contacts"] = bounds["live_contacts"]
+        if name == "step_gates":
+            t["floor"] = launch_floors(card, settled, p.fall_freeze_y)
         print(f"[{card}] {name}: kernel {t['ms']:.4f} ms a call ({t['device_us']:.2f} us on the "
               f"card), plain {t['plain_ms']:.4f} ms ({t['plain_launches']:.0f} launches, "
               f"{t['plain_device_us']:.1f} us on the card); bound {t['bound_ms'] * 1e3:.3f} us "
@@ -4015,6 +4077,8 @@ def main() -> int:
                        device_us=fused["times"][name]["device_us"],
                        plain_launches=fused["times"][name]["plain_launches"],
                        plain_device_us=fused["times"][name]["plain_device_us"],
+                       **({"floor_us": fused["times"][name]["floor"]} if name == "step_gates"
+                          else {}),
                        paths={"fused path": {"launches": launches[name], "steps": 700,
                                              "note": "Stress1000, phase 2"},
                               "traced": {k: fused[k] for k in ("settled_trace",

@@ -40,6 +40,10 @@ torch.set_num_threads(1)
 
 BODY_FIELDS = ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel", "inv_mass")
 STATES = ("pile", "moved", "fallen", "nonfinite", "static")
+# The finalize's fold at two more separations of the moved state: one live
+# slot's NaN (lanes 0 and 1 NaN) and every one +0 (lane 0 folds -0 against
+# the +0 start: +0, its sign checked; lane 1 the slop).
+SEP_STATES = ("nan_sep", "zero_sep")
 
 
 @pytest.fixture(scope="module")
@@ -182,20 +186,27 @@ def finalize_inputs(tw, params, name: str):
     return (contacts, pos, quat, lv, av, san, sep, once, kept, bp.cand, dropped)
 
 
-@pytest.mark.parametrize("name", STATES)
+@pytest.mark.parametrize("name", STATES + SEP_STATES)
 def test_finalize_matches_reference(base, name):
     """grid_finalize's plain version against the reference's _sanitize of
     the final poses and finalize on the same inputs: the new bodies within
     the tolerance, the latches and diagnostics lanes 5-15 identical (the
     sanitize count above 0 at the non-finite state), lanes 0-4 within the
-    tolerance."""
+    tolerance (a NaN matching a NaN); at SEP_STATES lanes 0 and 1 NaN, or 0
+    and the slop."""
     _jw, params, cap = base
     tp = tparams_of(params)
-    jw, tw = worlds(base, name)
+    state = "moved" if name in SEP_STATES else name
+    jw, tw = worlds(base, state)
     jb = reference_gates(jw, params, cap)[0]
     tw, _ = solver_grid.grid_gates(tw, tp)
     contacts, pos, quat, lv, av, san, sep, once, kept, cand, dropped = finalize_inputs(
-        tw, tp, name)
+        tw, tp, state)
+    if name == "nan_sep":
+        live = np.flatnonzero(((contacts.count > 0) & (contacts.other >= 0)).numpy())
+        sep[0].view(-1)[int(live[len(live) // 2])] = float("nan")
+    if name == "zero_sep":
+        sep.zero_()
     out = solver_grid.grid_finalize(tw, tw.bodies, contacts, pos, quat, lv, av, san, sep,
                                     once, kept, cand, dropped, tp)
     n = jb.n
@@ -228,6 +239,11 @@ def test_finalize_matches_reference(base, name):
         assert tv[8] >= 2, tv
     if name == "pile":
         assert tv[6] > 50 and tv[9] >= 0, tv
+    if name == "nan_sep":
+        assert np.isnan(tv[:2]).all() and not np.isnan(tv[2:]).any(), tv
+    if name == "zero_sep":
+        assert tv[0] == 0.0 and tv[1] == np.float32(params.penetration_slop), tv
+        assert not np.signbit(tv[0]) and not np.signbit(jv[0]), (tv, jv)
 
 
 class _NoKernels(types.ModuleType):

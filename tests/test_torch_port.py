@@ -124,6 +124,75 @@ def test_bp_rows_per_block(n_rows, batch, rows):
     assert kernels.BP_ROW_BUFFER == 2 * kernels.BP_MAX_DEGREE
 
 
+def finalize_geometry() -> dict:
+    """k_grid_finalize's geometry constants as csrc/ defines them: slot
+    threads a block (STAGE_THREADS), body warps a block (FIN_BODY_WARPS)
+    and the grid's most blocks an SM (FIN_BLOCKS_PER_SM)."""
+    src = ""
+    for name in ("avbd_common.cuh", "grid_stages.cu"):
+        with open(os.path.join(REPO, "avbd3d_tpu_torch", "csrc", name)) as f:
+            src += f.read()
+    return {k: int(re.search(rf"#define {k} (\d+)", src).group(1))
+            for k in ("STAGE_THREADS", "FIN_BODY_WARPS", "FIN_BLOCKS_PER_SM")}
+
+
+def finalize_grid(n: int, dc: int, d: int, sms: int) -> int:
+    """avbd_grid_finalize's grid: a slot thread for each entry of the
+    widest plane set (DC or D slots a body, or the 6 planes of previous
+    velocities), at most FIN_BLOCKS_PER_SM blocks an SM."""
+    g = finalize_geometry()
+    return min(-(-max(dc, d, 6) * n // g["STAGE_THREADS"]), g["FIN_BLOCKS_PER_SM"] * sms)
+
+
+def finalize_cover(n: int, dc: int, d: int, blocks: int) -> dict:
+    """k_grid_finalize's loops on a ``blocks`` grid written out: {"slots",
+    "kept", "prev", "linear", "angular"}, the index of every (slot, body),
+    kept entry, previous-velocity entry (6 planes of N) and body half that
+    some thread visits, once a visit.  Slot thread t of the grid (stride:
+    all of them) takes the slot, kept and previous-velocity entries t, t +
+    stride, ...; body warp w of block b the chunks of 16 bodies c = b +
+    blocks * (w + FIN_BODY_WARPS r), lanes 0-15 their linear halves, 16-31
+    their angular ones."""
+    g = finalize_geometry()
+    bw = g["FIN_BODY_WARPS"]
+    stride = blocks * g["STAGE_THREADS"]
+    slots, kept = dc * n, d * n
+    rounds = -(-max(slots, kept, 6 * n) // stride)
+    t = (np.arange(stride)[None, :] + stride * np.arange(rounds)[:, None]).reshape(-1)
+    chunks = -(-n // 16)
+    steps = -(-chunks // (blocks * bw))
+    c = (np.arange(blocks)[:, None, None] + blocks * (
+        np.arange(bw)[None, :, None] + bw * np.arange(steps)[None, None, :])).reshape(-1)
+    i = 16 * c[c < chunks][:, None] + np.arange(32)[None, :] % 16
+    half = np.broadcast_to(np.arange(32)[None, :] >= 16, i.shape)
+    ok = i < n
+    return {"slots": t[t < slots], "kept": t[t < kept], "prev": t[t < 6 * n],
+            "linear": i[ok & ~half], "angular": i[ok & half]}
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("d, dc", [(24, 12), (28, 16)])
+@pytest.mark.parametrize("n", [128, 1024, 5120, 16384])
+def test_finalize_grid_covers_every_entry_once(n, d, dc, sms):
+    """k_grid_finalize's grid (a slot thread for each entry of its widest
+    plane, 256 a block, at most two blocks an SM) and its grid-stride loops
+    as ``finalize_cover`` writes them out from csrc/'s constants: every
+    (slot, body), kept entry, previous-velocity entry and each half
+    (linear, angular) of every body taken by exactly one thread; the
+    bodies' chunks of 16 spread over min(blocks, N / 16) blocks.  The
+    kernel itself is held at other grids on the card
+    (test_cuda_finalize_and_step_gates_folds_match_plain)."""
+    blocks = finalize_grid(n, dc, d, sms)
+    assert 1 <= blocks <= 2 * sms
+    assert blocks == min(-(-max(dc, d) * n // 256), 2 * sms)
+    cover = finalize_cover(n, dc, d, blocks)
+    for key, count in (("slots", dc * n), ("kept", d * n), ("prev", 6 * n), ("linear", n),
+                       ("angular", n)):
+        assert np.array_equal(np.bincount(cover[key], minlength=count), np.ones(count)), key
+    owners = {c % blocks for c in range(n // 16)}
+    assert len(owners) == min(blocks, n // 16)
+
+
 def test_kernel_parameter_block_matches_struct():
     """kernels._PARAM_NAMES is the field order of struct KParams."""
     with open(os.path.join(REPO, "avbd3d_tpu_torch", "csrc", "avbd_common.cuh")) as f:
@@ -431,6 +500,24 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
+def grid_finalize_args(w, b, p, cap, predicted, nan_pose=False):
+    """grid_finalize's operands at the next grid step of ``w`` (its frozen
+    bodies ``b``) after the prediction ``predicted`` (grid_predict's
+    outputs): K5, one launch of K6; ``nan_pose``: K6's last position of one
+    body NaN."""
+    lv, av, ip, iq, ps, stickf, san = predicted
+    bp = w.bp
+    c, kept, once, dropped = solver_grid.collide_grid(w.contacts, bp.nb, bp.key, bp.thr, b, p,
+                                                      stickf=stickf)
+    spec = solver_grid.grid_specs(p, p.iterations, p.lhs_rebuild_every, cap.grid_residency)[0]
+    pos, quat, lam, pen, stick, sep = solver_grid.iterblock_grid(
+        p, solver_grid.pick_gb(b.g), spec, c, b, ps, iq, c.lam, c.penalty, c.stick, ip, iq)
+    if nan_pose:
+        pos.view(3, -1)[2, 7] = float("nan")
+    c = c.replace(lam=lam, penalty=pen, stick=stick)
+    return (w, b, c, pos, quat, lv, av, san, sep, once, kept, bp.cand, dropped, p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", GRID_STAGE_STATES)
 def test_cuda_grid_stages_match_plain(cuda_grid, name):
@@ -456,17 +543,7 @@ def test_cuda_grid_stages_match_plain(cuda_grid, name):
         assert same_bits(x, y), i
     if name == "nan velocity":
         assert int(pk[6]) == 2
-    lv, av, ip, iq, ps, stickf, san = pp
-    bp = w.bp
-    c, kept, once, dropped = solver_grid.collide_grid(w.contacts, bp.nb, bp.key, bp.thr, b, p,
-                                                      stickf=stickf)
-    spec = solver_grid.grid_specs(p, p.iterations, p.lhs_rebuild_every, cap.grid_residency)[0]
-    pos, quat, lam, pen, stick, sep = solver_grid.iterblock_grid(
-        p, solver_grid.pick_gb(b.g), spec, c, b, ps, iq, c.lam, c.penalty, c.stick, ip, iq)
-    if name == "nan velocity":
-        pos.view(3, -1)[2, 7] = float("nan")
-    c = c.replace(lam=lam, penalty=pen, stick=stick)
-    args = (w, b, c, pos, quat, lv, av, san, sep, once, kept, bp.cand, dropped, p)
+    args = grid_finalize_args(w, b, p, cap, pp, nan_pose=name == "nan velocity")
     fk, fp = solver_grid.grid_finalize(*args), solver_grid.grid_finalize_plain(*args)
     for f in ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel"):
         assert same_bits(getattr(fk.bodies, f), getattr(fp.bodies, f)), f
@@ -479,6 +556,89 @@ def test_cuda_grid_stages_match_plain(cuda_grid, name):
         assert float(dk[8]) >= 3
     assert (solver_grid.grid_gates.launches, solver_grid.grid_predict.launches,
             solver_grid.grid_finalize.launches) == (1, 1, 1)
+
+
+def equal_nan(a, b):
+    """Equal values, a NaN matching a NaN (zeros of either sign equal)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
+# (k_grid_finalize's blocks, k_step_gates' threads a block) of the builds
+# the folds are held at: the main build's (None), then builds with those
+# defines.
+FOLD_GEOMETRY = ((None, None), (1, 32), (4, 64), (64, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sep_state", ["nan_sep", "zero_sep"])
+def test_cuda_finalize_and_step_gates_folds_match_plain(cuda_grid, cuda_rain, sep_state):
+    """k_grid_finalize (its grid sized to the card, its lanes folded by
+    atomics into ten words) at the two separations that pin its fold, one
+    live slot's NaN (lanes 0 and 1 NaN) and every one +0 (lane 0 folds -0
+    against the +0 start: +0; lane 1 the slop), at its own grid and through
+    builds at 1, 4 and 64 blocks (FOLD_GEOMETRY): bodies and latches bit
+    for bit the plain version's, the lanes equal (a NaN matching a NaN),
+    lanes 0 and 1 those values with their sign bits, the speeds within 1e-6
+    relative, its words and ticket 0 after.  k_step_gates (a thread a float
+    of the frozen fields) at its 128 threads a block and through those
+    builds at 32, 64 and 256, at the rain-in state with three bodies
+    fallen: the control vector and the frozen fields bit for bit.
+    k_launch_floor in its three cases: nothing written, a copy, the
+    frozen bodies' floats zeroed."""
+    w, p, cap = cuda_grid
+    wp, _gp = solver_grid.grid_gates_plain(w, p)
+    b = wp.bodies
+    args = grid_finalize_args(w, b, p, cap,
+                              solver_grid.grid_predict_plain(b, w.contacts.stick, p))
+    c, sep = args[2], args[8]
+    if sep_state == "nan_sep":
+        live = torch.nonzero(((c.count > 0) & (c.other >= 0)).reshape(-1))
+        sep[0].view(-1)[int(live[len(live) // 2])] = float("nan")
+    else:
+        sep.zero_()
+    fp = solver_grid.grid_finalize_plain(*args)
+    dp = fp.diagnostics.vec
+    want = [float("nan")] * 2 if sep_state == "nan_sep" else [0.0, p.penetration_slop]
+    assert equal_nan(dp[:2], torch.tensor(want, device="cuda")), dp
+    want = torch.tensor(want, device="cuda")
+    names = ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel")
+    sc, rain, _land = cuda_rain
+    sp = sc.params
+    fallen = fused_stage_world(rain, sp, "fallen")
+    gw, gctl = solver.step_gates_plain(fallen, sp)
+    fb, fbp = fallen.bodies, fallen.bp
+    for blocks, threads in FOLD_GEOMETRY:
+        defines = () if blocks is None else (f"AVBD_FIN_BLOCKS={blocks}",
+                                             f"AVBD_GATES_THREADS={threads}")
+        with kernels.using(kernels.build(defines=defines)):
+            out = kernels.launch_grid_finalize(b, *args[3:8], c, *args[8:])
+            lv, av, im, ctl = kernels.launch_step_gates(fb, fallen.diagnostics.vec, fbp.slack,
+                                                        fbp.dropped, sp)
+        torch.cuda.synchronize()
+        for f, t in zip(names, out[:6]):
+            assert same_bits(t, getattr(fp.bodies, f)), (blocks, f)
+        assert torch.equal(out[6], fp.contacts.stick), blocks
+        dk = out[7]
+        lanes = [0, 1, 4] + list(range(5, 16))
+        assert equal_nan(dk[lanes], dp[lanes]), (blocks, dk, dp)
+        assert equal_nan(dk[:2], want) and torch.equal(torch.signbit(dk[:2]),
+                                                       torch.signbit(want)), (blocks, dk)
+        assert float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max()) <= 1e-6
+        assert int(kernels._SCRATCH[(0, torch.cuda.current_stream().cuda_stream,
+                                     "finalize_fold_ticket")].count_nonzero()) == 0
+        assert same_bits(ctl, gctl), threads
+        for t, f in ((lv, "linvel"), (av, "angvel"), (im, "inv_mass")):
+            assert same_bits(t, getattr(gw.bodies, f)), (threads, f)
+    src = torch.arange(7 * fb.n, dtype=torch.float32, device="cuda")
+    frozen = (fb.inv_mass > 0) & (fb.pos[1] < sp.fall_freeze_y)
+    for loads, expect in ((0, torch.zeros_like(src)), (1, src),
+                          (3, torch.where(frozen.reshape(1, -1), 0.0, src.view(7, -1)))):
+        dst = torch.zeros_like(src)
+        kernels.launch_floor(fb, src, dst, loads, sp.fall_freeze_y)
+        torch.cuda.synchronize()
+        assert same_bits(dst, expect.reshape(-1)), loads
+    assert int(frozen.sum()) >= 3
 
 
 @pytest.mark.cuda
