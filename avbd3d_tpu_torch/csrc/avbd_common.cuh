@@ -335,11 +335,13 @@ static __device__ void control_lanes_block(const CtrlIn& in, const KParams& p, f
 #define LANES_WARPS 8
 #define LANE_PARTS 8  // min gap, gate, near speed, dev_raw, nm, s0, s1, s2
 
-// op 0 min, 1 max, 2 sum: the fold of partial k.
+// op 0 min, 1 max, 2 sum: the fold of partial k.  The min and the max
+// keep a NaN (min_nan, max_nan), as the plain version's torch.min /
+// torch.max do: a NaN pose gives NaN lanes on both sides.
 __device__ __forceinline__ int part_op(int k) { return k == 0 ? 0 : (k < 4 ? 1 : 2); }
 
 __device__ __forceinline__ float fold(int op, float a, float b) {
-  return op == 0 ? fminf(a, b) : (op == 1 ? fmaxf(a, b) : a + b);
+  return op == 0 ? min_nan(a, b) : (op == 1 ? max_nan(a, b) : a + b);
 }
 
 struct AnchorTerms {
@@ -381,8 +383,8 @@ __device__ __forceinline__ float fold_parts_warp(const float* part, int n_groups
 
 // The largest |disp - t| + chord over the moved bodies of dv (disp.x,
 // disp.y, disp.z, chord; chord -1 for a body that has not moved), 0 when
-// none moved; called by the whole block, the result in thread 0.  sh_dev:
-// blockDim.x / 32 floats of shared memory.
+// none moved (a NaN where a term is NaN); called by the whole block, the
+// result in thread 0.  sh_dev: blockDim.x / 32 floats of shared memory.
 __device__ __forceinline__ float dev_mm_block(const float4* dv, int n, V3 t, float* sh_dev) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float dev_mm = F(0.0);
@@ -390,15 +392,15 @@ __device__ __forceinline__ float dev_mm_block(const float4* dv, int n, V3 t, flo
     float4 v = __ldcg(dv + j);
     if (v.w >= F(0.0)) {  // moved
       V3 e = v3(v.x - t.x, v.y - t.y, v.z - t.z);
-      dev_mm = fmaxf(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + v.w);
+      dev_mm = max_nan(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + v.w);
     }
   }
   for (int off = 16; off > 0; off >>= 1)
-    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
+    dev_mm = max_nan(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
   if (lane == 0) sh_dev[warp] = dev_mm;
   __syncthreads();
   if (threadIdx.x == 0)
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) dev_mm = fmaxf(dev_mm, sh_dev[w]);
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) dev_mm = max_nan(dev_mm, sh_dev[w]);
   return dev_mm;
 }
 
@@ -407,11 +409,17 @@ __device__ __forceinline__ float dev_mm_block(const float4* dv, int n, V3 t, flo
 // prediction and finalize; fused_stages.cu: the fused path's gates and its
 // ballistic step).  Each repeats a torch stage of the port statement for
 // statement: the fall-freeze (solver.freeze_fallen), the prediction of one
-// body (solver.predict) and the velocities of finalize (solver.finalize).
+// body (solver.predict) and the velocities of finalize (solver.finalize),
+// each of the last two in a linear and an angular half that share nothing,
+// so that a kernel runs them on two lanes; and the cross-block fold of a
+// stage's lanes by atomics (atomic_fold).
 // ---------------------------------------------------------------------------
 
 #define STAGE_THREADS 256
 #define STAGE_WARPS (STAGE_THREADS / 32)
+// The most blocks an SM of the grids sized to the card (k_grid_predict,
+// k_grid_finalize, k_ballistic_step).
+#define STAGE_BLOCKS_PER_SM 2
 
 // The orders of torch's CUDA reductions over a row's few components, which
 // depend on the row's layout: over a component-major (N, C) view (strides
@@ -445,48 +453,32 @@ __device__ __forceinline__ void freeze_body(V3 pos, float freeze_y, V3* lv, V3* 
   }
 }
 
-// solver.predict for one body: the sanitized velocities (the angular one
-// clamped first), the inertial pose, the accel-weighted warm start and the
-// rows sanitized (0-3).
-struct Predicted {
-  V3 lv, av;   // sanitized linvel, clamped and sanitized angvel
-  V3 ip;       // inertial position
-  Q4 iq;       // inertial quaternion (also the iterations' start)
-  V3 ps;       // warm start position
-  int san;
+// solver.predict for one body in two halves, each adding the rows it
+// sanitizes to *san.  The linear half: the sanitized linvel, the inertial
+// position and the accel-weighted warm start (its row sanitized); the
+// angular half: the clamped and sanitized angvel and the inertial
+// quaternion (also the iterations' start).
+struct PredLinear {
+  V3 lv;  // sanitized linvel
+  V3 ip;  // inertial position
+  V3 ps;  // warm start position
+};
+struct PredAngular {
+  V3 av;  // clamped, sanitized angvel
+  Q4 iq;  // inertial quaternion
 };
 
-__device__ __forceinline__ Predicted predict_one(V3 pos0, Q4 q0, V3 lv, V3 av, V3 prev_lv, bool dyn,
-                                                 const KParams& p) {
-  Predicted r;
+__device__ __forceinline__ PredLinear predict_linear(V3 pos0, V3 lv, V3 prev_lv, bool dyn,
+                                                     const KParams& p, int* san) {
+  PredLinear r;
   const float dt = p.dt;
-  r.san = 0;
   if (!finite3(lv)) {
     lv = v3(F(0.0), F(0.0), F(0.0));
-    ++r.san;
-  }
-  // _clamp_angular: w * where(speed > max, max / clamp(speed, 1e-12), 1)
-  const float speed = VNORM3(av);
-  const float scale = speed > p.max_angular_speed
-                          ? p.max_angular_speed / fmaxf(speed, F(1e-12)) : F(1.0);
-  av = vscale(av, scale);
-  if (!finite3(av)) {
-    av = v3(F(0.0), F(0.0), F(0.0));
-    ++r.san;
+    ++*san;
   }
   // pos0 + linvel * dt + gravity * dt * dt
   const V3 g2 = v3((p.grav[0] * dt) * dt, (p.grav[1] * dt) * dt, (p.grav[2] * dt) * dt);
   r.ip = dyn ? vadd(vadd(pos0, vscale(lv, dt)), g2) : pos0;
-  // quat_normalize(quat0 + quat_mul(omega_q, quat0) * (0.5 * dt))
-  const Q4 qm = qmul(Q4{av.x, av.y, av.z, F(0.0)}, q0);
-  const Q4 q = Q4{q0.x + qm.x * p.half_dt, q0.y + qm.y * p.half_dt, q0.z + qm.z * p.half_dt,
-                  q0.w + qm.w * p.half_dt};
-  const float msq = QUAT_MSQ(q);
-  const bool bad = msq < F(1e-6);
-  const float safe = sqrtf(bad ? F(1.0) : msq);
-  r.iq = bad ? Q4{F(0.0), F(0.0), F(0.0), F(1.0)}
-             : Q4{q.x / safe, q.y / safe, q.z / safe, q.w / safe};
-  if (!dyn) r.iq = q0;
   float aw = F(0.0);
   if (p.has_gravity != F(0.0)) {
     const V3 acc = vsub(lv, prev_lv);  // cm.div(linvel - prev_linvel, dt)
@@ -503,17 +495,41 @@ __device__ __forceinline__ Predicted predict_one(V3 pos0, Q4 q0, V3 lv, V3 av, V
             pos0.z + (lv.z * dt + p.grav[2] * awdt2) * dynf);
   if (!finite3(r.ps)) {
     r.ps = pos0;
-    ++r.san;
+    ++*san;
   }
   r.lv = lv;
+  return r;
+}
+
+__device__ __forceinline__ PredAngular predict_angular(Q4 q0, V3 av, bool dyn, const KParams& p,
+                                                       int* san) {
+  PredAngular r;
+  // _clamp_angular: w * where(speed > max, max / clamp(speed, 1e-12), 1)
+  const float speed = VNORM3(av);
+  const float scale = speed > p.max_angular_speed
+                          ? p.max_angular_speed / fmaxf(speed, F(1e-12)) : F(1.0);
+  av = vscale(av, scale);
+  if (!finite3(av)) {
+    av = v3(F(0.0), F(0.0), F(0.0));
+    ++*san;
+  }
+  // quat_normalize(quat0 + quat_mul(omega_q, quat0) * (0.5 * dt))
+  const Q4 qm = qmul(Q4{av.x, av.y, av.z, F(0.0)}, q0);
+  const Q4 q = Q4{q0.x + qm.x * p.half_dt, q0.y + qm.y * p.half_dt, q0.z + qm.z * p.half_dt,
+                  q0.w + qm.w * p.half_dt};
+  const float msq = QUAT_MSQ(q);
+  const bool bad = msq < F(1e-6);
+  const float safe = sqrtf(bad ? F(1.0) : msq);
+  r.iq = bad ? Q4{F(0.0), F(0.0), F(0.0), F(1.0)}
+             : Q4{q.x / safe, q.y / safe, q.z / safe, q.w / safe};
+  if (!dyn) r.iq = q0;
   r.av = av;
   return r;
 }
 
 // solver.finalize's velocities of one body from its final pose (pf, qf)
 // and its start (pos0, q0): damped, a static body keeping its own (lv0,
-// av0), each sanitized (adds to *san).  The linear and the angular halves
-// share nothing, so a kernel may run them on two threads.
+// av0), each sanitized (adds to *san); the linear and the angular half.
 __device__ __forceinline__ V3 finalize_linear(V3 pf, V3 pos0, V3 lv0, bool dyn, const KParams& p,
                                               int* san) {
   const float dt = p.dt;
@@ -542,78 +558,121 @@ __device__ __forceinline__ V3 finalize_angular(Q4 qf, Q4 q0, V3 av0, bool dyn, c
   }
   return na;
 }
-__device__ __forceinline__ void finalize_velocities(V3 pf, Q4 qf, V3 pos0, Q4 q0, V3 lv0, V3 av0,
-                                                    bool dyn, const KParams& p, V3* nl_out,
-                                                    V3* na_out, int* san) {
-  *nl_out = finalize_linear(pf, pos0, lv0, dyn, p, san);
-  *na_out = finalize_angular(qf, q0, av0, dyn, p, san);
+
+// max_nan's order on floats as unsigned ints, for atomicMax: a NaN above
+// every float, -0 below +0, and 0 (the fold's start) below every key.
+__device__ __forceinline__ unsigned int max_key(float x) {
+  const unsigned int u = __float_as_uint(x);
+  return x != x ? 0xffffffffu : ((u & 0x80000000u) ? ~u : (u | 0x80000000u));
+}
+__device__ __forceinline__ float max_of_key(unsigned int k) {
+  return k == 0xffffffffu ? __uint_as_float(0x7fffffffu)
+                          : __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-// The ticket fold of a stage kernel's lanes: NF float maxima (max_nan,
-// from 0) and NI int sums over every thread of the launch.  Called by every
-// thread of every block (STAGE_THREADS a block) with its values in fv / iv.
-// Each block folds its warps (a shuffle tree, then the warps in order, a
-// thread a quantity), writes its partials, fences and takes a ticket; the
-// last block folds every block's partials in index order (warp w takes
-// quantities w, w + STAGE_WARPS, ...: lane l over blocks l, l + 32, ...,
-// then a shuffle tree) and returns true with the totals in shf[k][0] /
-// shi[k][0]; every other block returns false.  The caller's last block
-// writes the lanes and resets the ticket to 0.  Integer sums are exact in
-// any order and the maxima propagate NaN as torch.max does.
-template <int NF, int NI>
-__device__ __forceinline__ bool ticket_fold(float (&fv)[NF], int (&iv)[NI],
-                                            float (&shf)[NF][STAGE_WARPS],
-                                            int (&shi)[NI][STAGE_WARPS], bool& sh_last,
-                                            float* part_f, int* part_i, unsigned int* ticket) {
+// atomicAdd with release and acquire semantics at device scope: the ticket
+// of atomic_fold.  Its release makes the warp's earlier atomics on the
+// fold's words (ordered before it by __syncwarp) visible to the block that
+// reads the ticket after it; its acquire makes every earlier ticket's words
+// visible to this block.  It replaces a __threadfence on either side of the
+// ticket: the release still waits (~0.75 us on the card), the acquire side
+// no longer does (PERF.md section 6).
+__device__ __forceinline__ unsigned int atomic_add_acq_rel(unsigned int* p, unsigned int v) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// The cross-block fold of a stage kernel's lanes by atomics, called by
+// every thread of every block (W warps a block): NQ quantities a thread in
+// q, the first NF maxima as max_key, the rest int sums.  Each warp reduces
+// each quantity in one instruction (__reduce_max_sync / __reduce_add_sync),
+// warp 0 folds the warps the same way, its lane k folds quantity k into
+// fold[k] (atomicMax of the key, atomicAdd of the sum: exact in any order),
+// and lane 0 takes the ticket fold[NQ] (atomic_add_acq_rel).  Returns true
+// in warp 0 of the last block, each lane k < NQ holding word k (read and
+// reset to 0), the ticket reset to 0; the caller's last block writes the
+// lanes.  A maximum's key order is max_nan's on values, so the lanes equal
+// the plain version's (a NaN as the canonical NaN, a zero as +0 when any
+// thread holds +0).  No block walks other blocks' partials (a last block
+// that did, one warp a quantity, set the time of the kernels that had it).
+template <int NF, int NQ, int W>
+__device__ __forceinline__ bool atomic_fold(const unsigned int (&q)[NQ],
+                                            unsigned int (&shk)[NQ][W], unsigned int* fold,
+                                            unsigned int* word) {
+  static_assert(NQ <= 32 && W <= 32, "a lane a quantity, a lane a warp");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int off = 16; off > 0; off >>= 1) {
-    for (int k = 0; k < NF; ++k) fv[k] = max_nan(fv[k], __shfl_xor_sync(FULL_MASK, fv[k], off));
-    for (int k = 0; k < NI; ++k) iv[k] += __shfl_xor_sync(FULL_MASK, iv[k], off);
+  unsigned int mine = 0;  // lane k: quantity k over the warp, then the block
+#pragma unroll
+  for (int k = 0; k < NQ; ++k) {
+    const unsigned int v = k < NF ? __reduce_max_sync(FULL_MASK, q[k])
+                                  : __reduce_add_sync(FULL_MASK, q[k]);
+    if (lane == k) mine = v;
   }
+  if (lane < NQ) shk[lane][warp] = mine;
+  __syncthreads();
+  if (warp != 0) return false;
+#pragma unroll
+  for (int k = 0; k < NQ; ++k) {
+    const unsigned int x = lane < W ? shk[k][lane] : 0u;
+    const unsigned int v = k < NF ? __reduce_max_sync(FULL_MASK, x)
+                                  : __reduce_add_sync(FULL_MASK, x);
+    if (lane == k) mine = v;
+  }
+  RACE_DELAY();
+  if (lane < NF) atomicMax(fold + lane, mine);
+  else if (lane < NQ) atomicAdd(fold + lane, mine);
+  __syncwarp();  // the warp's atomics, then lane 0's release
+  unsigned int last = 0;
   if (lane == 0) {
-    for (int k = 0; k < NF; ++k) shf[k][warp] = fv[k];
-    for (int k = 0; k < NI; ++k) shi[k][warp] = iv[k];
-  }
-  __syncthreads();
-  if (threadIdx.x < NF + NI) {  // a thread a quantity, the warps in order
-    const int k = threadIdx.x;
-    if (k < NF) {
-      float v = shf[k][0];
-      for (int w = 1; w < STAGE_WARPS; ++w) v = max_nan(v, shf[k][w]);
-      RACE_DELAY();
-      part_f[blockIdx.x * NF + k] = v;
-    } else {
-      int v = 0;
-      for (int w = 0; w < STAGE_WARPS; ++w) v += shi[k - NF][w];
-      RACE_DELAY();
-      part_i[blockIdx.x * NI + k - NF] = v;
-    }
-    __threadfence();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
     RACE_DELAY();
-    sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    last = atomic_add_acq_rel(fold + NQ, 1u) == gridDim.x - 1 ? 1u : 0u;
   }
-  __syncthreads();
-  if (!sh_last) return false;
-  __threadfence();
-  for (int k = warp; k < NF + NI; k += STAGE_WARPS) {
-    float fvk = F(0.0);
-    int ivk = 0;
-    for (int b = lane; b < (int)gridDim.x; b += 32) {
-      if (k < NF) fvk = max_nan(fvk, __ldcg(part_f + b * NF + k));
-      else ivk += __ldcg(part_i + b * NI + k - NF);
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      fvk = max_nan(fvk, __shfl_xor_sync(FULL_MASK, fvk, off));
-      ivk += __shfl_xor_sync(FULL_MASK, ivk, off);
-    }
-    if (lane == 0) {
-      if (k < NF) shf[k][0] = fvk;
-      else shi[k - NF][0] = ivk;
-    }
-  }
-  __syncthreads();
+  if (!__shfl_sync(FULL_MASK, last, 0)) return false;
+  __syncwarp();  // lane 0's acquire, then the warp's reads
+  *word = lane < NQ ? atomicExch(fold + lane, 0u) : 0u;
+  if (lane == 0) fold[NQ] = 0u;
   return true;
+}
+
+// The one-word form of atomic_fold, for a single int sum: each block's sum
+// and its ticket travel in one 64-bit atomicAdd (the sum in the high word,
+// 1 in the low), so the last block learns the total from its own atomic's
+// return: no release to wait for and no second round trip (atomic_fold's
+// words need both).  Called by every thread of every block (W warps a
+// block); returns true in thread 0 of the last block, the total in *total;
+// the caller resets *word to 0.
+template <int W>
+__device__ __forceinline__ bool atomic_count(int v, unsigned int (&sh)[W],
+                                             unsigned long long* word, int* total) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned int s = __reduce_add_sync(FULL_MASK, (unsigned int)v);
+  if (lane == 0) sh[warp] = s;
+  __syncthreads();
+  if (threadIdx.x != 0) return false;
+  unsigned int b = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) b += sh[w];
+  RACE_DELAY();
+  const unsigned long long old = atomicAdd(word, ((unsigned long long)b << 32) | 1ull);
+  if ((unsigned int)old != gridDim.x - 1) return false;
+  *total = (int)((unsigned int)(old >> 32) + b);
+  return true;
+}
+
+// The grid of a stage kernel sized to the card: ``want`` blocks (the
+// blocks its data would fill), at most STAGE_BLOCKS_PER_SM an SM; the SM
+// count read once a process.  cudaSuccess, or the error of that read.
+static inline cudaError_t stage_grid(int want, int* blocks) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int most = STAGE_BLOCKS_PER_SM * sms;
+  *blocks = want < 1 ? 1 : (want < most ? want : most);
+  return cudaSuccess;
 }

@@ -12,7 +12,7 @@
 // world halves and travel).  Design: one launch spread over the card.  Pass 1
 // takes a warp per body and a lane per candidate slot (lanes stride over the
 // slots when D > 32): each lane computes its slot's AABB gap and near test in
-// the plain version's order, the warp takes fminf of the valid gaps and
+// the plain version's order, the warp takes min_nan of the valid gaps and
 // __any_sync of near, and lane 0 adds the body's own terms (the gate speed
 // with the fall-freeze test, the displacement from the anchor, moved, the
 // rotation chord and the raw deviation, which needs no mean) and stores the
@@ -27,7 +27,9 @@
 // so a run gives the same bits every time; min and max are exact in any
 // order, so lanes 0, 1, 2 and 4 equal the plain version's
 // (ops/broadphase.control_lanes) bit for bit, and only lane 3 (bp_dev_mm,
-// through t) rounds otherwise than torch.sum.  No float atomics.
+// through t) rounds otherwise than torch.sum.  Every min and max keeps a
+// NaN (max_nan, min_nan), as torch.maximum / torch.min / torch.max do, so
+// a NaN pose gives the plain version's NaN lanes.  No float atomics.
 // control_lanes_block (avbd_common.cuh), K1's one-block form in
 // k_final_reduce, is not used here.
 //
@@ -84,15 +86,15 @@ k_control_lanes(CtrlIn in_all, KParams p, float* part, float4* dv, unsigned int*
       if (idx < 0) continue;
       V3 pp = ld3(in.pos, idx, n);
       V3 pwh = world_halves(ld4(in.quat, idx, n), half_of(in.size, idx, n));
-      float gap = fmaxf(fmaxf(fabsf(pp.x - pos.x) - (wh.x + pwh.x),
-                              fabsf(pp.y - pos.y) - (wh.y + pwh.y)),
-                        fabsf(pp.z - pos.z) - (wh.z + pwh.z));
-      min_gap = fminf(min_gap, gap);
+      float gap = max_nan(max_nan(fabsf(pp.x - pos.x) - (wh.x + pwh.x),
+                                  fabsf(pp.y - pos.y) - (wh.y + pwh.y)),
+                          fabsf(pp.z - pos.z) - (wh.z + pwh.z));
+      min_gap = min_nan(min_gap, gap);
       float reach = (travel_i + travel_of(in, idx, p)) + p.reach_const;
       near = near || (gap - reach <= p.collision_margin);
     }
     for (int off = 16; off > 0; off >>= 1)
-      min_gap = fminf(min_gap, __shfl_xor_sync(FULL_MASK, min_gap, off));
+      min_gap = min_nan(min_gap, __shfl_xor_sync(FULL_MASK, min_gap, off));
     near = __any_sync(FULL_MASK, near);
     if (lane == 0) {
       V3 lv = ld3(in.lv, i, n);

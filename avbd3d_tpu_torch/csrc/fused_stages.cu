@@ -12,12 +12,12 @@
 // step.
 //
 // Every float expression repeats the plain version's statements in their
-// order (the shared pieces in avbd_common.cuh: freeze_body, predict_one,
-// finalize_velocities, QUAT_MSQ / VNORM3 / VNORM3_XZY and the ticket
-// fold, as grid_stages.cu runs them), and the library is built with
-// --fmad=false and IEEE division and square root, so frozen fields, poses,
-// velocities and lanes are the plain version's bits.  The ballistic
-// finalize's rows come out of predict's torch.where, as the grid
+// order (the shared pieces in avbd_common.cuh: freeze_body, the
+// prediction's and the finalize velocities' halves, QUAT_MSQ / VNORM3 /
+// VNORM3_XZY and atomic_fold, as grid_stages.cu runs them), and the library
+// is built with --fmad=false and IEEE division and square root, so frozen
+// fields, poses, velocities and lanes are the plain version's bits.  The
+// ballistic finalize's rows come out of predict's torch.where, as the grid
 // finalize's come out of its pose sanitize: the linear velocities
 // component-major (VNORM3), the angular ones contiguous rows of quat_mul's
 // torch.stack (VNORM3_XZY); phase 21 of chip_smoke.py holds the speed lanes
@@ -28,8 +28,6 @@
 // bodies' fields, every slot's count and partner, and the normal duals of
 // the live contacts, none to all of the (4, 12, N)), 0.02-0.14 us at
 // 3.35 TB/s, far below a launch's own few microseconds.
-// Design: one launch each over the card, threads over the bodies (and a
-// thread a slot where the slots are the bytes).
 //
 // k_step_gates, a thread a float of the frozen fields (7 planes of N): the
 // fall-freeze when it is on (linvel, angvel and inv_mass of the frozen
@@ -47,14 +45,21 @@
 // empty, one load and one store a thread, or k_step_gates' own three loads
 // before its store, timed beside k_step_gates.
 //
-// k_ballistic_step, a thread a (slot, body): the threads of slot 0 take a
-// body each, predict it and finalize it at its inertial target (poses,
-// velocities, previous velocities, the sanitize count); every thread takes
-// a slot's maxima with the finalize's zero separations (lane 0: -0 where a
-// slot is live; lane 1: the slop; lane 4: |lambda_n|).  A ticket fold
-// writes lanes 0-10 (5, 6, 9 and 10 are 0: no pair is counted, the
-// overflows are 0) and lanes 11-15 at CONTROL_RESET, which K2 then
-// overwrites.
+// k_ballistic_step, over a grid sized to the card (avbd_ballistic_step: a
+// block for each 256 slots, at most two blocks an SM; a thread a (slot,
+// body) with a thread's body chain and its slot in series, then a last
+// block walking every block's partials, took 7.89 us on the card at
+// Stress1000, PERF.md section 6): eight slot warps a block take the slots'
+// maxima with the finalize's zero separations (lane 0: -0 where a slot is
+// live, +0 elsewhere; lane 1: the slop; lane 4: |lambda_n|); beside them a
+// linear and an angular warp a block take 32 bodies each in turn, a lane
+// the linear half of a body's prediction and then its linear finalize at
+// the inertial position (pose, velocity, previous velocity, the dynamic
+// count), or the angular halves at the inertial quaternion, each adding
+// the rows it sanitizes.  The lanes by atomic_fold: lanes 0-10 (5, 6, 9 and
+// 10 are 0: no pair is counted, the overflows are 0) and lanes 11-15 at
+// CONTROL_RESET, which K2 then overwrites.  Lane 0 folds keys that order -0
+// below +0, and every body lane holds +0, so it is +0.
 #include "avbd_common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -137,6 +142,10 @@ __global__ void k_launch_floor(const float* src, const float* inv_mass, const fl
 
 #define BAL_F 5  // max lanes: penetration, violation, linear speed, angular speed, normal dual
 #define BAL_I 2  // counts: dynamic bodies, sanitized rows
+#define BAL_SLOT_WARPS 8  // warps a block for the slots
+#define BAL_BODY_WARPS 2  // a linear and an angular warp a block for the bodies
+#define BAL_WARPS (BAL_SLOT_WARPS + BAL_BODY_WARPS)
+#define BAL_THREADS (32 * BAL_WARPS)
 
 struct BallisticArgs {
   const float* pos;       // (3, N) the step's start poses
@@ -156,73 +165,87 @@ struct BallisticArgs {
   float* prev_lv_out;     // (3, N) the prediction's velocities (dynamic bodies)
   float* prev_av_out;
   float* diag;            // (16)
-  float* part_f;          // BAL_F floats a block
-  int* part_i;            // BAL_I ints a block
-  unsigned int* ticket;
+  unsigned int* fold;     // BAL_F + BAL_I words, then the ticket: 0 before and after a launch
   int n;
   int dc;
 };
 
-__global__ void __launch_bounds__(STAGE_THREADS) k_ballistic_step(BallisticArgs a, KParams p) {
-  __shared__ float shf[BAL_F][STAGE_WARPS];
-  __shared__ int shi[BAL_I][STAGE_WARPS];
-  __shared__ bool sh_last;
+// Slot thread t of the grid (the slot warps; stride: all of them) takes
+// slots t, t + stride, ...: the maxima at the finalize's zero separations.
+// Body warp 2c + h of the grid (c = b + gridDim.x r for block b): bodies
+// 32 c .. 32 c + 31, a lane a body, the linear half (h = 0: the prediction's
+// linear half, then finalize_linear at the inertial position; the dynamic
+// count) or the angular half (h = 1: the prediction's angular half, then
+// finalize_angular at the inertial quaternion) (tests/test_torch_port.py
+// models these loops).  The 5 maxima and 2 counts by atomic_fold.
+__global__ void __launch_bounds__(BAL_THREADS) k_ballistic_step(BallisticArgs a, KParams p) {
+  __shared__ unsigned int shk[BAL_F + BAL_I][BAL_WARPS];
   const int n = a.n;
-  const int t = blockIdx.x * STAGE_THREADS + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float fv[BAL_F] = {F(0.0), F(0.0), F(0.0), F(0.0), F(0.0)};
   int iv[BAL_I] = {0, 0};
-  if (t < n) {  // body t: predict, then finalize at the inertial target
-    const int i = t;
-    const V3 pos0 = ld3(a.pos, i, n);
-    const Q4 q0 = ld4(a.quat, i, n);
-    const V3 lv0 = ld3(a.lv, i, n), av0 = ld3(a.av, i, n);
-    const bool dyn = a.inv_mass[i] > F(0.0);
-    const Predicted r = predict_one(pos0, q0, lv0, av0, ld3(a.prev_lv, i, n), dyn, p);
-    int san = r.san;
-    V3 nl, na;
-    finalize_velocities(r.ip, r.iq, pos0, q0, lv0, av0, dyn, p, &nl, &na, &san);
-    const float dynf = dyn ? F(1.0) : F(0.0);
-    fv[2] = VNORM3(nl) * dynf;
-    fv[3] = VNORM3_XZY(na) * dynf;
-    iv[0] = dyn ? 1 : 0;
-    iv[1] = san;
-    st3(a.pos_out, i, n, r.ip);
-    st4(a.quat_out, i, n, r.iq);
-    st3(a.lv_out, i, n, nl);
-    st3(a.av_out, i, n, na);
-    st3(a.prev_lv_out, i, n, dyn ? r.lv : ld3(a.prev_lv, i, n));
-    st3(a.prev_av_out, i, n, dyn ? r.av : ld3(a.prev_av, i, n));
-  }
-  if (t < a.dc * n) {  // slot (d, i): finalize's maxima at zero separations
-    const bool valid = a.other[t] >= 0;
-    const int cnt = a.count[t];
-    const size_t plane = (size_t)a.dc * n;
+  if (warp < BAL_SLOT_WARPS) {
+    const int slots = a.dc * n;
+    const size_t plane = (size_t)slots;
+    const int stride = gridDim.x * BAL_SLOT_WARPS * 32;
     const float sep = F(0.0);
-    for (int s = 0; s < 4; ++s) {
-      const bool ok = s < cnt && valid;
-      fv[0] = max_nan(fv[0], ok ? -sep : F(0.0));
-      fv[1] = max_nan(fv[1], ok ? p.penetration_slop - sep : F(0.0));
-      fv[4] = max_nan(fv[4], ok ? fabsf(a.lam[3 * s * plane + t]) : F(0.0));
+    for (int t = blockIdx.x * BAL_SLOT_WARPS * 32 + threadIdx.x; t < slots; t += stride) {
+      const bool valid = a.other[t] >= 0;
+      const int cnt = a.count[t];
+      for (int s = 0; s < 4; ++s) {
+        const bool ok = s < cnt && valid;
+        fv[0] = max_nan(fv[0], ok ? -sep : F(0.0));
+        fv[1] = max_nan(fv[1], ok ? p.penetration_slop - sep : F(0.0));
+        fv[4] = max_nan(fv[4], ok ? fabsf(a.lam[3 * s * plane + t]) : F(0.0));
+      }
+    }
+  } else {
+    const bool angular = warp - BAL_SLOT_WARPS == 1;
+    for (int c = blockIdx.x; 32 * c < n; c += gridDim.x) {
+      const int i = 32 * c + lane;
+      if (i >= n) break;
+      const bool dyn = a.inv_mass[i] > F(0.0);
+      const float dynf = dyn ? F(1.0) : F(0.0);
+      int san = 0;
+      if (!angular) {
+        const V3 pos0 = ld3(a.pos, i, n), lv0 = ld3(a.lv, i, n), plv = ld3(a.prev_lv, i, n);
+        const PredLinear r = predict_linear(pos0, lv0, plv, dyn, p, &san);
+        const V3 nl = finalize_linear(r.ip, pos0, lv0, dyn, p, &san);
+        fv[2] = max_nan(fv[2], VNORM3(nl) * dynf);
+        iv[0] += dyn ? 1 : 0;
+        st3(a.pos_out, i, n, r.ip);
+        st3(a.lv_out, i, n, nl);
+        st3(a.prev_lv_out, i, n, dyn ? r.lv : plv);
+      } else {
+        const Q4 q0 = ld4(a.quat, i, n);
+        const V3 av0 = ld3(a.av, i, n), pav = ld3(a.prev_av, i, n);
+        const PredAngular r = predict_angular(q0, av0, dyn, p, &san);
+        const V3 na = finalize_angular(r.iq, q0, av0, dyn, p, &san);
+        fv[3] = max_nan(fv[3], VNORM3_XZY(na) * dynf);
+        st4(a.quat_out, i, n, r.iq);
+        st3(a.av_out, i, n, na);
+        st3(a.prev_av_out, i, n, dyn ? r.av : pav);
+      }
+      iv[1] += san;
     }
   }
-  if (!ticket_fold(fv, iv, shf, shi, sh_last, a.part_f, a.part_i, a.ticket)) return;
-  if (threadIdx.x == 0) {
-    float* dg = a.diag;
-    for (int k = 0; k < BAL_F; ++k) dg[k] = shf[k][0];
-    dg[5] = F(0.0);  // active contacts: no slot is counted (once all False)
-    dg[6] = F(0.0);  // active manifolds
-    dg[7] = (float)shi[0][0];
-    dg[8] = (float)shi[1][0];
-    dg[9] = F(0.0);   // pair overflow 0
-    dg[10] = F(0.0);  // degree overflow 0
-    // state.CONTROL_RESET
-    dg[11] = F(1.0e9);
-    dg[12] = F(1.0e9);
-    dg[13] = F(0.0);
-    dg[14] = F(1.0e9);
-    dg[15] = F(1.0e9);
-    *a.ticket = 0u;
-  }
+  unsigned int q[BAL_F + BAL_I];
+#pragma unroll
+  for (int k = 0; k < BAL_F; ++k) q[k] = max_key(fv[k]);
+#pragma unroll
+  for (int k = 0; k < BAL_I; ++k) q[BAL_F + k] = (unsigned int)iv[k];
+  unsigned int w;
+  if (!atomic_fold<BAL_F>(q, shk, a.fold, &w)) return;
+  // Warp 0 of the last block: lane k writes lane k of the diagnostics.
+  const int dyn_count = (int)__shfl_sync(FULL_MASK, w, BAL_F);
+  const int san_count = (int)__shfl_sync(FULL_MASK, w, BAL_F + 1);
+  float v;
+  if (lane < BAL_F) v = max_of_key(w);
+  else if (lane == 7) v = (float)dyn_count;
+  else if (lane == 8) v = (float)san_count;
+  else if (lane < 11) v = F(0.0);  // 5, 6: no slot is counted (once all False); 9, 10: overflows 0
+  else v = lane == 13 ? F(0.0) : F(1.0e9);  // state.CONTROL_RESET
+  if (lane < 16) a.diag[lane] = v;
 }
 
 extern "C" {
@@ -267,8 +290,12 @@ int avbd_launch_floor(void** ptrs, int n, int loads, float freeze_y, void* strea
 
 // ptrs: pos, quat, linvel, angvel, prev_linvel, prev_angvel, inv_mass,
 // count, other, lam, then pos, quat, linvel, angvel, prev_linvel,
-// prev_angvel, diag (16 floats), then scratch: BAL_F floats and BAL_I ints a
-// block, the ticket (0 before the launch and after it).
+// prev_angvel, diag (16 floats), then scratch: BAL_F + BAL_I fold words and
+// the ticket (0 before the launch and after it).  The grid: a block for
+// each 32 bodies or for each 256 slots, whichever is more, at most
+// STAGE_BLOCKS_PER_SM blocks an SM; the warps stride over the rest.
+// AVBD_BAL_BLOCKS (kernels.build's defines, for checks and comparisons
+// only) sets another grid.
 int avbd_ballistic_step(void** ptrs, const float* params, int n, int dc, void* stream) {
   BallisticArgs a;
   a.pos = (const float*)ptrs[0];
@@ -288,15 +315,21 @@ int avbd_ballistic_step(void** ptrs, const float* params, int n, int dc, void* s
   a.prev_lv_out = (float*)ptrs[14];
   a.prev_av_out = (float*)ptrs[15];
   a.diag = (float*)ptrs[16];
-  a.part_f = (float*)ptrs[17];
-  a.part_i = (int*)ptrs[18];
-  a.ticket = (unsigned int*)ptrs[19];
+  a.fold = (unsigned int*)ptrs[17];
   a.n = n;
   a.dc = dc;
   KParams p = *(const KParams*)params;
-  const int total = (dc > 1 ? dc : 1) * n;
-  const int blocks = (total + STAGE_THREADS - 1) / STAGE_THREADS;
-  k_ballistic_step<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a, p);
+#ifdef AVBD_BAL_BLOCKS
+  const int blocks = AVBD_BAL_BLOCKS;
+#else
+  const int slot_blocks = (dc * n + BAL_SLOT_WARPS * 32 - 1) / (BAL_SLOT_WARPS * 32);
+  const int body_blocks = (n + 31) / 32;
+  int blocks = 0;
+  const cudaError_t err = stage_grid(slot_blocks > body_blocks ? slot_blocks : body_blocks,
+                                     &blocks);
+  if (err != cudaSuccess) return (int)err;
+#endif
+  k_ballistic_step<<<blocks, BAL_THREADS, 0, (cudaStream_t)stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,8 @@
 // plain version's bits.  Two reductions of the plain version are torch's
 // own: the quaternion's squared norm in quat_normalize (torch.sum over the
 // four components) and the speeds' vector_norm; QUAT_MSQ, VNORM3 and
-// VNORM3_XZY (avbd_common.cuh, with the freeze, the prediction and the
-// finalize velocities of one body and the ticket fold, which
+// VNORM3_XZY (avbd_common.cuh, with the freeze, the prediction's and the
+// finalize velocities' halves of one body and the atomic fold, which
 // fused_stages.cu shares) write the order in which torch's CUDA reductions
 // add those terms (read on the card; the speed lanes are held to 1e-6
 // relative where a torch build orders them otherwise).
@@ -30,14 +30,14 @@
 // float copy) and ~6 MB (finalize: separations, normal duals, counts, the
 // once mask and the latches of the (4, 16, N) slots, the kept mask),
 // 0.1-2 us at 3.35 TB/s, below a launch's own few microseconds.  Design:
-// one launch each, spread over the card, a thread a body (and a thread a
-// slot where the slots are the bytes); a cross-block fold, where a stage
-// has one, ends in a ticket as in K2 (k_control_lanes): each block hands on
-// its partials (the finalize by atomics into ten words), fences, takes a
-// ticket, and the last block reads them, writes the result and resets the
-// ticket to 0.  Integer sums are exact in any order and the maxima
-// propagate NaN as torch.max does, so the flags, the counts and the max
-// lanes equal the plain version's.
+// one launch each, spread over the card; a cross-block fold ends in a
+// ticket: k_grid_gates' blocks hand on their partials, fence and take it
+// as in K2 (k_control_lanes); the prediction and the finalize fold by
+// atomics into words of scratch (atomic_fold), whose last block reads them,
+// writes the result and resets the words and the ticket to 0.  Integer
+// sums are exact in any order and the maxima propagate NaN as torch.max
+// does, so the flags, the counts and the max lanes equal the plain
+// version's.
 //
 // k_grid_gates, a thread a body: the fall-freeze (linvel, angvel and
 // inv_mass with the frozen bodies zeroed, written when the freeze is on),
@@ -54,11 +54,18 @@
 // blocks' maxima (one block once did the whole tail alone, reloading every
 // body from L2).
 
-// k_grid_predict, a thread a body: the sanitized velocities (the angular
-// one clamped), the inertial pose, the accel-weighted warm start and the
-// sanitize count (a ticket fold of the bodies' blocks), written straight
-// into the (C, G, 128) layout K6 reads; and a thread a slot latch: the
-// contact cache's stick latches as the 0 / 1 floats K5 takes.
+// k_grid_predict, over a grid sized to the card (avbd_grid_predict: a block
+// for each 32 bodies, at most two blocks an SM; a thread a latch and a
+// thread a body took 1280 blocks at Stress4096, 20 of them doing every
+// body's whole chain before a one-warp tail, 4.92 us on the card): eight
+// latch warps a block copy the contact cache's stick latches into the 0 / 1
+// floats K5 takes, four a thread (a 4-byte load, a 16-byte store); a linear
+// and an angular warp a block take 32 bodies each in turn, a lane the
+// linear (sanitized linvel, inertial position, warm start) or the angular
+// half (clamp, sanitized angvel, inertial quaternion) of a body's
+// prediction, written straight into the (C, G, 128) layout K6 reads; the
+// sanitize count and the ticket in one 64-bit atomic a block (atomic_count,
+// avbd_common.cuh).
 //
 // k_grid_finalize, over a grid sized to the card (avbd_grid_finalize: at
 // most two blocks an SM; its data would ask for 560 blocks of a thread a
@@ -116,8 +123,7 @@ struct GatesArgs {
 
 // fold_parts_warp's fold (lane l over groups l, l + 32, ... in index order,
 // then the same shuffle tree), with the loads issued GATES_UNROLL at a time:
-// the same operations in the same order, so the same bits.  Partial 1 (v^2)
-// folds with max_nan.
+// the same operations in the same order, so the same bits.
 #define GATES_UNROLL 8
 __device__ __forceinline__ float fold_parts_ahead(const float* part, int n_groups, int k, int lane) {
   const int op = part_op(k);
@@ -131,12 +137,9 @@ __device__ __forceinline__ float fold_parts_ahead(const float* part, int n_group
     }
 #pragma unroll
     for (int u = 0; u < GATES_UNROLL; ++u)
-      if (b0 + 32 * u < n_groups) v = k == 1 ? max_nan(v, x[u]) : fold(op, v, x[u]);
+      if (b0 + 32 * u < n_groups) v = fold(op, v, x[u]);
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(FULL_MASK, v, off);
-    v = k == 1 ? max_nan(v, o) : fold(op, v, o);
-  }
+  for (int off = 16; off > 0; off >>= 1) v = fold(op, v, __shfl_xor_sync(FULL_MASK, v, off));
   return v;
 }
 
@@ -181,21 +184,15 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
     for (int k = 1; k < LANE_PARTS; ++k) sh[k][threadIdx.x] = F(0.0);
   }
   __syncthreads();
-  // One thread a (group, partial): the group's bodies in order.  Partial 1
-  // (v^2) folds with max_nan, 3-7 as K2 folds them.
+  // One thread a (group, partial): the group's bodies in order, as K2 folds
+  // them.
   const int groups = STAGE_THREADS / LANES_WARPS;
   if (threadIdx.x < groups * 6) {
     const int g = threadIdx.x / 6, j = threadIdx.x % 6;
     const int k = j == 0 ? 1 : j + 2;
     const int gg = blockIdx.x * groups + g;
     if (gg * LANES_WARPS < n) {
-      const float* vals = &sh[k][g * LANES_WARPS];
-      float v = vals[0];
-      if (k == 1) {
-        for (int w = 1; w < LANES_WARPS; ++w) v = max_nan(v, vals[w]);
-      } else {
-        v = fold_group(vals, part_op(k));
-      }
+      const float v = fold_group(&sh[k][g * LANES_WARPS], part_op(k));
       RACE_DELAY();
       a.part[gg * LANE_PARTS + k] = v;
     }
@@ -214,14 +211,14 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
   float dev_mm = F(0.0);
   if (t.moved) {
     const V3 e = v3(t.disp.x - tm.x, t.disp.y - tm.y, t.disp.z - tm.z);
-    dev_mm = fmaxf(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + t.chord);
+    dev_mm = max_nan(dev_mm, sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) + t.chord);
   }
   for (int off = 16; off > 0; off >>= 1)
-    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
+    dev_mm = max_nan(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
   if (lane == 0) sh_dev[warp] = dev_mm;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < STAGE_WARPS; ++w) dev_mm = fmaxf(dev_mm, sh_dev[w]);
+    for (int w = 1; w < STAGE_WARPS; ++w) dev_mm = max_nan(dev_mm, sh_dev[w]);
     RACE_DELAY();
     a.part_dev[blockIdx.x] = dev_mm;
     __threadfence();
@@ -232,9 +229,9 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
   if (!sh_last || warp != 0) return;
   __threadfence();
   dev_mm = F(0.0);
-  for (int b = lane; b < (int)gridDim.x; b += 32) dev_mm = fmaxf(dev_mm, __ldcg(a.part_dev + b));
+  for (int b = lane; b < (int)gridDim.x; b += 32) dev_mm = max_nan(dev_mm, __ldcg(a.part_dev + b));
   for (int off = 16; off > 0; off >>= 1)
-    dev_mm = fmaxf(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
+    dev_mm = max_nan(dev_mm, __shfl_xor_sync(FULL_MASK, dev_mm, off));
   if (lane == 0) {
     const float dev_raw = sh_fold[3], v2 = sh_fold[1];
     a.out[0] = (dev_mm > a.half_margin) || (dev_raw > *a.slack + a.margin) ? F(1.0) : F(0.0);
@@ -251,6 +248,12 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_gates(GatesArgs a) {
 // k_grid_predict
 // ---------------------------------------------------------------------------
 
+#define PRED_LATCH_WARPS 8  // warps a block for the latch copy
+#define PRED_BODY_WARPS 2   // a linear and an angular warp a block for the bodies
+#define PRED_WARPS (PRED_LATCH_WARPS + PRED_BODY_WARPS)
+#define PRED_THREADS (32 * PRED_WARPS)
+#define PRED_LATCH_UNROLL 2  // latch groups of 4 a latch thread loads before it stores
+
 struct PredictArgs {
   const float* pos;       // (3, N)
   const float* quat;      // (4, N)
@@ -266,59 +269,78 @@ struct PredictArgs {
   float* ps;              // (3, N) warm start position
   float* stickf;          // (planes, N) 0 / 1
   int* san_out;           // () rows sanitized
-  int* part;              // an int a block of bodies
-  unsigned int* ticket;
+  unsigned long long* fold;  // the count (high) and the ticket (low): 0 before and after a launch
   int n;
   int planes;             // 4 * DC
 };
 
-__device__ __forceinline__ int predict_body(const PredictArgs& a, const KParams& p, int i) {
-  const int n = a.n;
-  const Predicted r = predict_one(ld3(a.pos, i, n), ld4(a.quat, i, n), ld3(a.lv, i, n),
-                                  ld3(a.av, i, n), ld3(a.prev_lv, i, n),
-                                  a.inv_mass[i] > F(0.0), p);
-  st3(a.lv_out, i, n, r.lv);
-  st3(a.av_out, i, n, r.av);
-  st3(a.ip, i, n, r.ip);
-  st4(a.iq, i, n, r.iq);
-  st3(a.ps, i, n, r.ps);
-  return r.san;
+// Four latches (the bytes of x) as 0 / 1 floats.
+__device__ __forceinline__ float4 latch4(unsigned int x) {
+  return make_float4((x & 0xffu) ? F(1.0) : F(0.0), (x & 0xff00u) ? F(1.0) : F(0.0),
+                     (x & 0xff0000u) ? F(1.0) : F(0.0), (x & 0xff000000u) ? F(1.0) : F(0.0));
 }
 
-// Blocks 0 .. body_blocks - 1 take a body a thread and fold the sanitize
-// count (their ticket); every block converts a latch a thread.
-__global__ void __launch_bounds__(STAGE_THREADS) k_grid_predict(PredictArgs a, KParams p) {
-  __shared__ int sh[STAGE_WARPS];
-  __shared__ bool sh_last;
-  const int t = blockIdx.x * STAGE_THREADS + threadIdx.x;
+// Latch warp w of block b (global latch warp g = b + gridDim.x * w): groups
+// of 4 latches 32 g + lane, + stride, ..., a 4-byte load and a 16-byte store
+// each, PRED_LATCH_UNROLL loads issued before their stores; then the
+// latches past the last whole group (and every latch, a thread one, where
+// the buffers are not aligned for the wide accesses).  Body warp 2c + h of
+// the grid (c = b + gridDim.x r): bodies 32 c .. 32 c + 31, the linear (h =
+// 0) or the angular (h = 1) half of their prediction, a lane a body
+// (tests/test_torch_port.py models these loops).  The sanitize count by
+// atomic_count.
+__global__ void __launch_bounds__(PRED_THREADS) k_grid_predict(PredictArgs a, KParams p) {
+  __shared__ unsigned int shc[PRED_WARPS];
+  const int n = a.n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (t < a.planes * a.n) a.stickf[t] = a.stick[t] ? F(1.0) : F(0.0);
-  const int body_blocks = (a.n + STAGE_THREADS - 1) / STAGE_THREADS;
-  if ((int)blockIdx.x >= body_blocks) return;
-  int san = t < a.n ? predict_body(a, p, t) : 0;
-  for (int off = 16; off > 0; off >>= 1) san += __shfl_xor_sync(FULL_MASK, san, off);
-  if (lane == 0) sh[warp] = san;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < STAGE_WARPS; ++w) s += sh[w];
-    RACE_DELAY();
-    a.part[blockIdx.x] = s;
-    __threadfence();
-    sh_last = atomicAdd(a.ticket, 1u) == (unsigned int)body_blocks - 1;
-  }
-  __syncthreads();
-  if (!sh_last) return;
-  __threadfence();
-  if (warp == 0) {
-    int s = 0;
-    for (int b = lane; b < body_blocks; b += 32) s += __ldcg(a.part + b);
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL_MASK, s, off);
-    if (lane == 0) {
-      *a.san_out = s;
-      *a.ticket = 0u;
+  int san = 0;
+  if (warp < PRED_LATCH_WARPS) {
+    const int total = a.planes * n;
+    const bool wide = ((reinterpret_cast<size_t>(a.stick) & 3) |
+                       (reinterpret_cast<size_t>(a.stickf) & 15)) == 0;
+    const int groups = wide ? total / 4 : 0;
+    const int stride = gridDim.x * PRED_LATCH_WARPS * 32;
+    const int first = (blockIdx.x + gridDim.x * warp) * 32 + lane;
+    const unsigned int* src = reinterpret_cast<const unsigned int*>(a.stick);
+    float4* dst = reinterpret_cast<float4*>(a.stickf);
+    for (int u0 = first; u0 < groups; u0 += PRED_LATCH_UNROLL * stride) {
+      unsigned int x[PRED_LATCH_UNROLL];
+#pragma unroll
+      for (int k = 0; k < PRED_LATCH_UNROLL; ++k) {
+        const int u = u0 + k * stride;
+        x[k] = u < groups ? __ldg(src + u) : 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < PRED_LATCH_UNROLL; ++k) {
+        const int u = u0 + k * stride;
+        if (u < groups) dst[u] = latch4(x[k]);
+      }
+    }
+    for (int t = 4 * groups + first; t < total; t += stride)
+      a.stickf[t] = a.stick[t] ? F(1.0) : F(0.0);
+  } else {
+    const bool angular = warp - PRED_LATCH_WARPS == 1;
+    for (int c = blockIdx.x; 32 * c < n; c += gridDim.x) {
+      const int i = 32 * c + lane;
+      if (i >= n) break;
+      const bool dyn = a.inv_mass[i] > F(0.0);
+      if (!angular) {
+        const PredLinear r = predict_linear(ld3(a.pos, i, n), ld3(a.lv, i, n),
+                                            ld3(a.prev_lv, i, n), dyn, p, &san);
+        st3(a.lv_out, i, n, r.lv);
+        st3(a.ip, i, n, r.ip);
+        st3(a.ps, i, n, r.ps);
+      } else {
+        const PredAngular r = predict_angular(ld4(a.quat, i, n), ld3(a.av, i, n), dyn, p, &san);
+        st3(a.av_out, i, n, r.av);
+        st4(a.iq, i, n, r.iq);
+      }
     }
   }
+  int total;
+  if (!atomic_count(san, shc, a.fold, &total)) return;
+  *a.san_out = total;
+  *a.fold = 0ull;
 }
 
 // ---------------------------------------------------------------------------
@@ -328,7 +350,6 @@ __global__ void __launch_bounds__(STAGE_THREADS) k_grid_predict(PredictArgs a, K
 #define FIN_F 5  // max lanes: penetration, violation, linear speed, angular speed, normal dual
 #define FIN_I 5  // counts: contacts, manifolds, dynamic bodies, sanitized rows, kept slots
 #define FIN_BODY_WARPS 2  // warps a block for the bodies, besides STAGE_WARPS for the slots
-#define FIN_BLOCKS_PER_SM 2  // the grid's most blocks an SM (avbd_grid_finalize)
 #define FIN_WARPS (STAGE_WARPS + FIN_BODY_WARPS)
 #define FIN_THREADS (32 * FIN_WARPS)
 
@@ -367,69 +388,6 @@ struct FinalizeArgs {
   int dc;
   int d;
 };
-
-// max_nan's order on floats as unsigned ints, for atomicMax: a NaN above
-// every float, -0 below +0, and 0 (the fold's start) below every key.
-__device__ __forceinline__ unsigned int max_key(float x) {
-  const unsigned int u = __float_as_uint(x);
-  return x != x ? 0xffffffffu : ((u & 0x80000000u) ? ~u : (u | 0x80000000u));
-}
-__device__ __forceinline__ float max_of_key(unsigned int k) {
-  return k == 0xffffffffu ? __uint_as_float(0x7fffffffu)
-                          : __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-// The cross-block fold by atomics (ticket_fold keeps one warp a quantity
-// walking every block's partials): each warp reduces its NF maxima as
-// max_key and its NI sums in one instruction each (__reduce_*_sync), warp
-// 0 folds the warps the same way, and its lane k folds quantity k into
-// fold[k] (atomicMax of the key, atomicAdd of the sum: exact in any order),
-// fences, and lane 0 takes the ticket fold[NF + NI].  Returns true in warp
-// 0 of the last block, each lane k < NF + NI holding word k (read and reset
-// to 0); the caller's last block writes the lanes and resets the ticket to
-// 0.  A maximum's key order is max_nan's on values, so the lanes equal the
-// plain version's (a NaN as the canonical NaN, a zero as +0).
-template <int NF, int NI, int W>
-__device__ __forceinline__ bool atomic_fold(const float (&fv)[NF], const int (&iv)[NI],
-                                            unsigned int (&shk)[NF + NI][W], unsigned int* fold,
-                                            unsigned int* word) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned int mine = 0;  // lane k: quantity k's key or sum over the warp, then the block
-#pragma unroll
-  for (int k = 0; k < NF; ++k) {
-    const unsigned int v = __reduce_max_sync(FULL_MASK, max_key(fv[k]));
-    if (lane == k) mine = v;
-  }
-#pragma unroll
-  for (int k = 0; k < NI; ++k) {
-    const unsigned int v = (unsigned int)__reduce_add_sync(FULL_MASK, iv[k]);
-    if (lane == NF + k) mine = v;
-  }
-  if (lane < NF + NI) shk[lane][warp] = mine;
-  __syncthreads();
-  if (warp != 0) return false;
-#pragma unroll
-  for (int k = 0; k < NF + NI; ++k) {
-    const unsigned int x = lane < W ? shk[k][lane] : 0u;
-    const unsigned int v = k < NF ? __reduce_max_sync(FULL_MASK, x)
-                                  : (unsigned int)__reduce_add_sync(FULL_MASK, (int)x);
-    if (lane == k) mine = v;
-  }
-  RACE_DELAY();
-  if (lane < NF) atomicMax(fold + lane, mine);
-  else if (lane < NF + NI) atomicAdd(fold + lane, mine);
-  __threadfence();
-  __syncwarp();
-  unsigned int last = 0;
-  if (lane == 0) {
-    RACE_DELAY();
-    last = atomicAdd(fold + NF + NI, 1u) == gridDim.x - 1 ? 1u : 0u;
-  }
-  if (!__shfl_sync(FULL_MASK, last, 0)) return false;
-  __threadfence();
-  *word = lane < NF + NI ? atomicExch(fold + lane, 0u) : 0u;
-  return true;
-}
 
 // Bodies 16c .. 16c + 15 of chunk c, lane l of a body warp the linear half
 // (l < 16) or the angular half (l >= 16) of body 16c + l % 16: its pose
@@ -531,8 +489,13 @@ __global__ void __launch_bounds__(FIN_THREADS) k_grid_finalize(FinalizeArgs a, K
       if (i < n) finalize_half(a, p, i, lane >= 16, fv, iv);
     }
   }
+  unsigned int q[FIN_F + FIN_I];
+#pragma unroll
+  for (int k = 0; k < FIN_F; ++k) q[k] = max_key(fv[k]);
+#pragma unroll
+  for (int k = 0; k < FIN_I; ++k) q[FIN_F + k] = (unsigned int)iv[k];
   unsigned int w;
-  if (!atomic_fold(fv, iv, shk, a.fold, &w)) return;
+  if (!atomic_fold<FIN_F>(q, shk, a.fold, &w)) return;
   // Warp 0 of the last block: lane k writes lane k of the diagnostics.
   float* dg = a.diag;
   if (lane < FIN_F) dg[lane] = max_of_key(w);
@@ -540,7 +503,6 @@ __global__ void __launch_bounds__(FIN_THREADS) k_grid_finalize(FinalizeArgs a, K
   else if (lane == 9) dg[9] = (float)(scalar - (int)w);
   else if (lane == 10) dg[10] = (float)scalar;
   else if (lane < 16) dg[lane] = lane == 13 ? F(0.0) : F(1.0e9);  // state.CONTROL_RESET
-  if (lane == 0) a.fold[FIN_F + FIN_I] = 0u;
 }
 
 extern "C" {
@@ -596,7 +558,12 @@ int avbd_grid_gates(void** ptrs, int n, float freeze_y, float half_margin, float
 
 // ptrs: pos, quat, linvel, angvel, prev_linvel, inv_mass, stick (planes x
 // N bool), then linvel, angvel, ip, iq, ps, stickf, sanitized (1 int), then
-// scratch: an int a block of bodies and the ticket.
+// scratch: the count's and the ticket's 64-bit word (0 before the launch
+// and after it).  The grid: a block for each 32 bodies or for each PRED_LATCH_UNROLL
+// groups of 4 latches a latch thread, whichever is more, at most
+// STAGE_BLOCKS_PER_SM blocks an SM; the warps stride over the rest.
+// AVBD_PRED_BLOCKS (kernels.build's defines, for checks and comparisons
+// only) sets another grid.
 int avbd_grid_predict(void** ptrs, const float* params, int n, int planes, void* stream) {
   PredictArgs a;
   a.pos = (const float*)ptrs[0];
@@ -613,14 +580,22 @@ int avbd_grid_predict(void** ptrs, const float* params, int n, int planes, void*
   a.ps = (float*)ptrs[11];
   a.stickf = (float*)ptrs[12];
   a.san_out = (int*)ptrs[13];
-  a.part = (int*)ptrs[14];
-  a.ticket = (unsigned int*)ptrs[15];
+  a.fold = (unsigned long long*)ptrs[14];
   a.n = n;
   a.planes = planes;
   KParams p = *(const KParams*)params;
-  const int total = planes * n > n ? planes * n : n;
-  const int blocks = (total + STAGE_THREADS - 1) / STAGE_THREADS;
-  k_grid_predict<<<blocks, STAGE_THREADS, 0, (cudaStream_t)stream>>>(a, p);
+#ifdef AVBD_PRED_BLOCKS
+  const int blocks = AVBD_PRED_BLOCKS;
+#else
+  const int per_block = 32 * PRED_LATCH_WARPS * PRED_LATCH_UNROLL;
+  const int latch_blocks = (planes * n / 4 + per_block - 1) / per_block;
+  const int body_blocks = (n + 31) / 32;
+  int blocks = 0;
+  const cudaError_t err = stage_grid(latch_blocks > body_blocks ? latch_blocks : body_blocks,
+                                     &blocks);
+  if (err != cudaSuccess) return (int)err;
+#endif
+  k_grid_predict<<<blocks, PRED_THREADS, 0, (cudaStream_t)stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
@@ -631,7 +606,7 @@ int avbd_grid_predict(void** ptrs, const float* params, int n, int planes, void*
 // floats), then scratch: FIN_F + FIN_I fold words and the ticket (0 before
 // the launch and after it).  The grid: a slot thread (STAGE_THREADS a
 // block) for each entry of the widest plane set (DC or D slots a body, or
-// the 6 planes of previous velocities), at most FIN_BLOCKS_PER_SM blocks an
+// the 6 planes of previous velocities), at most STAGE_BLOCKS_PER_SM blocks an
 // SM; the threads stride over the rest.  AVBD_FIN_BLOCKS (kernels.build's
 // defines, for checks and comparisons only) sets another grid.
 int avbd_grid_finalize(void** ptrs, const float* params, int n, int dc, int d, void* stream) {
@@ -673,16 +648,10 @@ int avbd_grid_finalize(void** ptrs, const float* params, int n, int dc, int d, v
 #ifdef AVBD_FIN_BLOCKS
   const int blocks = AVBD_FIN_BLOCKS;
 #else
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int rows = dc > d ? (dc > 6 ? dc : 6) : (d > 6 ? d : 6);
-  const int want = (rows * n + STAGE_THREADS - 1) / STAGE_THREADS;
-  const int blocks = want < FIN_BLOCKS_PER_SM * sms ? want : FIN_BLOCKS_PER_SM * sms;
+  int blocks = 0;
+  const cudaError_t err = stage_grid((rows * n + STAGE_THREADS - 1) / STAGE_THREADS, &blocks);
+  if (err != cudaSuccess) return (int)err;
 #endif
   k_grid_finalize<<<blocks, FIN_THREADS, 0, (cudaStream_t)stream>>>(a, p);
   return (int)cudaGetLastError();

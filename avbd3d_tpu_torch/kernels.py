@@ -85,9 +85,10 @@ def build(force: bool = False, defines: tuple = ()) -> _Lib:
     compile-time choices, for checks and comparisons only, never the main
     path: ``AVBD_RACE_DELAY=ns`` makes odd thread blocks of the resident
     kernels sleep before each read of other blocks' poses and each pose
-    write (the race check); ``AVBD_FIN_BLOCKS=b`` launches k_grid_finalize
-    on b blocks and ``AVBD_GATES_THREADS=t`` k_step_gates on blocks of t
-    threads (the checks and timings of their geometry).  The launch
+    write (the race check); ``AVBD_FIN_BLOCKS=b``, ``AVBD_PRED_BLOCKS=b``
+    and ``AVBD_BAL_BLOCKS=b`` launch k_grid_finalize, k_grid_predict and
+    k_ballistic_step on b blocks and ``AVBD_GATES_THREADS=t`` k_step_gates
+    on blocks of t threads (the checks and timings of their geometry).  The launch
     functions use such a library only inside ``using(lib)``."""
     defines = tuple(defines)
     if not force and defines in _LIBS:
@@ -815,8 +816,8 @@ def launch_refresh_needed(b, anchor, anchor_quat, slack, margin: float):
     return need, devs
 
 
-# Threads a block of the stage kernels (csrc/grid_stages.cu,
-# fused_stages.cu: STAGE_THREADS).
+# Threads a block of k_grid_gates (csrc/grid_stages.cu, avbd_common.cuh:
+# STAGE_THREADS).
 _GS_THREADS = 256
 
 
@@ -874,9 +875,8 @@ def launch_grid_predict(b, stick, params):
     outs.append(torch.empty((4, dc, g, 128), dtype=f32, device=dev))
     outs.append(torch.empty((), dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = [_scratch(dev, stream, "predict_part", -(-n // _GS_THREADS), torch.int32),
-               _scratch(dev, stream, "predict_ticket", 1, torch.int32)]
-    code = lib.cdll.avbd_grid_predict(_ptrs(ins + outs + scratch), _fparams(params), n, 4 * dc,
+    fold = _scratch(dev, stream, "predict_fold_ticket", 1, torch.int64)   # count and ticket
+    code = lib.cdll.avbd_grid_predict(_ptrs(ins + outs + [fold]), _fparams(params), n, 4 * dc,
                                       ctypes.c_void_p(stream))
     _raise_on(code, "grid predict kernel launch")
     return tuple(outs)
@@ -995,12 +995,9 @@ def launch_ballistic_step(b, contacts, params):
     lib = _card_lib(dev)
     outs = [torch.empty((c, g, 128), dtype=f32, device=dev) for c in (3, 4, 3, 3, 3, 3)]
     outs.append(torch.empty((16,), dtype=f32, device=dev))
-    blocks = -(-max(dc, 1) * n // _GS_THREADS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = [_scratch(dev, stream, "ballistic_part_f", 5 * blocks, f32),
-               _scratch(dev, stream, "ballistic_part_i", 2 * blocks, i32),
-               _scratch(dev, stream, "ballistic_ticket", 1, i32)]
-    code = lib.cdll.avbd_ballistic_step(_ptrs(ins + outs + scratch), _fparams(params), n, dc,
+    fold = _scratch(dev, stream, "ballistic_fold_ticket", 8, i32)   # 7 words, the ticket
+    code = lib.cdll.avbd_ballistic_step(_ptrs(ins + outs + [fold]), _fparams(params), n, dc,
                                         ctypes.c_void_p(stream))
     _raise_on(code, "ballistic step kernel launch")
     return tuple(outs)

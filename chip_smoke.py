@@ -92,8 +92,10 @@
 12. The race gate: every resident route (K1's cluster route at clusters of
    4, 12 and 16 blocks, K6 with 5 clusters, K1's joint route at RodJointed,
    SoftGrid and the 20 sheets, RodJointed also on the grid barrier), K7,
-   K2, the refresh kernels, the grid step's stage kernels and the fused
-   path's (whose last block folds every block's partials) run RACE_REPS
+   K2, the refresh kernels (whose last block folds every block's
+   partials), the grid step's stage kernels and the fused path's (the
+   prediction, the finalize and the ballistic step folding by atomics into
+   words their last block reads and clears) run RACE_REPS
    times on one input with every output bit-identical, then through a
    build whose odd blocks sleep before their pose reads and writes (K7,
    K2: before their partials' write and the ticket), bit-identical again;
@@ -172,11 +174,14 @@
    2800, step 2800 with its lists fresh at its poses (no refresh due), the
    low-drop 16^3 pile of phase 6 (step 90), step 800 with every
    body static, with three bodies below fall_freeze_y, with a NaN and
-   an infinite velocity and a NaN final pose, and step 2800 with one live
+   an infinite velocity and a NaN final pose, with a NaN pos.y and with a
+   body at pos.x 3.4e38 moving at 3e38 (its inertial position infinite),
+   and step 2800 with one live
    slot's separation NaN and with every separation +0 (the finalize's
    fold: lanes 0 and 1 NaN; +0 and the slop): k_grid_gates' flags, dev_raw,
    v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative of
-   the torch version's and both deviations bit for bit k_refresh_needed's
+   the torch version's (a non-finite one the same value) and both
+   deviations bit for bit k_refresh_needed's
    (the fold the gates kernel ran in one block before its cooperative
    tail);
    k_grid_predict's outputs bit for bit; k_grid_finalize's bodies, latches
@@ -188,12 +193,13 @@
    against their plain versions on the same card tensors, at Stress1000
    steps 0, 1 (its next step ballistic) and 700, step 700 with three bodies
    below fall_freeze_y, with a NaN and an infinite velocity and an angular
-   speed above the clamp, with a NaN pos.y and with a NaN pos.x, with every
-   body static, and RodJointed at step 600 through K1's joint branch:
-   k_step_gates' control
+   speed above the clamp, with a NaN pos.y, with a NaN pos.x and with a
+   body at pos.x 3.4e38 moving at 3e38 (its inertial position infinite),
+   with every body static, and RodJointed at step 600 through K1's joint
+   branch: k_step_gates' control
    vector and frozen fields bit for bit (the world it was given unchanged);
-   k_ballistic_step's bodies bit for bit and its lanes identical, the speed
-   lanes within 1e-6 relative; the ballistic step with K2 writing lanes
+   k_ballistic_step's bodies bit for bit and its lanes identical, lanes 0
+   and 1 with their sign bits, the speed lanes within 1e-6 relative; the ballistic step with K2 writing lanes
    11-15 into its vector (``out=``) against ``_ballistic_step``, K2's exact
    lanes bit for bit and those lanes equal to K2's own call; K1's row in
    the state layout (diag row 1) and its bool latches against
@@ -219,6 +225,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import os
 import shlex
 import subprocess
@@ -319,13 +326,14 @@ def event_ms(fn, reps: int) -> float:
 
 
 def float_diff(a, b) -> float:
-    """Largest |a - b| of two float tensors; positions that are NaN on both
-    sides count 0, NaN on one side only counts inf."""
+    """Largest |a - b| of two float tensors; positions that are equal (an
+    infinity the same infinity) or NaN on both sides count 0, NaN on one
+    side only counts inf."""
     import torch
 
     if a.numel() == 0:
         return 0.0
-    both = torch.isnan(a) & torch.isnan(b)
+    both = (a == b) | (torch.isnan(a) & torch.isnan(b))
     d = torch.where(both, torch.zeros_like(a), (a - b).abs())
     return float(torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d).max())
 
@@ -411,8 +419,11 @@ def compare_k2(world, params, label: str) -> float:
     both sides compute in the same statement order, exact in any order, so
     they must be bit-identical; lane 3 (the deviation from the mean
     displacement) goes through world-wide sums taken in another order than
-    torch.sum's and is held to 1e-5 relative, 1e-6 absolute.  Returns the
-    largest difference (that of lane 3)."""
+    torch.sum's and is held to 1e-5 relative, 1e-6 absolute.  A NaN matches
+    a NaN (a NaN pose: both sides keep it in every min and max).  Returns
+    the largest difference (that of lane 3)."""
+    import torch
+
     from avbd3d_tpu_torch import solver_cuda
 
     b, bp = world.bodies, world.bp
@@ -420,11 +431,13 @@ def compare_k2(world, params, label: str) -> float:
     lk = solver_cuda.control_lanes(bp.nb, b, bp.anchor, bp.anchor_quat, params)
     sync()
     exact = [0, 1, 2, 4]
-    if not same_bits(lp[exact], lk[exact]):
+    if not same_bits_nan(lp[exact], lk[exact]):
         fail(f"K2 {label}: lanes 0, 1, 2, 4 differ in bits: plain {lp.tolist()} vs kernel "
              f"{lk.tolist()}")
-    err = float((lp[3] - lk[3]).abs())
-    if err > 1e-6 + 1e-5 * float(lp[3].abs()):
+    finite = bool(torch.isfinite(lp[3]))
+    err = float((lp[3] - lk[3]).abs()) if finite else (
+        0.0 if same_bits_nan(lp[3:4], lk[3:4]) else math.inf)
+    if not err <= (1e-6 + 1e-5 * float(lp[3].abs()) if finite else 0.0):
         fail(f"K2 {label}: lane 3 plain {float(lp[3])!r} vs kernel {float(lk[3])!r}")
     print(f"K2 vs plain ({label}, N = {b.n}, D = {bp.nb.shape[0]}): lanes "
           f"{[round(x, 6) for x in lk.tolist()]}, lanes 0, 1, 2, 4 bit-identical, lane 3 "
@@ -2485,10 +2498,14 @@ STAGE_NOTES = {
                   "refresh_or_reuse's predicate (ops/broadphase.py:153-188) and "
                   "stale_lhs_ok(refine=False) (solver.py:73-112) in XLA; timed at Stress4096 "
                   "step 2800 (N = 5120); max_abs_err: dev_mm (flags, dev_raw, v^2 max and "
-                  "frozen fields bit for bit at the seven states of phase 20)",
+                  "frozen fields bit for bit at the eleven states of phase 20)",
     "grid_predict": "no Pallas kernel: the reference's predict (solver.py:194-231) in XLA; "
-                    "timed at Stress4096 step 2800 (N = 5120); every output bit for bit at the "
-                    "seven states of phase 20",
+                    "a grid of at most two blocks an SM (avbd_grid_predict), eight latch warps "
+                    "a block copying four latches a thread, a linear and an angular warp a "
+                    "block (a lane a body's half), the count and the ticket in one 64-bit atomic "
+                    "(a thread a latch and a thread a body on 1280 blocks took 4.92 us on the "
+                    "card, PERF.md section 6); timed at Stress4096 step 2800 (N = 5120); every "
+                    "output bit for bit at the eleven states of phase 20",
     "grid_finalize": "no Pallas kernel: the reference's pose sanitizes (solver_tpu.py:"
                      "1808-1817) and finalize (solver.py:234-317) in XLA; a grid of at most "
                      "two blocks an SM (avbd_grid_finalize), eight slot warps and two body "
@@ -2497,7 +2514,7 @@ STAGE_NOTES = {
                      "and a one-warp tail took 15.5 us on the card, PERF.md section 6); timed "
                      "at Stress4096 step 2800 (N = "
                      "5120); max_abs_err: the speed lanes' relative difference (torch's "
-                     "vector_norm), bodies, latches and the other lanes identical at the nine "
+                     "vector_norm), bodies, latches and the other lanes identical at the eleven "
                      "states of phase 20"}
 # Float operations a unit, from csrc/grid_stages.cu's statements, rounded
 # down: k_grid_gates' freeze, anchor terms, partials and deviation pass of
@@ -2576,8 +2593,10 @@ def compare_stages(label, world, params, cap, nan_pose=False, sep=None) -> dict:
     bad = []
     if not same_bits_nan(gk[[0, 1, 2, 4, 5]], gp[[0, 1, 2, 4, 5]]):
         bad.append(f"gates {gk.tolist()} vs {gp.tolist()}")
-    mm_err = abs(float(gk[3]) - float(gp[3]))
-    if not mm_err <= 1e-6 + 1e-5 * abs(float(gp[3])):
+    finite = math.isfinite(float(gp[3]))
+    mm_err = abs(float(gk[3]) - float(gp[3])) if finite else (
+        0.0 if same_bits_nan(gk[3:4], gp[3:4]) else math.inf)
+    if not mm_err <= (1e-6 + 1e-5 * abs(float(gp[3])) if finite else 0.0):
         bad.append(f"dev_mm {float(gk[3])} vs {float(gp[3])}")
     # The deviations' bits are those of the fold k_refresh_needed and K2 run
     # (fold_parts_warp, dev_mm_block), the one the gates kernel ran alone in
@@ -2663,11 +2682,22 @@ def stage_bounds(a) -> dict:
 
 def stage_world(world, params, kind: str):
     """``world`` with three dynamic bodies below ``fall_freeze_y``
-    ("fallen") or with a NaN linear and an infinite angular velocity
-    ("nan")."""
+    ("fallen"), with a NaN linear and an infinite angular velocity ("nan"),
+    with the 8th dynamic body's pos.y NaN ("nan pose") or with the first
+    dynamic body at pos.x 3.4e38 and linvel.x 3e38 ("overflow": pos +
+    linvel dt passes the largest float32, so its inertial position is
+    infinite and its warm start sanitized)."""
     import torch
 
+    if kind == "nan pose":
+        return nan_pose(world, 1)
     b = world.bodies
+    if kind == "overflow":
+        i = int(torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[0])
+        pos, lv = b.pos.clone(), b.linvel.clone()
+        pos.view(3, -1)[0, i] = 3.4e38
+        lv.view(3, -1)[0, i] = 3.0e38
+        return world.replace(bodies=b.replace(pos=pos, linvel=lv))
     ids = torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[:3]
     if kind == "fallen":
         pos = b.pos.clone()
@@ -2684,7 +2714,8 @@ def stages_phase(card, grid, g2800, low_drop) -> dict:
     Stress4096 steps 800 and 2800, step 2800 with its lists fresh at its
     poses (no refresh due), the low-drop 16^3 pile of phase 6, step 800
     with every body static, with three bodies below fall_freeze_y and with
-    a NaN and an infinite velocity (and a NaN final pose), and step 2800
+    a NaN and an infinite velocity (and a NaN final pose), with a NaN pos.y
+    and with a body whose inertial position overflows, and step 2800
     with one live slot's separation NaN and with every separation +0 (the
     finalize's fold); every flag takes both values.  Then each kernel's time at step 2800 beside its
     plain version's (traced, held to one kernel a call) and its bound."""
@@ -2705,6 +2736,10 @@ def stages_phase(card, grid, g2800, low_drop) -> dict:
                                                            c4, False),
               "Stress4096 step 800, NaN velocities and a NaN final pose": (
                   stage_world(g800, p4, "nan"), p4, c4, True),
+              "Stress4096 step 800, a NaN pos.y": (stage_world(g800, p4, "nan pose"), p4, c4,
+                                                   False),
+              "Stress4096 step 800, a body at pos.x 3.4e38 moving at 3e38": (
+                  stage_world(g800, p4, "overflow"), p4, c4, False),
               "Stress4096 step 2800, a live slot's separation NaN": (g2800, p4, c4, False,
                                                                       "nan"),
               "Stress4096 step 2800, every separation +0": (g2800, p4, c4, False, "zero")}
@@ -2761,6 +2796,11 @@ FUSED_NOTES = {
                   "the states of phase 21",
     "ballistic_step": "no Pallas kernel: the reference's ballistic step (solver.py:418-447: "
                       "predict and finalize) in XLA, K2 writing lanes 11-15 into its vector; "
+                      "a grid of at most two blocks an SM (avbd_ballistic_step), eight slot "
+                      "warps and a linear and an angular warp a block (a lane a body's half of "
+                      "the prediction and the finalize), the lanes by atomics into seven words "
+                      "(a thread a (slot, body) and a last block folding the partials took 7.89 "
+                      "us on the card, PERF.md section 6); "
                       "timed at the rain-in state (Stress1000 step 1, N = 1024, DC = 12), "
                       "its bound from the live contacts' normal duals there; "
                       "max_abs_err: the speed lanes' relative difference, bodies and the other "
@@ -2780,9 +2820,9 @@ FALLING_TRACE_STEPS = 100
 
 def fused_world(world, params, kind: str):
     """``world`` with a NaN ``pos.y`` ("nan pose") or ``pos.x`` ("nan pose
-    x") on one dynamic body, or ``stage_world``'s fallen bodies and
-    non-finite velocities, the latter with a third body spinning above
-    ``max_angular_speed`` (the clamp)."""
+    x") on one dynamic body, or ``stage_world``'s fallen bodies,
+    non-finite velocities (with a third body spinning above
+    ``max_angular_speed``, the clamp) and overflowed body."""
     import torch
 
     if not kind.startswith("nan pose"):
@@ -2818,11 +2858,11 @@ def equal_nan(a, b) -> bool:
 
 
 def rel_err_nan(a, b, floor: float = 1.0) -> float:
-    """Largest |a - b| / (|b| + ``floor``); NaN on both sides counts 0, on
-    one side only inf."""
+    """Largest |a - b| / (|b| + ``floor``); equal values (an infinity the
+    same infinity) and NaN on both sides count 0, NaN on one side only inf."""
     import torch
 
-    both = torch.isnan(a) & torch.isnan(b)
+    both = (a == b) | (torch.isnan(a) & torch.isnan(b))
     d = torch.where(both, 0.0, (a - b).abs() / (b.abs() + floor))
     return float(torch.where(torch.isnan(d), float("inf"), d).max())
 
@@ -2870,8 +2910,10 @@ def compare_fused(label, world, params, cap) -> dict:
             if not same_bits_nan(t, getattr(ref.bodies, f))]
     dk, dp = out[6], ref.diagnostics.vec
     lanes = [0, 1, 4] + list(range(5, 16))
-    if not equal_nan(dk[lanes], dp[lanes]):
-        bad.append(f"ballistic lanes {dk.tolist()} vs {dp.tolist()}")
+    if not equal_nan(dk[lanes], dp[lanes]) or not torch.equal(torch.signbit(dk[:2]),
+                                                             torch.signbit(dp[:2])):
+        bad.append(f"ballistic lanes {dk.tolist()} vs {dp.tolist()} (lanes 0, 1 sign bits "
+                   f"{torch.signbit(dk[:2]).tolist()} vs {torch.signbit(dp[:2]).tolist()})")
     speed_err = float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max())
     if not speed_err <= 1e-6:
         bad.append(f"ballistic speed lanes {dk[2:4].tolist()} vs {dp[2:4].tolist()}")
@@ -3085,8 +3127,8 @@ def fused_phase(card, scene, saved, jointed) -> dict:
     """Phase 21: the fused path's stage kernels and K1's new tail against
     their plain versions at Stress1000 steps 0, 1 (its next step ballistic)
     and 700, step 700 with three bodies below fall_freeze_y, with NaN / inf
-    velocities and a spin above the clamp, with a NaN pose, with every body
-    static, and RodJointed at step 600 (K1's joint branch); each kernel's
+    velocities and a spin above the clamp, with a NaN pose, with a body
+    whose inertial position overflows, with every body static, and RodJointed at step 600 (K1's joint branch); each kernel's
     time beside its plain version's and its bound; the traced launches of
     settled steps and of the falling window."""
     from avbd3d_tpu_torch import kernels, solver
@@ -3108,6 +3150,8 @@ def fused_phase(card, scene, saved, jointed) -> dict:
               "Stress1000 step 700, a NaN pos.y": (fused_world(settled, p, "nan pose"), p, cap),
               "Stress1000 step 700, a NaN pos.x": (fused_world(settled, p, "nan pose x"), p,
                                                    cap),
+              "Stress1000 step 700, a body at pos.x 3.4e38 moving at 3e38": (
+                  fused_world(settled, p, "overflow"), p, cap),
               "Stress1000 step 700, every body static": (unmoved_world(settled), p, cap),
               "RodJointed step 600 (K1's joint branch)": (rod_world, rod_scene.params,
                                                           rod_scene.cap)}
@@ -3117,6 +3161,11 @@ def fused_phase(card, scene, saved, jointed) -> dict:
     if out["Stress1000 step 700, NaN / inf velocities and a spin above the clamp"][
             "sanitized"] < 2:
         fail("fused stages: the non-finite velocities were not sanitized")
+    for label in ("Stress1000 step 700, a NaN pos.y",
+                  "Stress1000 step 700, a body at pos.x 3.4e38 moving at 3e38"):
+        if out[label]["sanitized"] < 2:
+            fail(f"fused stages, {label}: the ballistic step sanitized "
+                 f"{out[label]['sanitized']} rows, not the warm start's and the velocity's")
     wp, b, _p = out["Stress1000 step 1 (its next step ballistic)"]["args"]
     bounds = fused_bounds(settled, wp, b, p)
     print(f"k_ballistic_step's bound at Stress1000 step 1: {bounds['live_contacts']} live "
@@ -3377,24 +3426,28 @@ def race_routes(states: dict) -> list:
                        lambda margin=margin, rpb=rpb, table=table, max_wh=max_wh,
                        ex=w.exclusions, degree=degree: list(kernels.launch_bp_lists(
                            table, table, max_wh, ex, degree, margin, rows_per_block=rpb))))
-    # The grid step's stage kernels: a ticket fold each (the gates' also
-    # runs the deviation pass).
+    # The grid step's stage kernels: the gates' ticket fold (after its grid
+    # barrier and the deviation pass), the prediction's and the finalize's
+    # atomic folds.
     for label, a in states["stages"].items():
         world, p = a["gates"]
         b = world.bodies
         routes.append((f"k_grid_gates {label} (a grid barrier, every block folds the partials, "
                        "the last block folds the blocks' deviations)", lambda b=b, w=world, p=p: list(kernels.launch_grid_gates(
                            b, w.bp.anchor, w.bp.anchor_quat, w.bp.slack, p))))
-        routes.append((f"k_grid_predict {label} (the last block folds the sanitize count)",
+        routes.append((f"k_grid_predict {label} (the count and the ticket in one 64-bit "
+                       "atomic, the last block clears it)",
                        lambda a=a: list(kernels.launch_grid_predict(*a["predict"]))))
         fin = a["finalize"]
-        routes.append((f"k_grid_finalize {label} (the last block folds the diagnostics)",
+        routes.append((f"k_grid_finalize {label} (the lanes by atomics into ten words, the "
+                       "last block reads and clears them)",
                        lambda f=fin: list(kernels.launch_grid_finalize(
                            f[1], *f[3:8], f[2], *f[8:]))))
-    # The fused path's stage kernels: the ballistic step's ticket fold, and
-    # the gates (no fold; a thread a body).
+    # The fused path's stage kernels: the ballistic step's atomic fold, and
+    # the gates (no fold; a thread a float).
     for label, (w, p) in states["fused"].items():
-        routes.append((f"k_ballistic_step {label} (the last block folds the diagnostics)",
+        routes.append((f"k_ballistic_step {label} (the lanes by atomics into seven words, "
+                       "the last block reads and clears them)",
                        lambda w=w, p=p: list(kernels.launch_ballistic_step(w.bodies, w.contacts,
                                                                            p))))
         b, bp = w.bodies, w.bp
@@ -3405,7 +3458,8 @@ def race_routes(states: dict) -> list:
 
 def tickets_zero(label: str) -> None:
     """Every kernel's ticket (the counter by which its last block finds
-    itself, held in ``kernels._SCRATCH``) 0 after the launches."""
+    itself, held in ``kernels._SCRATCH``) and the atomic folds' words
+    (``*_fold_ticket``) 0 after the launches."""
     from avbd3d_tpu_torch import kernels
 
     left = {k[2]: int(t.count_nonzero()) for k, t in kernels._SCRATCH.items() if "ticket" in k[2]}
@@ -3790,7 +3844,8 @@ def main() -> int:
         s2048.world.bodies, s2048.world.exclusions, s2048.cap.max_degree, s2048.params.bp_margin))
     k2_states = {"Stress1000 initial": (init, p), "Stress1000 settled": (w, p),
                  "Stress2048 initial": (init2048, s2048.params),
-                 "Stress1000 initial, every body static (nm = 0)": (unmoved_world(init), p)}
+                 "Stress1000 initial, every body static (nm = 0)": (unmoved_world(init), p),
+                 "Stress1000 settled, a NaN pos.y (NaN lanes 2-4)": (nan_pose(w, 1), p)}
     k2_err = max(compare_k2(wd, pr, label) for label, (wd, pr) in k2_states.items())
 
     # ---- 4. times ----

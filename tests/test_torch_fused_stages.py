@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_grid_stages import overflows, pose_arrays
 from test_torch_parity_grid import STRESS, jtree, pile, tparams_of
 
 import avbd3d_tpu_torch
@@ -51,6 +52,11 @@ torch.set_num_threads(1)
 
 BODY_FIELDS = ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel", "inv_mass")
 STATES = ("falling", "moved", "fallen", "nonfinite", "static")
+# Poses the prediction's sanitizes meet, on the moved state: one dynamic
+# body's pos.y NaN; one at pos.x 3.4e38 moving at linvel.x 3e38, whose pos
+# + linvel dt passes the largest float32 at the scene's dt (test_torch_grid_
+# stages.py's pose_arrays).
+POSE_STATES = ("nan_pose", "overflow")
 
 
 def spread_pile(nx, ny, nz, min_bodies, seed):
@@ -91,6 +97,8 @@ def base():
 
 def state_arrays(jw, name: str) -> dict:
     """The body fields of state ``name`` as numpy arrays (C, G, 128)."""
+    if name in POSE_STATES:
+        return pose_arrays(state_arrays(jw, "moved"), name)
     b = jax.device_get(dataclasses.asdict(jw.bodies))
     a = {k: np.array(b[k], dtype=np.float32) for k in BODY_FIELDS}
     rng = np.random.default_rng(STATES.index(name) + 21)
@@ -123,7 +131,7 @@ def worlds(base, name: str):
     host read copies)."""
     jw, _params, _cap = base
     a = state_arrays(jw, name)
-    rng = np.random.default_rng(STATES.index(name) + 41)
+    rng = np.random.default_rng((STATES + POSE_STATES).index(name) + 41)
     vec = rng.uniform(0.0, 10.0, 16).astype(np.float32)
     jw = jw.replace(bodies=jw.bodies.replace(**{k: jnp.asarray(v) for k, v in a.items()}),
                     bp=jw.bp.replace(slack=jnp.float32(rng.uniform(0.0, 1.0))),
@@ -165,13 +173,16 @@ def test_gates_match_reference(base, name):
     assert off_w.bodies.inv_mass is tw.bodies.inv_mass and torch.equal(off_vec, vec)
 
 
-@pytest.mark.parametrize("name", STATES)
+@pytest.mark.parametrize("name", STATES + POSE_STATES)
 def test_ballistic_step_matches_reference(base, name):
     """ballistic_step's plain version against the reference's
     _ballistic_step on the frozen state: the new bodies within the
-    tolerance, diagnostics lanes 5-10 identical (the sanitize count above 0
-    at the non-finite state), lanes 0-4 and the control block 11-15 within
-    the tolerance, the contact cache and the step index carried."""
+    tolerance (a NaN or an infinity the same), diagnostics lanes 5-10
+    identical (the sanitize count above 0 at the non-finite state; 2 at a
+    NaN pose and at the overflowed one: the warm start and the linear
+    finalize, the inertial position infinite there at the scene's dt),
+    lanes 0-4 and the control block 11-15 within the tolerance, the contact
+    cache and the step index carried."""
     _jw, params, cap = base
     jw, tw = worlds(base, name)
     jw = reference_freeze(jw, params)
@@ -189,6 +200,11 @@ def test_ballistic_step_matches_reference(base, name):
     assert out.contacts is tw.contacts and out.step_index == tw.step_index + 1
     if name == "nonfinite":
         assert tv[8] >= 2, tv
+    if name in POSE_STATES:
+        assert tv[8] == 2, (name, tv)
+    if name == "overflow":
+        assert overflows(state_arrays(_jw, name), params.dt)
+        assert np.isinf(out.bodies.pos.numpy()).sum() == 1, name
     if name == "falling":
         assert tv[13] > params.collision_margin and tv[7] == 108, tv
 

@@ -44,6 +44,11 @@ STATES = ("pile", "moved", "fallen", "nonfinite", "static")
 # slot's NaN (lanes 0 and 1 NaN) and every one +0 (lane 0 folds -0 against
 # the +0 start: +0, its sign checked; lane 1 the slop).
 SEP_STATES = ("nan_sep", "zero_sep")
+# Poses the prediction's sanitizes meet, on the moved state: one dynamic
+# body's pos.y NaN; one at pos.x 3.4e38 moving at linvel.x 3e38, whose pos
+# + linvel dt passes the largest float32 at the scene's dt (the inertial
+# position and the warm start infinite, the warm start sanitized).
+POSE_STATES = ("nan_pose", "overflow")
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +65,8 @@ def base():
 
 def state_arrays(jw, name: str) -> dict:
     """The body fields of state ``name`` as numpy arrays (C, G, 128)."""
+    if name in POSE_STATES:
+        return pose_arrays(state_arrays(jw, "moved"), name)
     b = jax.device_get(dataclasses.asdict(jw.bodies))
     a = {k: np.array(b[k], dtype=np.float32) for k in BODY_FIELDS}
     rng = np.random.default_rng(STATES.index(name) + 11)
@@ -84,6 +91,29 @@ def state_arrays(jw, name: str) -> dict:
         flat["angvel"][2, ids[1]] = np.inf
         flat["angvel"][1, ids[2]] = 200.0    # above max_angular_speed: the clamp
     return a
+
+
+def pose_arrays(a: dict, name: str) -> dict:
+    """The body fields ``a`` at POSE_STATES' ``name``: the 8th dynamic
+    body's pos.y NaN ("nan_pose"), or the first dynamic body at pos.x
+    3.4e38 with linvel.x 3e38 ("overflow")."""
+    ids = np.flatnonzero(a["inv_mass"].reshape(-1) > 0)
+    pos, lv = a["pos"].reshape(3, -1), a["linvel"].reshape(3, -1)
+    if name == "nan_pose":
+        pos[1, ids[7]] = np.nan
+    else:
+        pos[0, ids[0]] = np.float32(3.4e38)
+        lv[0, ids[0]] = np.float32(3.0e38)
+    return a
+
+
+def overflows(a: dict, dt: float) -> bool:
+    """Whether the overflowed body's pos.x + linvel.x dt (float32) is
+    infinite at ``dt``."""
+    i = int(np.flatnonzero(a["inv_mass"].reshape(-1) > 0)[0])
+    with np.errstate(over="ignore"):
+        x = a["pos"].reshape(3, -1)[0, i] + a["linvel"].reshape(3, -1)[0, i] * np.float32(dt)
+    return bool(np.isinf(np.float32(x)))
 
 
 def worlds(base, name: str):
@@ -136,12 +166,15 @@ def test_gates_match_reference(base):
     assert seen == {(k, v) for k in ("need", "stale_ok", "calm") for v in (True, False)}, seen
 
 
-@pytest.mark.parametrize("name", STATES)
+@pytest.mark.parametrize("name", STATES + POSE_STATES)
 def test_predict_matches_reference(base, name):
     """grid_predict's plain version against the reference's predict on the
     frozen state: velocities, inertial pose and warm start within the
-    tolerance, the sanitize count identical (above 0 at the non-finite
-    state), and the stick latches' float copy."""
+    tolerance (a NaN or an infinity the same), the sanitize count identical
+    (2 at the non-finite velocities; 1 at a NaN pose and at the overflowed
+    one, whose warm start is sanitized and whose inertial position, which
+    is not, is infinite at the scene's dt), and the stick latches' float
+    copy."""
     _jw, params, cap = base
     jw, tw = worlds(base, name)
     jb = reference_gates(jw, params, cap)[0]
@@ -160,6 +193,11 @@ def test_predict_matches_reference(base, name):
     assert int(got[6]) == int(want[6]), (name, int(got[6]), int(want[6]))
     if name == "nonfinite":
         assert int(got[6]) == 2
+    if name in POSE_STATES:
+        assert int(got[6]) == 1, (name, int(got[6]))
+    if name == "overflow":
+        assert overflows(state_arrays(_jw, name), params.dt)
+        assert np.isinf(np.asarray(want[2])).sum() == 1 and np.isfinite(got[4].numpy()).all()
 
 
 def finalize_inputs(tw, params, name: str):
@@ -168,7 +206,7 @@ def finalize_inputs(tw, params, name: str):
     lists, the prediction, K6-like final poses (the warm start moved by a
     seeded amount; at the non-finite state one NaN position and one
     infinite quaternion), separations, duals and 0 / 1 latches."""
-    rng = np.random.default_rng(STATES.index(name) + 31)
+    rng = np.random.default_rng((STATES + POSE_STATES).index(name) + 31)
     b, bp = tw.bodies, tw.bp
     lv, av, _ip, iq, ps, stickf, san = solver_grid.grid_predict(b, tw.contacts.stick, params)
     contacts, kept, once, dropped = solver_grid.collide_grid(tw.contacts, bp.nb, bp.key,
@@ -186,7 +224,7 @@ def finalize_inputs(tw, params, name: str):
     return (contacts, pos, quat, lv, av, san, sep, once, kept, bp.cand, dropped)
 
 
-@pytest.mark.parametrize("name", STATES + SEP_STATES)
+@pytest.mark.parametrize("name", STATES + SEP_STATES + POSE_STATES)
 def test_finalize_matches_reference(base, name):
     """grid_finalize's plain version against the reference's _sanitize of
     the final poses and finalize on the same inputs: the new bodies within

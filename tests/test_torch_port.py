@@ -124,24 +124,28 @@ def test_bp_rows_per_block(n_rows, batch, rows):
     assert kernels.BP_ROW_BUFFER == 2 * kernels.BP_MAX_DEGREE
 
 
-def finalize_geometry() -> dict:
-    """k_grid_finalize's geometry constants as csrc/ defines them: slot
-    threads a block (STAGE_THREADS), body warps a block (FIN_BODY_WARPS)
-    and the grid's most blocks an SM (FIN_BLOCKS_PER_SM)."""
+def stage_geometry() -> dict:
+    """The stage kernels' geometry constants as csrc/ defines them: slot
+    threads a block of k_grid_finalize (STAGE_THREADS) and its body warps
+    (FIN_BODY_WARPS), the grids' most blocks an SM (STAGE_BLOCKS_PER_SM),
+    k_grid_predict's latch warps and the groups of 4 latches a latch thread
+    loads at a time (PRED_LATCH_WARPS, PRED_LATCH_UNROLL) and
+    k_ballistic_step's slot warps (BAL_SLOT_WARPS)."""
     src = ""
-    for name in ("avbd_common.cuh", "grid_stages.cu"):
+    for name in ("avbd_common.cuh", "grid_stages.cu", "fused_stages.cu"):
         with open(os.path.join(REPO, "avbd3d_tpu_torch", "csrc", name)) as f:
             src += f.read()
     return {k: int(re.search(rf"#define {k} (\d+)", src).group(1))
-            for k in ("STAGE_THREADS", "FIN_BODY_WARPS", "FIN_BLOCKS_PER_SM")}
+            for k in ("STAGE_THREADS", "FIN_BODY_WARPS", "STAGE_BLOCKS_PER_SM",
+                      "PRED_LATCH_WARPS", "PRED_LATCH_UNROLL", "BAL_SLOT_WARPS")}
 
 
 def finalize_grid(n: int, dc: int, d: int, sms: int) -> int:
     """avbd_grid_finalize's grid: a slot thread for each entry of the
     widest plane set (DC or D slots a body, or the 6 planes of previous
-    velocities), at most FIN_BLOCKS_PER_SM blocks an SM."""
-    g = finalize_geometry()
-    return min(-(-max(dc, d, 6) * n // g["STAGE_THREADS"]), g["FIN_BLOCKS_PER_SM"] * sms)
+    velocities), at most STAGE_BLOCKS_PER_SM blocks an SM."""
+    g = stage_geometry()
+    return min(-(-max(dc, d, 6) * n // g["STAGE_THREADS"]), g["STAGE_BLOCKS_PER_SM"] * sms)
 
 
 def finalize_cover(n: int, dc: int, d: int, blocks: int) -> dict:
@@ -153,7 +157,7 @@ def finalize_cover(n: int, dc: int, d: int, blocks: int) -> dict:
     stride, ...; body warp w of block b the chunks of 16 bodies c = b +
     blocks * (w + FIN_BODY_WARPS r), lanes 0-15 their linear halves, 16-31
     their angular ones."""
-    g = finalize_geometry()
+    g = stage_geometry()
     bw = g["FIN_BODY_WARPS"]
     stride = blocks * g["STAGE_THREADS"]
     slots, kept = dc * n, d * n
@@ -191,6 +195,108 @@ def test_finalize_grid_covers_every_entry_once(n, d, dc, sms):
         assert np.array_equal(np.bincount(cover[key], minlength=count), np.ones(count)), key
     owners = {c % blocks for c in range(n // 16)}
     assert len(owners) == min(blocks, n // 16)
+
+
+def predict_grid(n: int, planes: int, sms: int) -> int:
+    """avbd_grid_predict's grid: a block for each 32 bodies or for each
+    PRED_LATCH_UNROLL groups of 4 latches a latch thread, whichever is
+    more, at most STAGE_BLOCKS_PER_SM blocks an SM."""
+    g = stage_geometry()
+    per_block = 32 * g["PRED_LATCH_WARPS"] * g["PRED_LATCH_UNROLL"]
+    return min(max(-(-(planes * n // 4) // per_block), -(-n // 32)),
+               g["STAGE_BLOCKS_PER_SM"] * sms)
+
+
+def body_halves(n: int, blocks: int) -> dict:
+    """The body warps' loops of k_grid_predict and k_ballistic_step on a
+    ``blocks`` grid written out: block b's linear and angular warps take
+    the chunks of 32 bodies c = b, b + blocks, ..., a lane a body."""
+    chunks = -(-n // 32)
+    taken = [np.arange(b, chunks, blocks) for b in range(blocks)]
+    i = np.concatenate([(32 * c[:, None] + np.arange(32)[None, :]).reshape(-1) for c in taken])
+    i = i[i < n]
+    owners = sum(len(c) > 0 for c in taken)
+    return {"linear": i, "angular": i, "owners": owners}
+
+
+def predict_cover(n: int, planes: int, blocks: int, wide: bool) -> dict:
+    """k_grid_predict's loops on a ``blocks`` grid written out: the latches
+    each latch thread writes (latch warp w of block b is global warp g = b
+    + blocks w; its lane's groups of 4 are 32 g + lane + k stride, then the
+    latches past the last whole group, a thread one, from 4 groups + 32 g +
+    lane; all of them that way where the buffers are not ``wide``), and the
+    body halves."""
+    g = stage_geometry()
+    stride = blocks * g["PRED_LATCH_WARPS"] * 32
+    total = planes * n
+    groups = total // 4 if wide else 0
+    first = ((np.arange(blocks)[:, None] + blocks * np.arange(g["PRED_LATCH_WARPS"])[None, :])
+             .reshape(-1, 1) * 32 + np.arange(32)[None, :]).reshape(-1)
+    u = (first[None, :] + stride * np.arange(-(-groups // stride) + 1)[:, None]).reshape(-1)
+    u = u[u < groups]
+    latches = (4 * u[:, None] + np.arange(4)[None, :]).reshape(-1)
+    t = (4 * groups + first[None, :] + stride * np.arange(-(-total // stride) + 1)[:, None])
+    t = t.reshape(-1)
+    return {"latches": np.concatenate([latches, t[t < total]]), **body_halves(n, blocks)}
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("dc", [12, 16])
+@pytest.mark.parametrize("n", [128, 1024, 5120, 16384])
+def test_predict_grid_covers_every_entry_once(n, dc, sms):
+    """k_grid_predict's grid (a block for each 32 bodies or each 2 x 256
+    groups of 4 latches, at most two blocks an SM) and its loops as
+    ``predict_cover`` writes them out from csrc/'s constants: every stick
+    latch (4 DC planes of N) written by exactly one thread, with the wide
+    accesses and without them; each half (linear, angular) of every body
+    taken by exactly one lane; the chunks of 32 bodies spread over
+    min(blocks, N / 32) blocks.  Stress4096's shape takes 160 blocks."""
+    planes = 4 * dc
+    blocks = predict_grid(n, planes, sms)
+    assert 1 <= blocks <= 2 * sms
+    if (n, dc, sms) == (5120, 16, 132):
+        assert blocks == 160
+    for wide in (True, False):
+        cover = predict_cover(n, planes, blocks, wide)
+        assert np.array_equal(np.bincount(cover["latches"], minlength=planes * n),
+                              np.ones(planes * n)), wide
+    for key in ("linear", "angular"):
+        assert np.array_equal(np.bincount(cover[key], minlength=n), np.ones(n)), key
+    assert cover["owners"] == min(blocks, n // 32)
+
+
+def ballistic_grid(n: int, dc: int, sms: int) -> int:
+    """avbd_ballistic_step's grid: a block for each 32 bodies or for each
+    BAL_SLOT_WARPS x 32 slots, whichever is more, at most
+    STAGE_BLOCKS_PER_SM blocks an SM."""
+    g = stage_geometry()
+    return min(max(-(-dc * n // (32 * g["BAL_SLOT_WARPS"])), -(-n // 32)),
+               g["STAGE_BLOCKS_PER_SM"] * sms)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("dc", [12, 16])
+@pytest.mark.parametrize("n", [128, 1024, 2048, 16384])
+def test_ballistic_grid_covers_every_entry_once(n, dc, sms):
+    """k_ballistic_step's grid (a block for each 32 bodies or each 256
+    slots, at most two blocks an SM) and its loops written out: slot thread
+    t of the grid takes slots t, t + stride, ... (stride: every slot thread
+    of the grid), each slot (DC planes of N) once; each half of every body
+    once (``body_halves``).  Stress1000's shape (N = 1024, DC = 12) takes
+    48 blocks, Stress2048's 96."""
+    g = stage_geometry()
+    blocks = ballistic_grid(n, dc, sms)
+    assert 1 <= blocks <= 2 * sms
+    if sms == 132 and dc == 12 and n in (1024, 2048):
+        assert blocks == {1024: 48, 2048: 96}[n]
+    stride = blocks * 32 * g["BAL_SLOT_WARPS"]
+    t = (np.arange(stride)[None, :] + stride * np.arange(-(-dc * n // stride))[:, None])
+    t = t.reshape(-1)
+    assert np.array_equal(np.bincount(t[t < dc * n], minlength=dc * n), np.ones(dc * n))
+    cover = body_halves(n, blocks)
+    for key in ("linear", "angular"):
+        assert np.array_equal(np.bincount(cover[key], minlength=n), np.ones(n)), key
+    assert cover["owners"] == min(blocks, n // 32)
 
 
 def test_kernel_parameter_block_matches_struct():
@@ -314,6 +420,32 @@ def test_cuda_refresh_needed_matches_plain(cuda_stress, shift):
     assert torch.equal(devs[1].view(torch.int32), raw.view(torch.int32))
     assert abs(float(devs[0]) - float(mm)) <= 1e-6 + 1e-5 * abs(float(mm))
     assert torch.equal(devs.view(torch.int32), lanes[3:5].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp", [1, 0], ids=["pos.y", "pos.x"])
+def test_cuda_anchor_folds_keep_nan(cuda_stress, comp):
+    """K2 and the predicate kernel at a NaN pose (one dynamic body's pos.y
+    or pos.x NaN after its lists were built) against their plain versions,
+    whose torch.maximum / torch.min / torch.max keep the NaN: K2's five
+    lanes the plain version's (a NaN matching a NaN: the min gap, dev_mm
+    and dev_raw NaN), the predicate's deviations those of anchor_deviation
+    and K2's lanes 3 and 4, its bool the plain version's (False: a NaN
+    breaks no bound)."""
+    sc, w = cuda_stress
+    w = w.replace(bp=build_bp_cache(w.bodies, w.exclusions, sc.cap.max_degree,
+                                    sc.params.bp_margin))
+    b, bp, margin = nan_pose(w, comp).bodies, w.bp, sc.params.bp_margin
+    args = (bp.nb, b, bp.anchor, bp.anchor_quat, sc.params)
+    lk, lp = solver_cuda.control_lanes(*args), solver_cuda.control_lanes_plain(*args)
+    need, devs = kernels.launch_refresh_needed(b, bp.anchor, bp.anchor_quat, bp.slack, margin)
+    mm, raw = broadphase.anchor_deviation(b.pos, b.quat, b.radius, b.dynamic, bp.anchor,
+                                          bp.anchor_quat)
+    torch.cuda.synchronize()
+    assert equal_nan(lk, lp), (lk, lp)
+    assert bool(torch.isnan(lk[[2, 3, 4]]).all()), lk
+    assert equal_nan(devs, torch.stack([mm, raw])) and equal_nan(devs, lk[3:5]), devs
+    assert bool(need) == bool(broadphase.refresh_needed_plain(bp, b, margin)) is False
 
 
 @pytest.mark.cuda
@@ -468,6 +600,31 @@ def test_cuda_iterblock_grid_matches_plain(cuda_grid):
 
 
 GRID_STAGE_STATES = ("pile", "fallen", "static", "nan velocity")
+# Poses that the prediction's sanitizes meet: one dynamic body's pos.y NaN,
+# and one at pos.x 3.4e38 moving at linvel.x 3e38, whose pos + linvel dt
+# passes the largest float32 (inertial position and warm start infinite).
+POSE_STATES = ("nan pose", "overflow")
+
+
+def pose_state(w, name):
+    """``w`` at a state of POSE_STATES (the 8th dynamic body's pos.y NaN, or
+    the first dynamic body at pos.x 3.4e38 with linvel.x 3e38)."""
+    if name == "nan pose":
+        return nan_pose(w, 1)
+    b = w.bodies
+    i = int(torch.nonzero((b.inv_mass > 0).reshape(-1)).flatten()[0])
+    pos, lv = b.pos.clone(), b.linvel.clone()
+    pos.view(3, -1)[0, i] = 3.4e38
+    lv.view(3, -1)[0, i] = 3.0e38
+    return w.replace(bodies=b.replace(pos=pos, linvel=lv))
+
+
+def close_or_same(a: float, b: float, rtol: float = 1e-5, atol: float = 1e-6) -> bool:
+    """|a - b| <= atol + rtol |b| for finite b; otherwise the same value (a
+    NaN matching a NaN, an infinity the same infinity)."""
+    if not np.isfinite(b):
+        return (np.isnan(a) and np.isnan(b)) or a == b
+    return abs(a - b) <= atol + rtol * abs(b)
 
 
 def grid_stage_world(cuda_grid, name):
@@ -488,6 +645,8 @@ def grid_stage_world(cuda_grid, name):
         lv.view(3, -1)[0, ids[0]] = float("nan")
         av.view(3, -1)[1, ids[1]] = float("inf")
         b = b.replace(linvel=lv, angvel=av)
+    if name in POSE_STATES:
+        return pose_state(w, name)
     return w.replace(bodies=b)
 
 
@@ -519,21 +678,23 @@ def grid_finalize_args(w, b, p, cap, predicted, nan_pose=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", GRID_STAGE_STATES)
+@pytest.mark.parametrize("name", GRID_STAGE_STATES + POSE_STATES)
 def test_cuda_grid_stages_match_plain(cuda_grid, name):
     """The grid step's stage kernels (csrc/grid_stages.cu) against their
     plain versions on the same card tensors: k_grid_gates' flags, dev_raw,
-    v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative;
-    k_grid_predict's outputs bit for bit; k_grid_finalize's bodies and
-    latches bit for bit, its diagnostics lanes identical but the speeds
-    (2, 3: torch's vector_norm) within 1e-6 relative; one count a call."""
+    v^2 max and frozen fields bit for bit, dev_mm within 1e-5 relative (a
+    non-finite one the same value); k_grid_predict's outputs bit for bit
+    (at the overflowed pose an infinite inertial position, the warm start
+    sanitized); k_grid_finalize's bodies and latches bit for bit, its
+    diagnostics lanes identical but the speeds (2, 3: torch's vector_norm)
+    within 1e-6 relative; one count a call."""
     _w, p, cap = cuda_grid
     w = grid_stage_world(cuda_grid, name)
     solver_grid.reset_launch_counts()
     wk, gk = solver_grid.grid_gates(w, p)
     wp, gp = solver_grid.grid_gates_plain(w, p)
     assert same_bits(gk[[0, 1, 2, 4, 5]], gp[[0, 1, 2, 4, 5]]), (gk, gp)
-    assert abs(float(gk[3]) - float(gp[3])) <= 1e-6 + 1e-5 * abs(float(gp[3]))
+    assert close_or_same(float(gk[3]), float(gp[3])), (gk, gp)
     for f in ("linvel", "angvel", "inv_mass"):
         assert same_bits(getattr(wk.bodies, f), getattr(wp.bodies, f)), f
     b = wp.bodies
@@ -543,6 +704,10 @@ def test_cuda_grid_stages_match_plain(cuda_grid, name):
         assert same_bits(x, y), i
     if name == "nan velocity":
         assert int(pk[6]) == 2
+    if name == "overflow":
+        assert bool(torch.isinf(pk[2]).any()) and torch.isfinite(pk[4]).all() and int(pk[6]) >= 1
+    if name == "nan pose":
+        assert int(pk[6]) >= 1
     args = grid_finalize_args(w, b, p, cap, pp, nan_pose=name == "nan velocity")
     fk, fp = solver_grid.grid_finalize(*args), solver_grid.grid_finalize_plain(*args)
     for f in ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel"):
@@ -550,7 +715,7 @@ def test_cuda_grid_stages_match_plain(cuda_grid, name):
     assert torch.equal(fk.contacts.stick, fp.contacts.stick)
     dk, dp = fk.diagnostics.vec, fp.diagnostics.vec
     lanes = [0, 1, 4] + list(range(5, 16))
-    assert torch.equal(dk[lanes], dp[lanes]), (dk, dp)
+    assert same_bits(dk[lanes], dp[lanes]), (dk, dp)
     assert float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max()) <= 1e-6
     if name == "nan velocity":
         assert float(dk[8]) >= 3
@@ -639,6 +804,77 @@ def test_cuda_finalize_and_step_gates_folds_match_plain(cuda_grid, cuda_rain, se
         torch.cuda.synchronize()
         assert same_bits(dst, expect.reshape(-1)), loads
     assert int(frozen.sum()) >= 3
+
+
+def fold_words(name: str) -> int:
+    """The nonzero words left in the scratch ``name`` (a kernel's fold
+    words and ticket) on the current stream."""
+    return int(kernels._SCRATCH[(0, torch.cuda.current_stream().cuda_stream,
+                                 name)].count_nonzero())
+
+
+def unaligned(t):
+    """A copy of ``t`` in a buffer one byte past an aligned one (contiguous,
+    its data pointer odd)."""
+    flat = torch.empty(t.numel() * t.element_size() + 1, dtype=torch.uint8, device=t.device)
+    out = flat[1:].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (k_grid_predict's blocks, k_ballistic_step's blocks) of the builds the
+# folds are held at: the main build's (None), then builds with those
+# defines.
+PB_GEOMETRY = ((None, None), (1, 1), (4, 4), (64, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["nan velocity", "overflow"])
+def test_cuda_predict_and_ballistic_folds_match_plain(cuda_grid, cuda_rain, state):
+    """k_grid_predict and k_ballistic_step (grids sized to the card, the
+    sanitize count and the ballistic lanes folded by atomics) at their own
+    grids and through builds at 1, 4 and 64 blocks (PB_GEOMETRY, defines
+    AVBD_PRED_BLOCKS and AVBD_BAL_BLOCKS): the prediction at the grid
+    pile's ``state`` bit for bit grid_predict_plain's, the latches also from
+    a buffer not aligned for the wide copy; the ballistic step at the
+    landing Stress1000 state (live slots: lane 0 folds -0 and +0) and at
+    ``state`` of the rain-in bit for bit _ballistic_body's, lanes 0 and 1
+    with their sign bits, the speed lanes within 1e-6 relative; every fold
+    word and ticket 0 after each launch."""
+    _w, p, _cap = cuda_grid
+    b = solver_grid.grid_gates_plain(grid_stage_world(cuda_grid, state), p)[0].bodies
+    stick = cuda_grid[0].contacts.stick
+    want_p = solver_grid.grid_predict_plain(b, stick, p)
+    sc, rain, land = cuda_rain
+    sp = sc.params
+    worlds = [solver.step_gates_plain(w, sp)[0]
+              for w in (land, fused_stage_world(rain, sp, state))]
+    want_b = [solver._ballistic_body(w, sp) for w in worlds]
+    assert bool(((torch.arange(4, device="cuda").view(4, 1, 1, 1) < land.contacts.count)
+                 & (land.contacts.other >= 0)).any())
+    names = ("pos", "quat", "linvel", "angvel", "prev_linvel", "prev_angvel")
+    for pred_blocks, bal_blocks in PB_GEOMETRY:
+        defines = () if pred_blocks is None else (f"AVBD_PRED_BLOCKS={pred_blocks}",
+                                                  f"AVBD_BAL_BLOCKS={bal_blocks}")
+        with kernels.using(kernels.build(defines=defines)):
+            for latches in (stick, unaligned(stick)):
+                got = kernels.launch_grid_predict(b, latches, p)
+                torch.cuda.synchronize()
+                for i, (x, y) in enumerate(zip(got, want_p)):
+                    assert same_bits(x, y), (pred_blocks, i)
+                assert fold_words("predict_fold_ticket") == 0, pred_blocks
+            for w, ref in zip(worlds, want_b):
+                out = kernels.launch_ballistic_step(w.bodies, w.contacts, sp)
+                torch.cuda.synchronize()
+                for f, t in zip(names, out[:6]):
+                    assert same_bits(t, getattr(ref.bodies, f)), (bal_blocks, f)
+                dk, dp = out[6], ref.diagnostics.vec
+                lanes = [0, 1, 4] + list(range(5, 16))
+                assert same_bits(dk[lanes], dp[lanes]), (bal_blocks, dk, dp)
+                assert torch.equal(torch.signbit(dk[:2]), torch.signbit(dp[:2])), (dk, dp)
+                assert float(((dk[2:4] - dp[2:4]).abs()
+                              / dp[2:4].abs().clamp(min=1e-30)).max()) <= 1e-6
+                assert fold_words("ballistic_fold_ticket") == 0, bal_blocks
 
 
 @pytest.mark.cuda
@@ -800,18 +1036,23 @@ def fused_stage_world(w, p, name):
         av.view(3, -1)[1, ids[1]] = float("inf")
         av.view(3, -1)[2, ids[2]] = 4.0 * p.max_angular_speed
         b = b.replace(linvel=lv, angvel=av)
+    if name in POSE_STATES:
+        return pose_state(w, name)
     return w.replace(bodies=b)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", GRID_STAGE_STATES)
+@pytest.mark.parametrize("name", GRID_STAGE_STATES + POSE_STATES)
 def test_cuda_fused_stages_match_plain(cuda_rain, name):
     """The fused path's stage kernels (csrc/fused_stages.cu) against their
     plain versions on the same card tensors at Stress1000's rain-in state:
     k_step_gates' control vector and frozen fields bit for bit, the world it
     was given unchanged; k_ballistic_step's bodies bit for bit, its lanes
-    identical but the speeds (2, 3: torch's vector_norm) within 1e-6
-    relative; the ballistic step with K2 writing into its lanes 11-15
+    identical (lanes 0 and 1 with their sign bits) but the speeds (2, 3:
+    torch's vector_norm) within 1e-6 relative, at the poses of POSE_STATES
+    its sanitize count at least 2 (the NaN pose's warm start and linear
+    finalize; the overflowed pose's, whose inertial position is
+    infinite); the ballistic step with K2 writing into its lanes 11-15
     (``out=``): those lanes the bits of K2's own call, K2's exact lanes the
     plain version's; one count a call (K2 three: the ballistic step's, its
     own call's and the plain version's, whose lanes on CUDA tensors are
@@ -834,8 +1075,13 @@ def test_cuda_fused_stages_match_plain(cuda_rain, name):
         assert same_bits(t, getattr(ref.bodies, f)), f
     dk, dp = out[6], ref.diagnostics.vec
     lanes = [0, 1, 4] + list(range(5, 16))
-    assert torch.equal(dk[lanes].nan_to_num(), dp[lanes].nan_to_num()), (dk, dp)
+    assert same_bits(dk[lanes], dp[lanes]), (dk, dp)
+    assert torch.equal(torch.signbit(dk[:2]), torch.signbit(dp[:2])), (dk, dp)
     assert float(((dk[2:4] - dp[2:4]).abs() / dp[2:4].abs().clamp(min=1e-30)).max()) <= 1e-6
+    if name == "overflow":
+        assert bool(torch.isinf(out[0]).any()) and int(dk[8]) >= 2, dk
+    if name == "nan pose":
+        assert int(dk[8]) >= 2, dk
     full, full_p = solver.ballistic_step(wp, p), solver._ballistic_step(wp, p)
     own = solver_cuda.control_lanes(wp.bp.nb, full.bodies, wp.bp.anchor, wp.bp.anchor_quat, p)
     vk, vp = full.diagnostics.vec, full_p.diagnostics.vec

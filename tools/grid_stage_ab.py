@@ -17,10 +17,16 @@ Stress4096 state) and 16384 (the 31 x 17 x 31 pile's spawn compressed to
 21's state) timed the same way and through its wrapper alone, and where
 the tree has it (``kernels.launch_floor``) ``k_launch_floor`` at the
 gates' grid and block in each of ``chip_smoke.FLOOR_CASES`` (the launch
-floors).  ``variants``
+floors); and ``k_ballistic_step`` at Stress1000 and Stress2048 step 1
+(the rain-in, N = 1024 and 2048, DC = 12) against ``_ballistic_body``.
+``variants``
 (this tree's kernels only): builds with other geometry (``kernels.build``'s
-defines ``AVBD_FIN_BLOCKS`` and ``AVBD_GATES_THREADS``), k_grid_finalize at
-one and four blocks an SM and at one and two entries a slot thread, and
+defines ``AVBD_FIN_BLOCKS``, ``AVBD_PRED_BLOCKS``, ``AVBD_BAL_BLOCKS`` and
+``AVBD_GATES_THREADS``), k_grid_finalize at one and four blocks an SM and
+at one and two entries a slot thread, k_grid_predict at one and four blocks
+an SM, at one group of 4 latches a latch thread and at a block for each 64
+bodies, k_ballistic_step at one and four blocks an SM and at a block for
+each 64 and each 16 bodies (Stress1000 step 1), and
 k_step_gates at 32, 64 and 256 threads a block, each held bit for bit to
 the default build's outputs and timed.  The last line is one JSON object.
 ``--root``: the tree whose package and ``chip_smoke.py`` are imported
@@ -64,14 +70,34 @@ def fused_times(cs, card) -> dict:
         lambda: None)
     if hasattr(kernels, "launch_floor"):
         out["floor_us"] = cs.launch_floors(card, w, p.fall_freeze_y)
+    for name, (wb, pb) in ballistic_worlds().items():
+        out[f"ballistic_step {name}"] = cs.one_kernel_times(
+            card, f"k_ballistic_step ({name}, N = {wb.bodies.n})", "k_ballistic_step",
+            lambda wb=wb, pb=pb: kernels.launch_ballistic_step(wb.bodies, wb.contacts, pb),
+            lambda wb=wb, pb=pb: solver._ballistic_body(wb, pb))
+    return out
+
+
+def ballistic_worlds() -> dict:
+    """{label: (world, params)}: Stress1000 and Stress2048 at step 1 (the
+    rain-in; phase 21 times the ballistic kernel at Stress1000's), frozen
+    by the gates' plain version as phase 21 hands them to the kernel."""
+    from avbd3d_tpu_torch import load_scene, solver
+
+    out = {}
+    for name in ("Stress1000", "Stress2048"):
+        sc = load_scene(name, device="cuda")
+        rain = solver.run_steps(sc.world, sc.params, sc.cap, 1)
+        out[f"{name} step 1"] = (solver.step_gates_plain(rain, sc.params)[0], sc.params)
     return out
 
 
 def variants(cs, card, a, steps) -> dict:
-    """k_grid_finalize (Stress4096 step ``steps``, its operands ``a``) and
-    k_step_gates (settled Stress1000 step 700) through builds of other
-    geometry, each output bit for bit the default build's: {label: the
-    kernel's own us a call}."""
+    """k_grid_finalize and k_grid_predict (Stress4096 step ``steps``, their
+    operands ``a``), k_step_gates (settled Stress1000 step 700) and
+    k_ballistic_step (Stress1000 step 1) through builds of other geometry,
+    each output bit for bit the default build's: {label: the kernel's own
+    us a call}."""
     import torch
 
     from avbd3d_tpu_torch import kernels
@@ -80,34 +106,60 @@ def variants(cs, card, a, steps) -> dict:
     b, contacts, dc, d = f[1], f[2], f[2].other.shape[0], f[10].shape[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     entries = max(dc, d) * b.n
+    groups = a["predict"][1].numel() // 4
     w, p = fused_world()
     gb, bp = w.bodies, w.bp
+    wb, pb = ballistic_worlds()["Stress1000 step 1"]
 
     def fin():
         return list(kernels.launch_grid_finalize(b, *f[3:8], contacts, *f[8:]))
 
+    def pred():
+        return list(kernels.launch_grid_predict(*a["predict"]))
+
     def gates():
         return list(kernels.launch_step_gates(gb, w.diagnostics.vec, bp.slack, bp.dropped, p))
 
-    want_fin, want_gates = fin(), gates()
+    def bal():
+        return list(kernels.launch_ballistic_step(wb.bodies, wb.contacts, pb))
+
+    calls = {"k_grid_finalize": fin, "k_grid_predict": pred, "k_step_gates": gates,
+             "k_ballistic_step": bal}
+    want = {k: call() for k, call in calls.items()}
+    # (define, kernel, value, label) by build: four builds, each kernel at
+    # another geometry in each.
+    builds = (
+        (("AVBD_FIN_BLOCKS", "k_grid_finalize", sms, "a block an SM"),
+         ("AVBD_PRED_BLOCKS", "k_grid_predict", sms, "a block an SM"),
+         ("AVBD_BAL_BLOCKS", "k_ballistic_step", sms, "a block an SM"),
+         ("AVBD_GATES_THREADS", "k_step_gates", 32, "threads a block")),
+        (("AVBD_FIN_BLOCKS", "k_grid_finalize", 4 * sms, "four blocks an SM"),
+         ("AVBD_PRED_BLOCKS", "k_grid_predict", 4 * sms, "four blocks an SM"),
+         ("AVBD_BAL_BLOCKS", "k_ballistic_step", 4 * sms, "four blocks an SM"),
+         ("AVBD_GATES_THREADS", "k_step_gates", 64, "threads a block")),
+        (("AVBD_FIN_BLOCKS", "k_grid_finalize", -(-entries // 256), "one entry a thread"),
+         ("AVBD_PRED_BLOCKS", "k_grid_predict", -(-groups // 256), "one latch group a thread"),
+         ("AVBD_BAL_BLOCKS", "k_ballistic_step", -(-wb.bodies.n // 64),
+          "a block for each 64 bodies"),
+         ("AVBD_GATES_THREADS", "k_step_gates", 256, "threads a block")),
+        (("AVBD_FIN_BLOCKS", "k_grid_finalize", -(-entries // 512), "two entries a thread"),
+         ("AVBD_PRED_BLOCKS", "k_grid_predict", -(-b.n // 64), "a block for each 64 bodies"),
+         ("AVBD_BAL_BLOCKS", "k_ballistic_step", -(-wb.bodies.n // 16),
+          "a block for each 16 bodies")),
+    )
     out = {}
-    for (fin_label, blocks), threads in zip(
-            (("a block an SM", sms), ("four blocks an SM", 4 * sms),
-             ("one entry a thread", -(-entries // 256)),
-             ("two entries a thread", -(-entries // 512))), (32, 64, 256, None)):
-        defines = (f"AVBD_FIN_BLOCKS={blocks}",) + (
-            (f"AVBD_GATES_THREADS={threads}",) if threads else ())
-        lib = kernels.build(defines=defines)
+    for build in builds:
+        lib = kernels.build(defines=tuple(f"{define}={value}" for define, _k, value, _l in build))
         with kernels.using(lib):
-            for name, call, want, label in (
-                    ("k_grid_finalize", fin, want_fin, f"{blocks} blocks ({fin_label})"),
-                    *((("k_step_gates", gates, want_gates, f"{threads} threads a block"),)
-                      if threads else ())):
-                got = call()
+            for _define, name, value, what in build:
+                label = (f"{value} threads a block" if name == "k_step_gates"
+                         else f"{value} blocks ({what})")
+                got = calls[name]()
                 torch.cuda.synchronize()
-                if not all(cs.same_bits_nan(x, y) for x, y in zip(got, want)):
+                if not all(cs.same_bits_nan(x, y) for x, y in zip(got, want[name])):
                     raise SystemExit(f"{name} at {label} differs from the default build")
-                t = cs.one_kernel_times(card, f"{name} at {label}", name, call, lambda: None)
+                t = cs.one_kernel_times(card, f"{name} at {label}", name, calls[name],
+                                        lambda: None)
                 out[f"{name} at {label}"] = t["device_us"]
     return out
 
