@@ -48,7 +48,13 @@ spins (the host's own work), and ``host_wait_us_per_step``, that wall
 time (the wait).  Held beside them: the reads timed
 are the step's counted reads, and the checked run synchronizes with the
 card at its reads alone (torch's sync debug mode), so no wait hides in
-the host's share.
+the host's share.  The host's step split by span (``utils.host_spans``,
+recorded over the timed windows): ``host_span_us_per_step`` and
+``host_span_calls_per_step``, by span (``host_split``), and the caching
+allocator's ``cudaMalloc`` / ``cudaFree`` calls and retries over the timed
+windows (``device_allocs_per_step``, ``device_frees_per_step``,
+``alloc_retries``; read before the first window and after the last, never
+inside a step).
 
 Regimes (``REGIMES``; ``--regime`` runs one alone, whose best window is
 then ``value`` and whose whole-window rate ``steps_per_sec``):
@@ -126,7 +132,9 @@ busy and idle share, launches a step, the top 5 kernels, the port's kernels'
 us and launches a step by the id of the wrapper that launched them
 (``WRAPPER_KERNELS``; PERF.md section 6) beside each wrapper's calls a step
 by its counter, the longest idle gaps on the card labelled by the host
-operation running when each began, and the same window untraced beside it:
+operation or span running when each began, the share of the idle time no
+host op or span names (``idle_between_ops_share``, beside the share the
+host ops alone leave unnamed), and the same window untraced beside it:
 the tracing cost); the regime's ``layers`` carry it.  End-to-end numbers
 come from the untraced windows only.  Peak device memory
 (``max_memory_allocated`` over the timed windows) and the world's own bytes
@@ -159,7 +167,7 @@ import torch
 from . import kernels, load_scene, solver, solver_cuda, solver_grid
 from .ops import broadphase
 from .parallel.batched import with_tensors, world_tensors
-from .utils import profile_phases
+from .utils import host_spans, profile_phases
 from .utils.jitter_probe import perturbed
 
 # The C++ reference on one Xeon thread (BASELINE.md:37-38: Stress1000,
@@ -236,6 +244,17 @@ WRAPPER_KERNELS = {"step_kernel": ("K1", _COLLIDE | _SWEEPS),
                    "grid_finalize": ("FN", {"k_grid_finalize"}),
                    "step_gates": ("SG", {"k_step_gates"}),
                    "ballistic_step": ("BS", {"k_ballistic_step"})}
+# The spans of solver.step a timed step reports (utils.host_spans), one after
+# the other inside ``step``; the kernel ids whose launch functions run inside
+# ``gates`` (SG, G) or ``refresh`` (R), all others' inside ``path``; and the
+# ctypes calls a launch of a wrapper makes where it is not one (R's
+# candidate_lists: k_bp_tables, then k_bp_lists).
+STEP_SPANS = ("gates", "read", "refresh", "decide", "path")
+OUTSIDE_PATH = frozenset({"SG", "G", "R"})
+CALLS_A_LAUNCH = {"R": 2}
+# The caching allocator's counters (torch.cuda.memory_stats) read before
+# the first timed window and after the last.
+ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
 # nvidia-smi's readings of the card beside each regime's timed windows.
 CARD_QUERY = ("clocks.sm", "power.draw", "temperature.gpu", "power.limit")
 
@@ -444,6 +463,15 @@ def card_reading() -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
                          check=True)
     return dict(zip(CARD_QUERY, (v.strip() for v in out.stdout.splitlines()[0].split(","))))
+
+
+def allocator_counts(device) -> dict | str:
+    """ALLOC_STATS of the caching allocator on ``device`` (None for a
+    counter this torch does not keep); "not measured" off the card."""
+    if torch.device(device).type != "cuda":
+        return "not measured"
+    stats = torch.cuda.memory_stats(device)
+    return {k: stats.get(k) for k in ALLOC_STATS}
 
 
 def host_line() -> dict:
@@ -682,6 +710,8 @@ def run_regime(regime: Regime, device, scene=None, seed: int = 0):
     card_before = card_reading() if cuda else None
     load, usage = os.getloadavg(), resource.getrusage(resource.RUSAGE_SELF)
     reset_counts()
+    allocs = allocator_counts(dev)
+    host_spans.reset()
     seconds, refreshes, ends, w = [], [], [], start
     gc.callbacks.append(watch)
     try:
@@ -702,6 +732,9 @@ def run_regime(regime: Regime, device, scene=None, seed: int = 0):
                     ends.append(w)
     finally:
         gc.callbacks.remove(watch)
+    spans = host_spans.snapshot()
+    if cuda:
+        allocs = {"before": allocs, "after": allocator_counts(dev)}
     used = resource.getrusage(resource.RUSAGE_SELF)
     host = {"loadavg_before": list(load), "loadavg_after": list(os.getloadavg()),
             "gc_collections": watch.collections, "gc_s": watch.seconds,
@@ -752,6 +785,7 @@ def run_regime(regime: Regime, device, scene=None, seed: int = 0):
                    "launches_per_step": {k: n / steps for k, n in launches.items()}},
         "checks": checks,
         "host": host, "card": card,
+        "host_spans": {k: list(v) for k, v in spans.items()}, "allocator": allocs,
         "final": {"step": w.step_index, "max_penetration": d["max_penetration"],
                   "active_manifolds": int(d["active_manifolds"]),
                   "active_contacts": int(d["active_contacts"]),
@@ -798,12 +832,18 @@ def traced_window(w, p, c, steps: int) -> dict:
                    calls_per_step={WRAPPER_KERNELS[k][0]: n / (2 * steps)
                                    for k, n in launched.items() if n},
                    idle_us_per_step=gaps["idle_us"] / steps,
-                   idle_gaps=[{**g, "host_op": g["host_op"][:NAME_CHARS]} for g in gaps["gaps"]])
+                   idle_gaps=[{**g, "host_op": g["host_op"][:NAME_CHARS]} for g in gaps["gaps"]],
+                   idle_between_ops_share={
+                       "spans": gaps["between_ops_us"] / gaps["idle_us"],
+                       "host_ops_alone": gaps["unspanned"]["between_ops_us"] / gaps["idle_us"]}
+                   if gaps["idle_us"] > 0.0 else "not measured",
+                   span_mirrors_left_out=r["span_mirrors"])
     else:
         out.update(dict.fromkeys(("device_us_per_step", "busy_share", "idle_share",
                                   "launches_per_step", "top_kernels", "kernel_us_per_step",
                                   "kernel_launches_per_step", "calls_per_step",
-                                  "idle_us_per_step", "idle_gaps"), "not measured"))
+                                  "idle_us_per_step", "idle_gaps", "idle_between_ops_share",
+                                  "span_mirrors_left_out"), "not measured"))
     return out
 
 
@@ -840,11 +880,72 @@ def host_per_step(result: dict) -> dict:
             "host_wait_us_per_step": 1e6 * wait_s / steps}
 
 
+def host_split(result: dict) -> dict:
+    """The host's timed step by span (``utils.host_spans`` over the timed
+    windows): ``host_span_us_per_step`` and ``host_span_calls_per_step``,
+    keyed ``step``, STEP_SPANS, ``world`` (``path`` less the launch
+    functions inside it: the result's assembly), ``step_other`` (``step``
+    less STEP_SPANS: the path's choice and the step's own calls),
+    ``<id>.prep`` and ``<id>.call`` for every kernel id that launched, and
+    ``loop`` (the windows' wall time less ``step``: the bench's own loop
+    and the closing syncs; a call a window)."""
+    steps = result["timed_steps"]
+    spans = result["host_spans"]
+    us = {k: 1e-3 * ns / steps for k, (ns, _n) in spans.items()}
+    calls = {k: n / steps for k, (_ns, n) in spans.items()}
+    ids = sorted({k.rsplit(".", 1)[0] for k in spans if k.endswith((".prep", ".call"))})
+    wrappers = [f"{i}.{part}" for i in ids for part in ("prep", "call")]
+    out_us = {k: us.get(k, 0.0) for k in ("step",) + STEP_SPANS}
+    out_n = {k: calls.get(k, 0.0) for k in ("step",) + STEP_SPANS}
+    out_us["world"] = out_us["path"] - sum(us.get(k, 0.0) for k in wrappers
+                                           if k.split(".")[0] not in OUTSIDE_PATH)
+    out_n["world"] = out_n["path"]
+    out_us["step_other"] = out_us["step"] - sum(out_us[k] for k in STEP_SPANS)
+    out_n["step_other"] = out_n["step"]
+    for k in wrappers:
+        out_us[k], out_n[k] = us.get(k, 0.0), calls.get(k, 0.0)
+    out_us["loop"] = 1e6 * result["timed_s"] / steps - out_us["step"]
+    out_n["loop"] = result["windows"] / steps
+    return {"host_span_us_per_step": out_us, "host_span_calls_per_step": out_n}
+
+
+def span_calls_planned(launches_per_step: dict) -> dict:
+    """Each kernel id's ``<id>.call`` spans a step as ``launches_per_step``
+    (launch_counts' names, a step) promises them: one ctypes call a launch,
+    CALLS_A_LAUNCH where a launch makes more; ids that did not launch are
+    left out."""
+    out = collections.Counter()
+    for wrapper, n in launches_per_step.items():
+        kid = WRAPPER_KERNELS[wrapper][0]
+        if n:
+            out[f"{kid}.call"] += n * CALLS_A_LAUNCH.get(kid, 1)
+    return dict(out)
+
+
+def allocs_per_step(result: dict) -> dict:
+    """The caching allocator's device allocations and frees a timed step
+    and its retries over the timed windows (ALLOC_STATS); "not measured"
+    off the card or where this torch keeps no such counter."""
+    a, steps = result["allocator"], result["timed_steps"]
+    if a == "not measured":
+        return dict.fromkeys(("device_allocs_per_step", "device_frees_per_step",
+                              "alloc_retries"), "not measured")
+
+    def grew(k, per=1):
+        before, after = a["before"][k], a["after"][k]
+        return "not measured" if None in (before, after) else (after - before) / per
+
+    return {"device_allocs_per_step": grew("num_device_alloc", steps),
+            "device_frees_per_step": grew("num_device_free", steps),
+            "alloc_retries": grew("num_alloc_retries")}
+
+
 def layers(result: dict, traced: dict | None, build_s: float) -> dict:
     """One regime's per-layer metrics (PERF.md section 3): its timed
     windows' median and quartiles and the counts, which repeat exactly;
-    the host's path a timed step (``host_per_step``); its own traced
-    window, where one was taken (device time, idle share and gaps,
+    the host's path a timed step (``host_per_step``), split by span
+    (``host_split``), and the allocator's calls (``allocs_per_step``); its
+    own traced window, where one was taken (device time, idle share and gaps,
     launches, us and launches a step by wrapper id beside each wrapper's
     calls a step; where it starts and its steps are ``extra.traced``'s);
     and the set-up metrics (the kernels' build, peak memory)."""
@@ -854,11 +955,12 @@ def layers(result: dict, traced: dict | None, build_s: float) -> dict:
                                     "windows": result["windows"]},
            "refresh_share": c["refresh_steps"] / c["steps"],
            "host_reads_per_step": c["host_reads_per_step"],
-           **host_per_step(result),
+           **host_per_step(result), **host_split(result), **allocs_per_step(result),
            "build_s": build_s, **result["memory"]}
     traced = traced or {}
     for k in ("device_us_per_step", "idle_share", "launches_per_step", "kernel_us_per_step",
-              "kernel_launches_per_step", "calls_per_step", "idle_gaps"):
+              "kernel_launches_per_step", "calls_per_step", "idle_gaps",
+              "idle_between_ops_share"):
         out[k] = traced.get(k, "not measured")
     return out
 

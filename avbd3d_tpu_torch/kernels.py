@@ -17,7 +17,10 @@ scratch with ``torch.empty`` (the scratch that K2, K7 and the refresh
 kernels hand between their own blocks is held per stream: ``_scratch``), check device,
 dtype, shape and contiguity of every operand, launch on the current stream
 and raise if the C entry point returns a CUDA error.  The parameter block
-of a SolverParams is built once (``_fparams``).
+of a SolverParams is built once (``_fparams``).  Each launch function's
+host time goes into ``utils.host_spans`` by its kernel id
+(``host_spans.call``): ``<id>.prep`` from its entry to its ctypes call,
+``<id>.call`` the call.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import subprocess
 import time
 
 import torch
+
+from .utils import host_spans
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -459,6 +464,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
     (pair overflow cand - kept).  Returns (12 new cache leaves, stick
     bool; 6 body leaves; diag (8, 128); (j_lam, j_pen, s_pen) with None for
     an absent family)."""
+    t0 = host_spans.begin("K1.prep")
     dev = b.pos.device
     d, g, _ = nb.shape
     dc = cache_args[0].shape[0]
@@ -500,9 +506,10 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
                     for t in row_out]
         tensors += [torch.empty(s, dtype=f32, device=dev) for s in ((3, n), (4, n))]
     iters_end = n_main + (1 if params.post_stabilize else 0)
-    code = lib.cdll.avbd_step(_ptrs(tensors), _fparams(params), n, d, dc, dj, ds,
-                              int(n_colors), int(n_main), int(iters_end), int(k_rebuild),
-                              _plan_arg(plan), _stream(dev))
+    code = host_spans.call("K1", t0, lib.cdll.avbd_step,
+                           _ptrs(tensors), _fparams(params), n, d, dc, dj, ds, int(n_colors),
+                           int(n_main), int(iters_end), int(k_rebuild), _plan_arg(plan),
+                           _stream(dev))
     _raise_on(code, "step kernel launch")
     return new, tuple(body_out), diag, row_out
 
@@ -510,6 +517,7 @@ def launch_step(cache_args, nb, key, thr, b, anchor, anchor_quat, params,
 def launch_collide(cache_args, nb, key, thr, b, params):
     """Run K3, the collide half of the step kernel.  Returns (12 new cache
     leaves, kept directed slots () int32, dropped manifolds () int32)."""
+    t0 = host_spans.begin("K3.prep")
     lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
@@ -524,7 +532,8 @@ def launch_collide(cache_args, nb, key, thr, b, params):
     new = _empty_as(old)
     counters = torch.empty((3,), dtype=i32, device=dev)
     tensors = old + ins + new + [torch.empty((dc, g * 128), dtype=i32, device=dev), counters]
-    code = lib.cdll.avbd_collide(_ptrs(tensors), _fparams(params), g * 128, d, dc, _stream(dev))
+    code = host_spans.call("K3", t0, lib.cdll.avbd_collide,
+                           _ptrs(tensors), _fparams(params), g * 128, d, dc, _stream(dev))
     _raise_on(code, "collide kernel launch")
     return new, counters[0], counters[1]
 
@@ -534,6 +543,7 @@ def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int, *, pla
     with the sweep plan ``plan``.
     Returns (6 body leaves, lam, penalty, stick (0/1 float32), diag (8, 128)
     with lanes 0-8 filled)."""
+    t0 = host_spans.begin("K4.prep")
     lib = _lib()
     dev = _cuda_device(b)
     dc, g, _ = cache_args[0].shape
@@ -550,9 +560,9 @@ def launch_solve_loop(cache_args, b, params, n_main: int, k_rebuild: int, *, pla
     scratch.append(torch.empty((3,), dtype=torch.int32, device=dev))
     tensors = cache + ins + body_out + rows + [diag] + scratch
     iters_end = n_main + (1 if params.post_stabilize else 0)
-    code = lib.cdll.avbd_solve_loop(_ptrs(tensors), _fparams(params), n, dc, int(n_main),
-                                    int(iters_end), int(k_rebuild), _plan_arg(plan),
-                                    _stream(dev))
+    code = host_spans.call("K4", t0, lib.cdll.avbd_solve_loop,
+                           _ptrs(tensors), _fparams(params), n, dc, int(n_main), int(iters_end),
+                           int(k_rebuild), _plan_arg(plan), _stream(dev))
     _raise_on(code, "solve-loop kernel launch")
     return tuple(body_out), rows[0], rows[1], rows[2], diag
 
@@ -562,6 +572,7 @@ def launch_control(nb, b, anchor, anchor_quat, params, out=None):
     (B, 5) for a batch of B worlds (every operand with a leading B).
     ``out``: a contiguous (5,) float32 tensor (a view, e.g. lanes 11-15 of
     a diagnostics vector) the kernel writes the lanes into, returned."""
+    t0 = host_spans.begin("K2.prep")
     dev = b.pos.device
     lead = tuple(nb.shape[:-3])
     batch = lead[0] if lead else 1
@@ -582,8 +593,9 @@ def launch_control(nb, b, anchor, anchor_quat, params, out=None):
     scratch = [_scratch(dev, stream, "lanes_part", batch * _LANE_PARTS * _blocks(n), f32),
                _scratch(dev, stream, "lanes_dv", batch * 4 * n, f32),
                _scratch(dev, stream, "lanes_ticket", batch, torch.int32)]
-    code = lib.cdll.avbd_control_lanes(_ptrs(ins + [out] + scratch), _fparams(params), n, d,
-                                       batch, ctypes.c_void_p(stream))
+    code = host_spans.call("K2", t0, lib.cdll.avbd_control_lanes,
+                           _ptrs(ins + [out] + scratch), _fparams(params), n, d, batch,
+                           ctypes.c_void_p(stream))
     _raise_on(code, "control-lanes kernel launch")
     return out
 
@@ -591,6 +603,7 @@ def launch_control(nb, b, anchor, anchor_quat, params, out=None):
 def launch_bp_probe(nb, b, params):
     """Run K7, the broadphase probe; returns (min_sep () f32, n_slots ()
     int32, near (G, 128) bool)."""
+    t0 = host_spans.begin("K7.prep")
     lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
@@ -604,8 +617,9 @@ def launch_bp_probe(nb, b, params):
     scratch = [_scratch(dev, stream, "probe_min", _blocks(n), torch.float32),
                _scratch(dev, stream, "probe_cnt", _blocks(n), torch.int32),
                _scratch(dev, stream, "probe_ticket", 1, torch.int32)]
-    code = lib.cdll.avbd_bp_probe(_ptrs(ins + [min_sep, n_slots, near] + scratch),
-                                  _fparams(params, probe=True), n, d, ctypes.c_void_p(stream))
+    code = host_spans.call("K7", t0, lib.cdll.avbd_bp_probe,
+                           _ptrs(ins + [min_sep, n_slots, near] + scratch),
+                           _fparams(params, probe=True), n, d, ctypes.c_void_p(stream))
     _raise_on(code, "broadphase probe kernel launch")
     return min_sep, n_slots, near
 
@@ -614,6 +628,7 @@ def launch_collide_grid(cache_args, nb, key, thr, b, params):
     """Run K5, the grid tier's collide.  ``cache_args``: the 12 old cache
     leaves (stick as float32).  Returns (12 new cache leaves, kept mask
     (D, G, 128) f32, once mask (DC, G, 128) bool, dropped manifolds () i32)."""
+    t0 = host_spans.begin("K5.prep")
     lib = _lib()
     dev = _cuda_device(b)
     d, g, _ = nb.shape
@@ -631,8 +646,8 @@ def launch_collide_grid(cache_args, nb, key, thr, b, params):
     nbc = torch.empty((dc, g, 128), dtype=i32, device=dev)
     counters = torch.empty((3,), dtype=i32, device=dev)
     tensors = old + ins + new + [keptmask, once, nbc, counters]
-    code = lib.cdll.avbd_collide_grid(_ptrs(tensors), _fparams(params), g * 128, d, dc,
-                                      _stream(dev))
+    code = host_spans.call("K5", t0, lib.cdll.avbd_collide_grid,
+                           _ptrs(tensors), _fparams(params), g * 128, d, dc, _stream(dev))
     _raise_on(code, "grid collide kernel launch")
     return new, keptmask, once, counters[1]
 
@@ -643,6 +658,7 @@ def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, para
     do_dual, rebuild, ramp) each, from the launch-start poses, partners
     outside a slot's logical block of ``blk`` bodies read at those poses.  Returns (pos, quat, lam,
     pen, stick f32, sep (4, DC, G, 128))."""
+    t0 = host_spans.begin("K6.prep")
     lib = _lib()
     dev = _cuda_device(b)
     dc, g, _ = contacts.other.shape
@@ -670,9 +686,9 @@ def launch_iterblock_grid(contacts, b, pos, quat, lam, pen, stickf, ip, iq, para
     flags = (ctypes.c_int * (3 * len(spec)))(
         *[int(v) for _a, do_dual, rebuild, ramp in spec for v in (do_dual, rebuild, ramp)])
     alphas = (ctypes.c_float * len(spec))(*[a for a, *_ in spec])
-    code = lib.cdll.avbd_iterblock_grid(_ptrs(ins + outs + scratch), _fparams(params), n, dc,
-                                        int(blk), len(spec), flags, alphas, _plan_arg(plan),
-                                        _stream(dev))
+    code = host_spans.call("K6", t0, lib.cdll.avbd_iterblock_grid,
+                           _ptrs(ins + outs + scratch), _fparams(params), n, dc, int(blk),
+                           len(spec), flags, alphas, _plan_arg(plan), _stream(dev))
     _raise_on(code, "grid iteration kernel launch")
     return tuple(outs) + (geom[24:28],)
 
@@ -715,6 +731,7 @@ def launch_bp_tables(pos, quat, ext, ext_scale: float, radius, dyn_key):
     half extent () float32; the halves are ``ext * ext_scale``, dynamic is
     ``dyn_key > 0``.  With a leading batch axis B on every operand, B
     tables and (B,) maxima (one launch)."""
+    t0 = host_spans.begin("R.prep")
     dev = pos.device
     lead = tuple(pos.shape[:-3])
     batch = lead[0] if lead else 1
@@ -733,8 +750,9 @@ def launch_bp_tables(pos, quat, ext, ext_scale: float, radius, dyn_key):
     blocks = -(-n // _BP_THREADS)
     scratch = [_scratch(dev, stream, "bp_part_max", batch * blocks, f32),
                _scratch(dev, stream, "bp_tables_ticket", batch, torch.int32)]
-    code = lib.cdll.avbd_bp_tables(_ptrs(ins + [table, max_wh] + scratch), n, batch,
-                                   ctypes.c_float(ext_scale), ctypes.c_void_p(stream))
+    code = host_spans.call("R", t0, lib.cdll.avbd_bp_tables,
+                           _ptrs(ins + [table, max_wh] + scratch), n, batch,
+                           ctypes.c_float(ext_scale), ctypes.c_void_p(stream))
     _raise_on(code, "broadphase tables kernel launch")
     return table, max_wh
 
@@ -750,6 +768,7 @@ def launch_bp_lists(rows, cols, max_wh, exclusions, degree: int, margin: float, 
     operand, each world's (one launch).  ``rows_per_block`` (one of
     ``BP_ROWS_PER_BLOCK``; 0: ``bp_rows_per_block``'s choice) sets the
     blocks' rows; the results do not depend on it."""
+    t0 = host_spans.begin("R.prep")
     dev = rows.device
     if not 1 <= degree <= BP_MAX_DEGREE:
         raise ValueError(f"candidate width {degree} outside 1..{BP_MAX_DEGREE}")
@@ -782,9 +801,10 @@ def launch_bp_lists(rows, cols, max_wh, exclusions, degree: int, margin: float, 
                _scratch(dev, stream, "bp_part_slack", batch * blocks, f32),
                _scratch(dev, stream, "bp_lists_ticket", batch, i32)]
     q_max = (2**31 - 1) // n - 1
-    code = lib.cdll.avbd_bp_lists(_ptrs(ins + [nb, key, thr, counts, slack] + scratch), n_rows,
-                                  n, int(row0), int(degree), n_excl, q_max,
-                                  ctypes.c_float(margin), batch, rpb, ctypes.c_void_p(stream))
+    code = host_spans.call("R", t0, lib.cdll.avbd_bp_lists,
+                           _ptrs(ins + [nb, key, thr, counts, slack] + scratch), n_rows, n,
+                           int(row0), int(degree), n_excl, q_max, ctypes.c_float(margin), batch,
+                           rpb, ctypes.c_void_p(stream))
     _raise_on(code, "broadphase lists kernel launch")
     cand, kept, dropped = counts.unbind(-1)
     return nb, key, thr, cand, slack, kept, dropped
@@ -794,6 +814,7 @@ def launch_refresh_needed(b, anchor, anchor_quat, slack, margin: float):
     """Run k_refresh_needed on the Bodies ``b`` against the cache anchors:
     returns (need () bool, (dev_mm, dev_raw) (2,) float32), need =
     dev_mm > 0.5 * margin or dev_raw > slack + margin in float32."""
+    t0 = host_spans.begin("P.prep")
     dev = b.pos.device
     g = b.mass.shape[-2]
     n = g * 128
@@ -809,9 +830,9 @@ def launch_refresh_needed(b, anchor, anchor_quat, slack, margin: float):
     scratch = [_scratch(dev, stream, "refresh_part", _LANE_PARTS * _blocks(n), f32),
                _scratch(dev, stream, "refresh_dv", 4 * n, f32),
                _scratch(dev, stream, "refresh_ticket", 1, torch.int32)]
-    code = lib.cdll.avbd_refresh_needed(_ptrs(ins + [devs, need] + scratch), n,
-                                        ctypes.c_float(0.5 * margin), ctypes.c_float(margin),
-                                        ctypes.c_void_p(stream))
+    code = host_spans.call("P", t0, lib.cdll.avbd_refresh_needed,
+                           _ptrs(ins + [devs, need] + scratch), n, ctypes.c_float(0.5 * margin),
+                           ctypes.c_float(margin), ctypes.c_void_p(stream))
     _raise_on(code, "refresh predicate kernel launch")
     return need, devs
 
@@ -828,6 +849,7 @@ def launch_grid_gates(b, anchor, anchor_quat, slack, params):
     angvel, inv_mass: the frozen fields, or ``b``'s own without the freeze;
     out (6,) float32: need, stale_ok, calm as 1 / 0, dev_mm, dev_raw, the
     largest v^2 of a dynamic body)."""
+    t0 = host_spans.begin("G.prep")
     dev = b.pos.device
     g = b.mass.shape[-2]
     n = g * 128
@@ -848,10 +870,10 @@ def launch_grid_gates(b, anchor, anchor_quat, slack, params):
                                    *[t.data_ptr() if t is not None else None for t in frozen],
                                    out.data_ptr(), *[t.data_ptr() for t in scratch])
     calm = min(params.impact_speed_min, params.lhs_stale_speed_max)
-    code = lib.cdll.avbd_grid_gates(ptrs, n, float(params.fall_freeze_y),
-                                    0.5 * params.bp_margin, float(params.bp_margin),
-                                    params.lhs_stale_speed_max**2, calm**2,
-                                    ctypes.c_void_p(stream))
+    code = host_spans.call("G", t0, lib.cdll.avbd_grid_gates,
+                           ptrs, n, float(params.fall_freeze_y), 0.5 * params.bp_margin,
+                           float(params.bp_margin), params.lhs_stale_speed_max**2, calm**2,
+                           ctypes.c_void_p(stream))
     _raise_on(code, "grid gates kernel launch")
     lv, av, im = (f if f is not None else t for f, t in zip(frozen, ins[2:5]))
     return lv, av, im, out
@@ -862,6 +884,7 @@ def launch_grid_predict(b, stick, params):
     and the contact cache's stick latches (4, DC, G, 128) bool.  Returns
     (linvel, angvel (3, G, 128) sanitized, ip (3, G, 128), iq (4, G, 128),
     ps (3, G, 128), stick as 0 / 1 float32, rows sanitized () int32)."""
+    t0 = host_spans.begin("PR.prep")
     dev = b.pos.device
     g = b.mass.shape[-2]
     n = g * 128
@@ -876,8 +899,9 @@ def launch_grid_predict(b, stick, params):
     outs.append(torch.empty((), dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     fold = _scratch(dev, stream, "predict_fold_ticket", 1, torch.int64)   # count and ticket
-    code = lib.cdll.avbd_grid_predict(_ptrs(ins + outs + [fold]), _fparams(params), n, 4 * dc,
-                                      ctypes.c_void_p(stream))
+    code = host_spans.call("PR", t0, lib.cdll.avbd_grid_predict,
+                           _ptrs(ins + outs + [fold]), _fparams(params), n, 4 * dc,
+                           ctypes.c_void_p(stream))
     _raise_on(code, "grid predict kernel launch")
     return tuple(outs)
 
@@ -893,6 +917,7 @@ def launch_grid_finalize(b, pos, quat, linvel, angvel, sanitized, contacts, sep,
     K5's masks; ``cand`` / ``dropped``: the refresh's candidates and K5's
     dropped manifolds (() int32).  Returns (pos, quat, linvel, angvel,
     prev_linvel, prev_angvel, stick bool, the 16 diagnostics lanes)."""
+    t0 = host_spans.begin("FN.prep")
     dev = b.pos.device
     g = b.mass.shape[-2]
     n = g * 128
@@ -921,8 +946,9 @@ def launch_grid_finalize(b, pos, quat, linvel, angvel, sanitized, contacts, sep,
     outs.append(torch.empty((16,), dtype=f32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     fold = _scratch(dev, stream, "finalize_fold_ticket", 11, i32)   # 10 words, the ticket
-    code = lib.cdll.avbd_grid_finalize(_ptrs(ins + outs + [fold]), _fparams(params), n, dc, d,
-                                       ctypes.c_void_p(stream))
+    code = host_spans.call("FN", t0, lib.cdll.avbd_grid_finalize,
+                           _ptrs(ins + outs + [fold]), _fparams(params), n, dc, d,
+                           ctypes.c_void_p(stream))
     _raise_on(code, "grid finalize kernel launch")
     return tuple(outs)
 
@@ -934,6 +960,7 @@ def launch_step_gates(b, diag, slack, dropped, params):
     broadphase cache's (() float32 / int32).  Returns (linvel, angvel,
     inv_mass: the frozen fields in new tensors, or ``b``'s own without the
     freeze; out (18,) float32: lanes 0-15, slack, dropped)."""
+    t0 = host_spans.begin("SG.prep")
     dev = b.pos.device
     g = b.mass.shape[-2]
     n = g * 128
@@ -945,8 +972,9 @@ def launch_step_gates(b, diag, slack, dropped, params):
     freeze = params.fall_freeze_y > -1.0e8
     frozen = _empty_as(ins[1:4]) if freeze else [None] * 3
     out = torch.empty((18,), dtype=torch.float32, device=dev)
-    code = lib.cdll.avbd_step_gates(_ptrs(ins + frozen + [out]), n,
-                                    float(params.fall_freeze_y), _stream(dev))
+    code = host_spans.call("SG", t0, lib.cdll.avbd_step_gates,
+                           _ptrs(ins + frozen + [out]), n, float(params.fall_freeze_y),
+                           _stream(dev))
     _raise_on(code, "step gates kernel launch")
     lv, av, im = (f if f is not None else t for f, t in zip(frozen, ins[1:4]))
     return lv, av, im, out
@@ -981,6 +1009,7 @@ def launch_ballistic_step(b, contacts, params):
     control lanes, reading ``contacts.count`` / ``other`` / ``lam`` as the
     cache holds them.  Returns (pos, quat, linvel, angvel, prev_linvel,
     prev_angvel, diag (16,) float32 with lanes 11-15 at CONTROL_RESET)."""
+    t0 = host_spans.begin("BS.prep")
     dev = b.pos.device
     g = b.mass.shape[-2]
     n = g * 128
@@ -997,7 +1026,8 @@ def launch_ballistic_step(b, contacts, params):
     outs.append(torch.empty((16,), dtype=f32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     fold = _scratch(dev, stream, "ballistic_fold_ticket", 8, i32)   # 7 words, the ticket
-    code = lib.cdll.avbd_ballistic_step(_ptrs(ins + outs + [fold]), _fparams(params), n, dc,
-                                        ctypes.c_void_p(stream))
+    code = host_spans.call("BS", t0, lib.cdll.avbd_ballistic_step,
+                           _ptrs(ins + outs + [fold]), _fparams(params), n, dc,
+                           ctypes.c_void_p(stream))
     _raise_on(code, "ballistic step kernel launch")
     return tuple(outs)

@@ -61,6 +61,7 @@ from .ops.broadphase import gather, refresh_or_reuse, refresh_scalar, symmetric_
 from .ops.joints import joint_dual_ema, joint_geometry
 from .solver_cuda import body_tables
 from .state import World, make_diagnostics
+from .utils import host_spans
 
 _F32 = np.float32
 
@@ -485,15 +486,22 @@ def select_path(world: World, cap: Capacity) -> str:
 def _grid_step(world: World, params: SolverParams, cap: Capacity) -> World:
     """The grid tier: the fall-freeze and the gates (``solver_grid.grid_gates``)
     and their one host read, the broadphase refresh or reuse, then
-    ``solver_grid.step_grid``."""
+    ``solver_grid.step_grid``; each in its span (``utils.host_spans``)."""
+    t = host_spans.begin("gates")
     world, gates = solver_grid.grid_gates(world, params)
+    t = host_spans.switch("gates", t, "read")
     step.host_reads += 1
     refreshed, stale_ok, calm = (v != 0.0 for v in gates.cpu().tolist()[:3])
+    t = host_spans.switch("read", t, "refresh")
     b = world.bodies
     bp, _ = refresh_or_reuse(world.bp, refreshed, b, world.exclusions,
                              cap.max_degree, params.bp_margin, window=cap.bp_window)
+    t = host_spans.switch("refresh", t, "decide")
     step.last_gates = {"refreshed": refreshed, "stale_ok": stale_ok, "calm": calm}
-    return solver_grid.step_grid(world.replace(bp=bp), params, cap, stale_ok, calm)
+    t = host_spans.switch("decide", t, "path")
+    world = solver_grid.step_grid(world.replace(bp=bp), params, cap, stale_ok, calm)
+    host_spans.end("path", t)
+    return world
 
 
 def step(world: World, params: SolverParams, cap: Capacity) -> World:
@@ -504,24 +512,44 @@ def step(world: World, params: SolverParams, cap: Capacity) -> World:
     ``ballistic_step``) or the fused step (``solver_cuda.step_fused``) or
     the portable one (``_step_impl``).  ``step.last_path`` names the path
     taken; the grid tier applies the fall-freeze with its gates, the others
-    with ``step_gates``."""
+    with ``step_gates``.  The host's time goes into ``utils.host_spans``:
+    ``step``, and inside it ``gates``, ``read`` (the host read), ``refresh``,
+    ``decide`` (the gates on the host copy) and ``path``."""
+    t0 = host_spans.begin("step")
+    world = _step(world, params, cap)
+    host_spans.end("step", t0)
+    return world
+
+
+def _step(world: World, params: SolverParams, cap: Capacity) -> World:
+    """``step`` inside its ``step`` span."""
     step.last_path = select_path(world, cap)
     if step.last_path == "grid":
         return _grid_step(world, params, cap)
+    t = host_spans.begin("gates")
     world, control = step_gates(world, params)
+    t = host_spans.switch("gates", t, "read")
     dv = host_read(control)
+    t = host_spans.switch("read", t, "refresh")
     bp, refreshed = refresh_scalar(world.bp, dv, world.bodies, world.exclusions,
                                    cap.max_degree, params.bp_margin, window=cap.bp_window)
     world = world.replace(bp=bp)
+    t = host_spans.switch("refresh", t, "decide")
     ballistic = ballistic_ok(params, world, dv, refreshed)
     step.last_gates = {"refreshed": refreshed, "ballistic": ballistic}
     if ballistic:
-        return ballistic_step(world, params)
-    stale_ok, calm = control_gates(dv, refreshed, params)
-    step.last_gates.update(stale_ok=stale_ok, calm=calm)
-    if step.last_path == "xla":
-        return _step_impl(world, params, cap, refreshed=refreshed, control=dv)
-    return solver_cuda.step_fused(world, params, cap, stale_ok, calm)
+        t = host_spans.switch("decide", t, "path")
+        world = ballistic_step(world, params)
+    else:
+        stale_ok, calm = control_gates(dv, refreshed, params)
+        step.last_gates.update(stale_ok=stale_ok, calm=calm)
+        t = host_spans.switch("decide", t, "path")
+        if step.last_path == "xla":
+            world = _step_impl(world, params, cap, refreshed=refreshed, control=dv)
+        else:
+            world = solver_cuda.step_fused(world, params, cap, stale_ok, calm)
+    host_spans.end("path", t)
+    return world
 
 
 def freeze_fallen(world: World, params: SolverParams) -> World:

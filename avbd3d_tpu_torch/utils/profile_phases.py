@@ -16,7 +16,9 @@ trace instead: after ``warm_steps`` steps (default 600) of ``scene``
   busy share                   (summed kernel time / wall time of the block)
   idle gaps                    (the longest stretches between device
                                 operations, each named by the host
-                                operation running when it began)
+                                operation or the span of
+                                ``utils/host_spans`` running when it
+                                began)
 
 with the card's name and power limit.  The same steps from the same state
 are timed once more without the profiler (host clock around a
@@ -41,6 +43,7 @@ import time
 import torch
 
 from .. import load_scene, run_steps, solver_cuda
+from . import host_spans
 
 TOP = 12
 TOP_GAPS = 5
@@ -74,8 +77,10 @@ def idle_gaps(device, host, top: int = TOP_GAPS) -> dict:
     (operators and runtime calls, nested as the profiler records them).
     A gap is a stretch between two device operations in which none ran;
     its label is the innermost host operation running at the gap's first
-    instant, or BETWEEN_OPS where none was.  Returns ``idle_us`` (all gaps
-    summed) and ``gaps`` (the ``top`` longest: us, start_us, host_op)."""
+    instant (a span of ``host_spans`` among them, inside ``trace``), or
+    BETWEEN_OPS where none was.  Returns ``idle_us`` (all gaps summed),
+    ``between_ops_us`` (those labelled BETWEEN_OPS) and ``gaps`` (the
+    ``top`` longest: us, start_us, host_op)."""
     gaps, end = [], None
     for s, e in sorted(device):
         if end is not None and s > end:
@@ -94,6 +99,7 @@ def idle_gaps(device, host, top: int = TOP_GAPS) -> dict:
         labels[t] = stack[-1][0] if stack else BETWEEN_OPS
     longest = sorted(gaps, key=lambda g: g[0] - g[1])[:top]
     return {"idle_us": sum(e - s for s, e in gaps),
+            "between_ops_us": sum(e - s for s, e in gaps if labels[s] == BETWEEN_OPS),
             "gaps": [{"us": e - s, "start_us": s, "host_op": labels[s]} for s, e in longest]}
 
 
@@ -142,13 +148,19 @@ def trace(w, p, c, steps: int) -> dict:
     """``steps`` steps from ``w``, once untimed by the profiler and once
     under ``torch.profiler`` from the same state, so both blocks do the
     same work; prints nothing.  On the card the session opens with
-    ``prime``, whose records every figure leaves out.  Returns ``wall_s``
-    and ``untraced_s`` (the block with and without the profiler),
-    ``device_us`` (summed kernel time; 0.0 when the trace holds none),
-    ``launches`` (kernels traced on the card), ``busy`` (device_us / wall,
-    None without device time), ``kernels`` and ``operators`` ([(name, self
-    us, count)], largest first), ``gaps`` (``idle_gaps`` of the traced
-    block; None without device time)."""
+    ``prime``, whose records every figure leaves out.  Inside the traced
+    block each span of ``host_spans`` is also a profiler range
+    (``host_spans.PREFIX`` + its name), which labels the idle gaps; the
+    range's mirror on the device's timeline is no device operation and is
+    left out of every device figure.  Returns ``wall_s`` and ``untraced_s``
+    (the block with and without the profiler), ``device_us`` (summed kernel
+    time; 0.0 when the trace holds none), ``launches`` (kernels traced on
+    the card), ``busy`` (device_us / wall, None without device time),
+    ``kernels`` and ``operators`` ([(name, self us, count)], largest first;
+    the spans' ranges among the operators), ``gaps`` (``idle_gaps`` of the
+    traced block, and ``unspanned``: the same gaps labelled without the
+    spans' ranges, as the host ops alone name them; None without device
+    time) and ``span_mirrors`` (the device-side span records left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
@@ -159,10 +171,11 @@ def trace(w, p, c, steps: int) -> dict:
     with torch_profile(activities=activities) as prof:
         if cuda:
             prime(w, p)
-        with record_function(WINDOW):
+        with record_function(WINDOW), host_spans.traced(record_function):
             _, wall = _timed_block(w, p, c, steps, cuda)
     events = _window_events(prof.events())
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = [e for e in on_device if not e.name.startswith(host_spans.PREFIX)]
     host = [e for e in events if e.device_type == DeviceType.CPU]
     kernels = [r for r in _summed(device, device_time_us) if r[1] > 0.0]
     operators = _summed(host, lambda e: float(e.self_cpu_time_total))
@@ -171,13 +184,15 @@ def trace(w, p, c, steps: int) -> dict:
     busy = device_us / (wall * 1e6) if device_us > 0.0 else None
     gaps = None
     if device_us > 0.0:
-        gaps = idle_gaps([(e.time_range.start, e.time_range.end) for e in device
-                          if not e.is_async],
-                         [(e.name, e.time_range.start, e.time_range.end) for e in host
-                          if not e.is_async])
+        ops = [(e.name, e.time_range.start, e.time_range.end) for e in host if not e.is_async]
+        on_card = [(e.time_range.start, e.time_range.end) for e in device if not e.is_async]
+        gaps = idle_gaps(on_card, ops)
+        gaps["unspanned"] = idle_gaps(
+            on_card, [o for o in ops if not o[0].startswith(host_spans.PREFIX)])
     return {"wall_s": wall, "untraced_s": untraced, "device_us": device_us,
             "launches": launches, "busy": busy, "kernels": kernels, "operators": operators,
-            "gaps": gaps}
+            "gaps": gaps,
+            "span_mirrors": len(on_device) - len(device)}
 
 
 def profile(scene_name: str, warm: int, steps: int, device) -> dict:

@@ -145,7 +145,12 @@
    windows, each checked against its own untimed rerun), its last line
    parsed: ``correct`` true, ``device`` the card of phase 1, K1 and K2
    launched on Stress1000, K5 once and K6 five times a Stress4096 grid
-   step, one host read a fused step; the phase's seconds.  Then each cell
+   step, one host read a fused step; the phase's seconds.  Each regime's
+   host spans (``layers.host_span_us_per_step``, utils/host_spans.py):
+   every ``<id>.call`` a step equal to that kernel's launches a step,
+   ``step_other`` at most 10% of ``step``, the allocator's counts read,
+   the span ranges' device mirrors absent from the traced device figures;
+   the split printed.  Then each cell
    of BENCHMARK.json as its command runs it, with ``--quick``, in a
    subprocess: its last line held to ``correct``, the cell's seed, the
    plain-version check at both ends of the timed windows (one step on the
@@ -1858,6 +1863,7 @@ def bench_phase(card: str) -> dict:
         c = r["counts"]
         if c["paths"].get("fused") == c["steps"] and c["host_reads_per_step"] != 1.0:
             fail(f"bench --quick, {name}: {c['host_reads_per_step']} host reads a fused step")
+    split = host_split_holds(line)
     settled = regimes["stress1000_settled"]
     print(f"[{card}] bench --quick: {seconds:.1f} s, correct; settled Stress1000 "
           f"{settled['best']:.1f} steps/s (one block of {settled['window_steps']}), falling "
@@ -1865,7 +1871,57 @@ def bench_phase(card: str) -> dict:
           f"{extra['stress2048']['steps_per_sec']:.1f}, Stress4096 "
           f"{extra['stress4096']['steps_per_sec']:.1f}; K1 {k1}, K2 {k2} launches on Stress1000, "
           f"K5 / K6 1 / 5 a grid step; one host read a step")
+    print(f"[{card}] bench --quick, the host's timed step by span (us a step; "
+          f"utils/host_spans): {json.dumps(split)}")
     return {"seconds": seconds, "line": line, "k1": k1, "k2": k2, "grid": grid}
+
+
+# The most of a timed step that no span of solver.step covers, over the
+# bench's short windows (``step_other``, the step's own calls and the path's
+# choice).
+STEP_OTHER_SHARE = 0.10
+
+
+def host_split_holds(line: dict) -> dict:
+    """Phase 18's holds on the host spans of each regime of a bench line:
+    every ``<id>.call`` a step equal to that kernel's launches a step
+    (``bench.span_calls_planned``), ``step_other`` at most STEP_OTHER_SHARE
+    of ``step``, the steps' spans within the windows' wall time (``loop``
+    >= 0), the allocator's counts read, and the traced window's span ranges
+    mirrored on the device left out of its device figures (no kernel of
+    that name among them; the count left out is printed).  Returns each
+    regime's split, us a step."""
+    from avbd3d_tpu_torch import bench
+    from avbd3d_tpu_torch.utils import host_spans
+
+    out = {}
+    for name, r in line["extra"]["regimes"].items():
+        lay = line["layers"][name]
+        us, calls = lay["host_span_us_per_step"], lay["host_span_calls_per_step"]
+        planned = bench.span_calls_planned(r["counts"]["launches_per_step"])
+        got = {k: v for k, v in calls.items() if k.endswith(".call")}
+        if got != planned:
+            fail(f"bench --quick, {name}: span calls a step {got}, the launches give {planned}")
+        if not us["step_other"] <= STEP_OTHER_SHARE * us["step"]:
+            fail(f"bench --quick, {name}: step_other {us['step_other']:.2f} us of a "
+                 f"{us['step']:.2f} us step, more than {STEP_OTHER_SHARE:.0%}")
+        if not us["loop"] >= 0.0:
+            fail(f"bench --quick, {name}: the steps' spans exceed the windows' wall time "
+                 f"(loop {us['loop']:.2f} us a step)")
+        if "not measured" in (lay["device_allocs_per_step"], lay["device_frees_per_step"],
+                              lay["alloc_retries"]):
+            fail(f"bench --quick, {name}: the allocator's counts were not read")
+        traced = line["extra"]["traced"][name]
+        mirrored = [k["name"] for k in traced["top_kernels"]
+                    if k["name"].startswith(host_spans.PREFIX)]
+        if mirrored or any(k.startswith(host_spans.PREFIX) for k in traced["kernel_us_per_step"]):
+            fail(f"bench --quick, {name}: span ranges counted as device work: {mirrored}")
+        out[name] = {k: round(v, 2) for k, v in us.items()}
+        out[name].update(allocs=lay["device_allocs_per_step"], frees=lay["device_frees_per_step"],
+                         retries=lay["alloc_retries"],
+                         between_ops=lay["idle_between_ops_share"],
+                         mirrors_left_out=traced["span_mirrors_left_out"])
+    return out
 
 
 def cells_phase(card: str) -> dict:

@@ -387,6 +387,15 @@ def test_idle_gaps_name_the_host_op_and_the_length():
     assert labels == {31.0: "aten::topk", 22.0: "cudaLaunchKernel", 50.0: BETWEEN_OPS,
                       10.0: BETWEEN_OPS}
     assert idle_gaps([(0.0, 5.0), (1.0, 4.0)], host)["gaps"] == []
+    # A gap that begins inside a span's range (utils.host_spans; open only
+    # inside profile_phases.trace) is named by the span; the gaps no host op
+    # or span names are summed apart.
+    spanned = host + [("avbd.refresh", 48.0, 52.0)]
+    out = idle_gaps(device, spanned)
+    labels = {g["start_us"]: g["host_op"] for g in out["gaps"]}
+    assert labels == {31.0: "aten::topk", 22.0: "cudaLaunchKernel", 50.0: "avbd.refresh",
+                      10.0: BETWEEN_OPS}
+    assert out["between_ops_us"] == 2.0 and idle_gaps(device, host)["between_ops_us"] == 5.0
 
 
 def global_kernels() -> set:
